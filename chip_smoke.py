@@ -1,31 +1,59 @@
 #!/usr/bin/env python3
-"""On-GPU smoke test of the PyTorch/CUDA port's main path (pair-decode).
+"""On-GPU smoke test of the PyTorch/CUDA port's main paths (pair-decode
+and decode).
 
 Run from a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
 Phases (each fails the run if it fails):
-  1. build: the C++ host runtime (g++) and the CUDA kernel (nvcc, sm_90a),
-     both from the checkout's sources, in parallel; prints build seconds
-     and the compiler's register / spill report.
-  2. kernel vs plain version on the card: ``pair_beam_cuda`` against
-     ``planned_scan`` on the same inputs -- the five envelope cases of
-     tests/test_pallas.py at B=1, 4 and 8, the 24 anchor boxes of
-     tests/data/boxes.npz as one batch, and two simulated pairs of ~1500
-     bases. Strings and final validity must be equal, final scores within
-     1e-3; steps whose provenance differs are counted (expected: none,
-     and scores bit-equal, since both run the same ops in the same order).
-  3. the main path at full size, through the CLI entry point
+  1. build: the C++ host runtime (g++) and the two CUDA kernels (nvcc,
+     sm_90a, one process each), all from the checkout's sources, in
+     parallel; prints build seconds and the compiler's register / spill
+     report.
+  2. kernels vs plain versions on the card.
+     Pair beam (``pair_beam_cuda`` against ``planned_scan``): the five
+     envelope cases of tests/test_pallas.py at B=1, 4 and 8, the 24 anchor
+     boxes of tests/data/boxes.npz as one batch, and two simulated pairs of
+     ~1000 bases. Strings and final validity must be equal, final scores
+     within 1e-3; steps whose provenance differs are counted (expected:
+     none, and scores bit-equal, since both run the same ops in the same
+     order).
+     1D beam (``beam1d_cuda`` against ``beam1d_plain``): the mixed lengths
+     of tests/test_pallas.py for ctc, ctc_merge_repeats and ctc_flipflop at
+     W=25 and W=5. Strings, chars and final validity must be equal, the
+     final table within 1e-3 (expected bit-equal, provenance too), and
+     the strings equal to the engine ``beam_search_batch`` on the card.
+  3. pair-decode at full size, through the CLI entry point
      (``poreover_tpu_torch.cli.main``): 8 simulated pairs (seed 7,
      5200-8200 bases, ~36k-58k steps per read) decoded with
      ``--reverse_complement --threads 8``; launch counts are zeroed just
      before and read just after. Pair 0's consensus is held against the
      f64 windowed-memo C++ oracle (identity >= 0.999).
-  4. timing with CUDA events around ``launch_prepared`` on the same wave,
-     and the bound of that work; then kernel vs plain version again on the
-     wave's first PLAIN_STEPS plan steps per pair (the plain version is too
-     slow for the whole wave), timed both.
+  4. the single-pair entry ``beam_search_2d(method="row_col")``: the five
+     envelope cases against the plain version, then pair 0 of phase 3 at
+     full size against the consensus phase 3 wrote, timed; its launch
+     count is zeroed just before and read just after.
+  5. timing of the pair kernel with CUDA events around ``launch_prepared``
+     on phase 3's wave, and the bound of that work; then kernel vs plain
+     version again on the wave's first PLAIN_STEPS plan steps per pair (the
+     plain version is too slow for the whole wave), timed both; the same
+     for pair 0 alone (the single-pair entry's input).
+  6. decode at full size, through the CLI: 32 simulated poreover reads
+     (seed 11, 5200-8200 bases) with ``--algorithm beam --beam_width 25
+     --threads 32``, launch count zeroed just before and read just after;
+     32 records, each at identity >= 0.9 to its true sequence; then the
+     same reads with ``--algorithm viterbi``. The shortest read's beam
+     string must be at least as likely under the read's own emissions (the float64 forward sum over alignments) as its Viterbi
+     string; how the beam's strings differ from the true ones (inserted,
+     missing, substituted bases) is printed. Then 4 reads of ~1500 bases
+     each as bonito ``.npy`` and flip-flop ``.csv`` traces, ``beam`` and
+     ``viterbi``, each byte-identical to the same command with ``--device
+     cpu``.
+  7. timing of the 1D kernel with CUDA events on phase 6's wave of 32
+     reads, and its bound; kernel vs plain version on that whole wave, every
+     step of every read (strings, chars, provenance, final table), timed
+     both; the strings must be the ones phase 6's FASTA holds.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -56,6 +84,20 @@ F32_FLOPS = 67e12
 OPS_PER_CELL = 3 + 2 * 6
 SCORE_TOL = 1e-3
 PLAIN_STEPS = 1500
+PLAIN_STEPS_SINGLE = 500
+DEVICE = "cuda"
+IDENTITY_FLOOR = 0.9  # a decoded simulated read against its true sequence
+# 1D beam, float operations per step and read: each of the C candidates
+# updates its state (two adds and a log-add-exp of six ops; the two-state
+# kinds do this twice and add a log-add-exp for the parent and one for the
+# score). Picking the W best of C is integer comparisons and key lookups,
+# no float operations, so it is left out of the count.
+OPS_LSE = 6
+BEAM1D_UPDATE_OPS = {0: 2 + OPS_LSE, 1: 2 * (2 + OPS_LSE) + 2 * OPS_LSE,
+                     2: 2 * (2 + OPS_LSE) + 2 * OPS_LSE}
+MIXED_LENGTHS = {"ctc": (300, 257, 512, 100, 421, 380, 256, 64),
+                 "ctc_merge_repeats": (300, 257, 512, 100, 401, 77),
+                 "ctc_flipflop": (300, 257, 512, 100, 401, 77)}
 
 
 def log(*a):
@@ -176,7 +218,7 @@ def upload(packed):
     """A packed batch (``pack_pairs``) with its tensors on the card."""
     import torch
 
-    return dict(packed, dev=[torch.as_tensor(packed[k], device="cuda")
+    return dict(packed, dev=[torch.as_tensor(packed[k], device=DEVICE)
                              for k in ("planes1", "planes2", "plan", "meta")])
 
 
@@ -245,6 +287,129 @@ def event_ms(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
+def softmax_log(rng, T, S):
+    x = rng.normal(size=(T, S)) * 2
+    return (x - np.log(np.exp(x).sum(1, keepdims=True))).astype(np.float32)
+
+
+def beam1d_bound_ms(prep) -> tuple[float, str, str]:
+    """Least time for a 1D wave: bytes (emissions read once; provenance,
+    chars and the final table written once) over HBM bandwidth, vs the
+    float ops of the candidates' updates over f32 peak. The ctc root plane
+    is left out of the bytes: it is derived from the emissions."""
+    W, A = prep["W"], prep["A"]
+    C = W * (A + 1)
+    steps = int(prep["meta"][:, 1].sum())
+    y, _, meta = prep["host"]
+    nbytes = (y.numel() * y.element_size()
+              + meta.numel() * meta.element_size()
+              + steps * W + steps + len(prep["meta"]) * C * 9)
+    per_step = C * BEAM1D_UPDATE_OPS[prep["model_id"]]
+    nops = steps * per_step
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = nops / F32_FLOPS * 1e3
+    terms = (f"{nbytes} bytes -> {t_bytes:.4g} ms at {HBM_BPS:.3g} B/s; "
+             f"{nops} float ops ({steps} steps x {per_step}) -> "
+             f"{t_ops:.4g} ms at {F32_FLOPS:.3g} FLOP/s")
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", terms
+    return t_ops, "operations", terms
+
+
+def compare_beam1d(name, prep, stats, engine_ys=None):
+    """1D kernel vs plain version on one prepared batch, both on the card.
+    Returns (the strings, kernel ms, plain ms), each one run timed with
+    CUDA events."""
+    import torch
+    from poreover_tpu_torch.ops import beam1d
+    from poreover_tpu_torch.ops.beam import _MODEL_IDS, beam_search_batch
+
+    args = (*prep["dev"], prep["meta"], prep["W"], prep["A"],
+            prep["model_id"])
+    k, t_k = timed(lambda: beam1d.beam1d_cuda(*args))
+    p, t_p = timed(lambda: beam1d.beam1d_plain(*args))
+    sk, sp = beam1d.fetch_beam1d(prep, k), beam1d.fetch_beam1d(prep, p)
+    if sk != sp:
+        bad = [i for i, (a, b) in enumerate(zip(sk, sp)) if a != b]
+        fail(f"{name}: kernel strings differ from the plain version at "
+             f"reads {bad}")
+    if not torch.equal(k[1], p[1]):
+        fail(f"{name}: decoded chars differ")
+    if not torch.equal(k[4], p[4]):
+        fail(f"{name}: final validity differs")
+    n_prov = int((k[0] != p[0]).any(1).sum())
+    err = 0.0
+    for a, b in ((k[2], p[2]), (k[3], p[3])):
+        fa, fb = torch.isfinite(a), torch.isfinite(b)
+        if not torch.equal(fa, fb) or not torch.equal(a[~fa], b[~fb]):
+            fail(f"{name}: non-finite positions of the final table differ")
+        if fa.any():
+            err = max(err, float((a[fa] - b[fb]).abs().max()))
+    if err > SCORE_TOL:
+        fail(f"{name}: final table differs by {err} > {SCORE_TOL}")
+    stats["max_abs_err"] = max(stats["max_abs_err"], err)
+    stats["prov_rows_differ"] += n_prov
+    eng = ""
+    if engine_ys is not None:
+        model = [m for m, i in _MODEL_IDS.items()
+                 if i == prep["model_id"]][0]
+        se = beam_search_batch(engine_ys, prep["W"], model=model,
+                               device=DEVICE)
+        if sk != se:
+            fail(f"{name}: kernel strings differ from the engine's")
+        eng = ", equal to the engine"
+    log(f"  {name}: B={len(prep['meta'])} steps="
+        f"{int(prep['meta'][:, 1].sum())} (max "
+        f"{int(prep['meta'][:, 1].max())} per read) strings equal{eng}, "
+        f"provenance differs at {n_prov} steps, max |table err| {err:.3g}; "
+        f"kernel {t_k:.1f} ms, plain {t_p:.1f} ms")
+    return sk, t_k, t_p
+
+
+def fasta_records(path):
+    recs = open(path).read().split(">")[1:]
+    return {r.split("\n", 1)[0]: "".join(r.splitlines()[1:]) for r in recs}
+
+
+def identity(a, b):
+    from poreover_tpu_torch import native
+
+    x, z = native.global_pair_banded(a, b)
+    return sum(p == q for p, q in zip(x, z)) / max(len(x), 1)
+
+
+def edits(got, true):
+    """(inserted, missing, substituted) bases of ``got`` against ``true``,
+    by the columns of their banded global alignment."""
+    from poreover_tpu_torch import native
+
+    x, z = native.global_pair_banded(got, true)
+    ins = sum(q == "-" for q in z)
+    miss = sum(p == "-" for p in x)
+    return ins, miss, sum(p != q for p, q in zip(x, z)) - ins - miss
+
+
+def decode_cli(d, inputs, basecaller, algorithm, out, device=None,
+               threads=32):
+    """One ``decode`` run through the CLI; returns (records, wall seconds,
+    the run's stage timers)."""
+    import torch
+    from poreover_tpu_torch.cli import main as cli_main
+    from poreover_tpu_torch.utils.timers import timers
+
+    argv = ["decode", *inputs, "--basecaller", basecaller, "--algorithm",
+            algorithm, "--beam_width", "25", "--threads", str(threads),
+            "--out", os.path.join(d, out)]
+    if device:
+        argv += ["--device", device]
+    t0 = time.perf_counter()
+    cli_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (fasta_records(os.path.join(d, out + ".fasta")), wall,
+            dict(timers.seconds))
+
+
 def main():
     import torch
 
@@ -253,7 +418,8 @@ def main():
     if not os.path.isdir(os.path.join(HERE, "poreover_tpu_torch")):
         fail("poreover_tpu_torch/ is not beside this script")
     sys.path.insert(0, HERE)
-    from poreover_tpu_torch import native
+    from poreover_tpu_torch import build, native
+    from poreover_tpu_torch.ops import beam1d
     from poreover_tpu_torch.ops import pair_beam_batch as pbb
 
     t_start = time.perf_counter()
@@ -262,7 +428,7 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    # ---- phase 1: build both libraries in parallel
+    # ---- phase 1: build the three libraries in parallel
     t0 = time.perf_counter()
     errs = []
 
@@ -273,7 +439,7 @@ def main():
             errs.append(exc)
 
     ths = [threading.Thread(target=run, args=(f,))
-           for f in (native.load, pbb.load_kernel)]
+           for f in (native.load, pbb.load_kernel, beam1d.load_kernel)]
     for th in ths:
         th.start()
     for th in ths:
@@ -281,16 +447,11 @@ def main():
     if errs:
         fail(f"build: {errs[0]}")
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s")
-    for logf in sorted(os.listdir(os.path.join(HERE, "poreover_tpu_torch",
-                                               "_build"))):
-        if logf.startswith("libpair_beam_batch") and logf.endswith(".log"):
-            txt = open(os.path.join(HERE, "poreover_tpu_torch", "_build",
-                                    logf)).read().strip()
-            for line in txt.splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  ptxas: {line.strip()}")
+    for kernel in ("pair_beam_batch", "beam1d"):
+        for line in build.ptxas_report(kernel):
+            log(f"  ptxas {kernel}: {line}")
 
-    # ---- phase 2: kernel vs plain version on the card
+    # ---- phase 2: kernels vs plain versions on the card
     from poreover_tpu_torch.ops.beam2d_planned import (
         build_plan, pack_pairs, plan_wst,
     )
@@ -300,15 +461,28 @@ def main():
     batches = [(f"case{i}", [c]) for i, c in enumerate(cs)]
     batches += [("cases B=4", cs[:4]), ("cases B=8", (cs * 2)[:8]),
                 ("boxes B=24", boxes()),
-                ("sim pairs ~1500 bases B=2",
-                 sim_workloads(2, seed=3, lo=1400, hi=1600))]
+                ("sim pairs ~1000 bases B=2",
+                 sim_workloads(2, seed=3, lo=900, hi=1100))]
     for name, batch in batches:
         compare(name, upload(pack_pairs(batch)), stats)
+
+    stats1d = {"max_abs_err": 0.0, "prov_rows_differ": 0}
+    for model, S in (("ctc", 5), ("ctc_merge_repeats", 5),
+                     ("ctc_flipflop", 8)):
+        for W in (25, 5):
+            rng = np.random.default_rng(7)
+            ys = [softmax_log(rng, T, S) for T in MIXED_LENGTHS[model]]
+            prep = beam1d.prepare_beam1d(ys, beam_width=W, model=model,
+                                         device=DEVICE)
+            compare_beam1d(f"beam1d {model} W={W}", prep, stats1d,
+                           engine_ys=ys)
     log(f"phase 2 done: {time.perf_counter() - t_start:.0f} s elapsed")
 
-    # ---- phase 3: the main path at full size, through the CLI
+    # ---- phase 3: pair-decode at full size, through the CLI
     from poreover_tpu_torch.cli import main as cli_main
-    from poreover_tpu_torch.sim import write_pairs
+    from poreover_tpu_torch.sim import (
+        ctc_log_likelihood, write_pairs, write_reads,
+    )
     from poreover_tpu_torch.utils.timers import timers
 
     with tempfile.TemporaryDirectory() as d:
@@ -324,7 +498,7 @@ def main():
         launches = pbb.launch_count
         t_cons = timers.seconds.get("consensus_2d", float("nan"))
         if launches < 1:
-            fail("the main path launched pair_beam_batch no time")
+            fail("pair-decode launched pair_beam_batch no time")
         recs = open(out + ".2d.fasta").read().split(">")[1:]
         rows = [r.split("\t") for r in open(out + ".log").read().splitlines()
                 if not r.startswith("#")]
@@ -332,55 +506,222 @@ def main():
             fail(f"expected 8 consensus records and no skips; got "
                  f"{len(recs)} records, log rows {rows}")
         cons0 = "".join(recs[0].splitlines()[1:])
-        log(f"phase 3 main path: 8 pairs, {launches} launch(es), "
+        log(f"phase 3 pair-decode: 8 pairs, {launches} launch(es), "
             f"end-to-end {t_e2e:.2f} s, consensus stage {t_cons:.2f} s")
         wave = [workload_of(d, f"s{i}_1.npy", f"s{i}_2.npy")
                 for i in range(8)]
     t0 = time.perf_counter()
     oracle = native.pair_beam_row_col_cpu_emul(*wave[0], beam_width=5)
-    a, b = native.global_pair_banded(cons0, oracle)
-    same = sum(x == z for x, z in zip(a, b))
-    ident = same / max(len(a), 1)
+    ident = identity(cons0, oracle)
     log(f"  pair 0: consensus {len(cons0)} bases, f64 oracle "
         f"{len(oracle)} bases ({time.perf_counter() - t0:.1f} s), aligned "
-        f"identity {ident:.6f}, {len(a) - same} differing columns")
+        f"identity {ident:.6f}")
     if not np.isfinite(ident) or ident < 0.999:
         fail(f"pair 0 identity {ident} to the f64 oracle < 0.999")
 
-    # ---- phase 4: timing on the main path's wave
-    prep = pbb.prepare_pairs(wave, device="cuda")
+    # ---- phase 4: the single-pair entry
+    from poreover_tpu_torch.ops.beam2d import beam_search_2d
+    from poreover_tpu_torch.ops.beam2d_planned import beam_search_2d_planned
+
+    for i, (y1, y2, env) in enumerate(cs):
+        got = beam_search_2d(y1, y2, env, beam_width=5, method="row_col")
+        want = beam_search_2d_planned(y1, y2, env, beam_width=5)
+        if got != want:
+            fail(f"single-pair entry, case{i}: differs from the plain "
+                 "version")
+    pbb.single_launch_count = 0
+    got, single_ms = timed(lambda: beam_search_2d(
+        *wave[0], beam_width=5, method="row_col"))
+    single_launches = pbb.single_launch_count
+    if single_launches < 1:
+        fail("the single-pair entry launched the kernel no time")
+    if got != cons0:
+        fail("single-pair entry: pair 0 at full size differs from the "
+             "consensus pair-decode wrote")
+    log(f"phase 4 single-pair entry: 5 cases equal to the plain version; "
+        f"pair 0 at full size equal to pair-decode's consensus, "
+        f"{single_launches} launch(es), {single_ms:.1f} ms with host "
+        f"prep, upload and fetch")
+
+    # ---- phase 5: timing of the pair kernel on phase 3's wave
+    prep = pbb.prepare_pairs(wave, device=DEVICE)
     steps = prep["meta"][:, 7]
     wave_ms = event_ms(lambda: pbb.launch_prepared(prep), reps=2)
     wave_bound, wave_by, wave_terms = bound_ms(prep)
-    log(f"phase 4 [{gpu}]: kernel {wave_ms:.1f} ms per 8-pair wave "
+    log(f"phase 5 [{gpu}]: kernel {wave_ms:.1f} ms per 8-pair wave "
         f"(bound {wave_bound:.4f} ms, {wave_by}); plan steps per pair "
         f"{steps.tolist()} (mean {steps.mean():.0f}); consensus "
         f"{8 / (wave_ms / 1e3):.2f} pairs/s (kernel), "
         f"{8 / t_cons:.2f} pairs/s (stage 4 wall); end-to-end "
         f"{8 / t_e2e:.2f} pairs/s")
     log(f"  bound terms: {wave_terms}")
+    prep1 = pbb.prepare_pairs(wave[:1], device=DEVICE)
+    one_ms = event_ms(lambda: pbb.launch_prepared(prep1), reps=1)
+    one_bound, one_by, one_terms = bound_ms(prep1)
+    log(f"  pair 0 alone (one CTA): kernel {one_ms:.1f} ms (bound "
+        f"{one_bound:.4f} ms, {one_by}); {one_terms}")
     # the plain version is far too slow for the whole wave (~10 ms per
     # plan step), so both run the wave's first PLAIN_STEPS plan steps per
     # pair, at the full plans' storage widths
     plans = [build_plan(env, len(y1), len(y2)) for y1, y2, env in wave]
-    short = upload(pack_pairs(
-        wave, plans=[{k: v[:PLAIN_STEPS] for k, v in p.items()}
-                     for p in plans], wst=[plan_wst(p) for p in plans]))
-    short_k, short_p = compare(f"main wave, first {PLAIN_STEPS} steps",
+
+    def truncated(pairs, pls, n):
+        return upload(pack_pairs(
+            pairs, plans=[{k: v[:n] for k, v in p.items()} for p in pls],
+            wst=[plan_wst(p) for p in pls]))
+
+    short = truncated(wave, plans, PLAIN_STEPS)
+    short_k, short_p = compare(f"pair wave, first {PLAIN_STEPS} steps",
                                short, stats)
     short_bound = bound_ms(short)[0]
+    stats_single = {"max_abs_err": 0.0}
+    short1 = truncated(wave[:1], plans[:1], PLAIN_STEPS_SINGLE)
+    short1_k, short1_p = compare(
+        f"pair 0 alone, first {PLAIN_STEPS_SINGLE} steps", short1,
+        stats_single)
+    short1_bound = bound_ms(short1)[0]
+    del wave, prep, prep1, short, short1
 
-    kern = {
+    # ---- phase 6: decode at full size, through the CLI
+    with tempfile.TemporaryDirectory() as d:
+        truth = write_reads(d, 32, seed=11, lo=5200, hi=8200)
+        beam1d.launch_count = 0
+        recs, dec_wall, dec_timers = decode_cli(d, [d], "poreover", "beam",
+                                                "beam")
+        dec_launches = beam1d.launch_count
+        if dec_launches < 1:
+            fail("decode --algorithm beam launched beam1d no time")
+        if sorted(recs) != sorted(f"r{i}" for i in range(32)):
+            fail(f"expected 32 FASTA records, got {sorted(recs)}")
+        idents = [identity(recs[f"r{i}"], truth[i]) for i in range(32)]
+        log(f"phase 6 decode beam: 32 reads, {dec_launches} launch(es), "
+            f"end-to-end {dec_wall:.2f} s ({32 / dec_wall:.2f} reads/s); "
+            f"stages " + " ".join(f"{k}={v:.3f}s"
+                                  for k, v in dec_timers.items()))
+        log("  identity to the true sequences: "
+            + " ".join(f"{x:.4f}" for x in idents))
+        if not all(np.isfinite(idents)) or min(idents) < IDENTITY_FLOOR:
+            fail(f"beam identity {min(idents)} < {IDENTITY_FLOOR}")
+        vrecs, vit_wall, vit_timers = decode_cli(d, [d], "poreover",
+                                                 "viterbi", "vit")
+        if sorted(vrecs) != sorted(recs):
+            fail("decode --algorithm viterbi: records missing")
+        videns = [identity(vrecs[f"r{i}"], truth[i]) for i in range(32)]
+        log(f"  decode viterbi: end-to-end {vit_wall:.2f} s; stages "
+            + " ".join(f"{k}={v:.3f}s" for k, v in vit_timers.items())
+            + f"; identity min {min(videns):.4f} mean "
+            f"{np.mean(videns):.4f} (beam mean {np.mean(idents):.4f})")
+        if min(videns) < IDENTITY_FLOOR:
+            fail(f"viterbi identity {min(videns)} < {IDENTITY_FLOOR}")
+        from poreover_tpu_torch.io.trace import model_from_trace
+
+        wave1d = [model_from_trace(os.path.join(d, f"r{i}.npy"),
+                                   "poreover").log_prob for i in range(32)]
+    # why the beam's identity is below Viterbi's: what its strings differ
+    # by, and which string the read's own emissions make more likely
+    n_ins, n_miss, n_sub = (sum(x) for x in zip(*(
+        edits(recs[f"r{i}"], truth[i]) for i in range(32))))
+    v_ins, v_miss, v_sub = (sum(x) for x in zip(*(
+        edits(vrecs[f"r{i}"], truth[i]) for i in range(32))))
+    log(f"  beam vs true sequences, 32 reads: {n_ins} inserted, {n_miss} "
+        f"missing, {n_sub} substituted bases; viterbi: {v_ins} inserted, "
+        f"{v_miss} missing, {v_sub} substituted")
+    i = int(np.argmin([len(y) for y in wave1d]))
+    t0 = time.perf_counter()
+    ll = {k: ctc_log_likelihood(wave1d[i], q) for k, q in
+          (("beam", recs[f"r{i}"]), ("viterbi", vrecs[f"r{i}"]),
+           ("true", truth[i]))}
+    log(f"  read r{i} ({len(wave1d[i])} steps): log-likelihood of the "
+        f"beam's string {ll['beam']:.2f}, Viterbi's {ll['viterbi']:.2f}, "
+        f"the true sequence's {ll['true']:.2f} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not ll["beam"] >= ll["viterbi"]:
+        fail(f"read r{i}: the beam's string is less likely ({ll['beam']}) "
+             f"than Viterbi's ({ll['viterbi']})")
+    for kind, basecaller in (("bonito", "bonito"), ("flipflop", "flappie")):
+        with tempfile.TemporaryDirectory() as d:
+            truth4 = write_reads(d, 4, seed=5, lo=1400, hi=1600, kind=kind)
+            inputs = [d] if kind == "bonito" else [
+                os.path.join(d, f"r{i}.csv") for i in range(4)]
+            for alg in ("beam", "viterbi"):
+                beam1d.launch_count = 0
+                on_card, t_card, tm = decode_cli(d, inputs, basecaller, alg,
+                                                 f"{alg}_cuda")
+                n_l = beam1d.launch_count
+                if alg == "beam" and n_l < 1:
+                    fail(f"decode {kind} beam launched beam1d no time")
+                on_cpu, t_cpu, _ = decode_cli(d, inputs, basecaller, alg,
+                                              f"{alg}_cpu", device="cpu")
+                a = open(os.path.join(d, f"{alg}_cuda.fasta"), "rb").read()
+                b = open(os.path.join(d, f"{alg}_cpu.fasta"), "rb").read()
+                if a != b or len(on_card) != 4:
+                    fail(f"decode {kind} {alg}: the card's FASTA differs "
+                         "from --device cpu")
+                ids = [identity(on_card[f"r{i}"], truth4[i])
+                       for i in range(4)]
+                log(f"  decode {kind} {alg}: 4 reads byte-identical to "
+                    f"--device cpu; card {t_card:.2f} s ({n_l} beam1d "
+                    f"launches; stages "
+                    + " ".join(f"{k}={v:.3f}s" for k, v in tm.items())
+                    + f"), cpu {t_cpu:.2f} s; identity min {min(ids):.4f}")
+                if min(ids) < IDENTITY_FLOOR:
+                    fail(f"{kind} {alg} identity {min(ids)} < "
+                         f"{IDENTITY_FLOOR}")
+    log(f"phase 6 done: {time.perf_counter() - t_start:.0f} s elapsed")
+
+    # ---- phase 7: timing of the 1D kernel on phase 6's wave
+    prep = beam1d.prepare_beam1d(wave1d, beam_width=25, device=DEVICE)
+    lens = prep["meta"][:, 1]
+    b4_ms = event_ms(lambda: beam1d.launch_beam1d(prep), reps=3)
+    b4_bound, b4_by, b4_terms = beam1d_bound_ms(prep)
+    log(f"phase 7 [{gpu}]: beam1d {b4_ms:.1f} ms per 32-read wave, "
+        f"{b4_ms * 1e3 / lens.max():.2f} us per step of the longest read "
+        f"({int(lens.max())} steps; mean {lens.mean():.0f}); bound "
+        f"{b4_bound:.4f} ms ({b4_by}); {32 / (b4_ms / 1e3):.1f} reads/s "
+        f"(kernel), {32 / dec_wall:.2f} reads/s end to end")
+    log(f"  bound terms: {b4_terms}")
+    # the plain version on the whole wave, every step of every read: slow
+    # (hundreds of small launches per step), but nothing shorter holds the
+    # kernel to it at the main path's lengths
+    full1d, _, b4_plain_ms = compare_beam1d("decode wave, all steps", prep,
+                                            stats1d)
+    for i, got in enumerate(full1d):
+        if recs[f"r{i}"] != got:
+            fail(f"decode's FASTA record r{i} differs from the kernel's and "
+                 "the plain version's string")
+    log("  the 32 strings equal the records decode wrote")
+
+    kernels = [{
         "name": "pair_beam_batch", "route": "cuda",
         "source": "poreover_tpu_torch/csrc/pair_beam_batch.cu",
         "replaces": "poreover_tpu/ops/pallas_pair_beam_batch.py:1169",
         "launches": launches, "max_abs_err": stats["max_abs_err"],
         "ms": wave_ms, "plain_ms": short_p, "bound_ms": wave_bound,
         "bound_by": wave_by, "library_ms": None,
-        "plain_input": f"main wave, first {PLAIN_STEPS} plan steps per pair",
+        "plain_input": f"pair wave, first {PLAIN_STEPS} plan steps per pair",
         "ms_on_plain_input": short_k, "bound_ms_on_plain_input": short_bound,
-    }
-    log(json.dumps({"kernels": [kern]}))
+    }, {
+        "name": "pair_beam_single", "route": "cuda",
+        "source": "poreover_tpu_torch/csrc/pair_beam_batch.cu",
+        "replaces": "poreover_tpu/ops/pallas_pair_beam.py:636",
+        "launches": single_launches,
+        "max_abs_err": stats_single["max_abs_err"],
+        "ms": one_ms, "plain_ms": short1_p, "bound_ms": one_bound,
+        "bound_by": one_by, "library_ms": None,
+        "plain_input": f"pair 0, first {PLAIN_STEPS_SINGLE} plan steps",
+        "ms_on_plain_input": short1_k,
+        "bound_ms_on_plain_input": short1_bound,
+    }, {
+        "name": "beam1d", "route": "cuda",
+        "source": "poreover_tpu_torch/csrc/beam1d.cu",
+        "replaces": "poreover_tpu/ops/pallas_beam1d.py:374",
+        "launches": dec_launches, "max_abs_err": stats1d["max_abs_err"],
+        "ms": b4_ms, "plain_ms": b4_plain_ms, "bound_ms": b4_bound,
+        "bound_by": b4_by, "library_ms": None,
+        "plain_input": "the whole decode wave, as for ms",
+        "prov_rows_differ": stats1d["prov_rows_differ"],
+    }]
+    log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

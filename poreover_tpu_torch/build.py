@@ -4,8 +4,9 @@ Two libraries, both loaded with ctypes through a plain C interface:
 
 - the C++ host runtime, from ``native/*.cpp`` at the repo root, with
   ``g++`` (see ``native.py``);
-- the CUDA kernels, from ``poreover_tpu_torch/csrc/*.cu``, with ``nvcc``
-  for ``sm_90a`` (see ``ops/pair_beam_batch.py``).
+- the CUDA kernels, one library per ``poreover_tpu_torch/csrc/*.cu``, with
+  ``nvcc`` for ``sm_90a`` (``build_kernel``; see ``ops/pair_beam_batch.py``
+  and ``ops/beam1d.py``). They share the header ``csrc/common.cuh``.
 
 Outputs go to ``poreover_tpu_torch/_build/`` (listed in ``.gitignore``),
 named by a hash of the sources and flags, so an edited source is rebuilt
@@ -42,12 +43,13 @@ def find_tool(name: str, extra_dirs=()) -> str:
 
 
 def build_shared(stem: str, compiler: str, flags: list[str],
-                 sources: list[Path]) -> Path:
+                 sources: list[Path], headers: list[Path] = ()) -> Path:
     """Compile ``sources`` into ``_build/<stem>-<hash>.so``; returns the
-    path. Reuses an existing library with the same hash."""
+    path. Reuses an existing library with the same hash. ``headers`` are
+    files the sources include: hashed, not handed to the compiler."""
     h = hashlib.sha256()
     h.update(" ".join([os.path.basename(compiler)] + flags).encode())
-    for src in sources:
+    for src in [*sources, *headers]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out = BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
@@ -67,3 +69,29 @@ def build_shared(stem: str, compiler: str, flags: list[str],
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+CSRC_DIR = PKG_DIR / "csrc"
+
+
+def build_kernel(name: str) -> Path:
+    """Build ``csrc/<name>.cu`` (with ``csrc/common.cuh``) into
+    ``_build/lib<name>-<hash>.so`` with nvcc for sm_90a, no fast math."""
+    nvcc = find_tool("nvcc", ["/usr/local/cuda/bin"])
+    return build_shared(f"lib{name}", nvcc, NVCC_FLAGS,
+                        [CSRC_DIR / f"{name}.cu"],
+                        headers=[CSRC_DIR / "common.cuh"])
+
+
+def ptxas_report(name: str) -> list[str]:
+    """The register / spill lines ptxas printed when ``csrc/<name>.cu`` was
+    built (the newest log of that kernel in ``_build/``)."""
+    logs = sorted(BUILD_DIR.glob(f"lib{name}-*.log"),
+                  key=lambda p: p.stat().st_mtime)
+    if not logs:
+        return []
+    return [ln.strip() for ln in logs[-1].read_text().splitlines()
+            if "registers" in ln or "spill" in ln]

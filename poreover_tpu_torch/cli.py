@@ -1,10 +1,12 @@
 """Command-line interface.
 
 The five subcommands and the flag surface of ``poreover_tpu/cli.py`` (the
-reference CLI, poreover/__main__.py:19-99), plus ``pair-decode --device``.
-``pair-decode`` runs on its main path (poreover CTC traces, envelope,
-row_col beam, Viterbi 1D stage); flags and subcommands outside the port so
-far exit with an error naming the ROADMAP item that ports them.
+reference CLI, poreover/__main__.py:19-99), plus ``--device`` on
+``pair-decode`` and ``decode``. ``pair-decode`` runs on its main path
+(poreover CTC traces, envelope, row_col beam, Viterbi 1D stage) and
+``decode`` for all three model kinds (Viterbi, beam and prefix search);
+flags and subcommands outside the port so far exit with an error naming
+the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -102,6 +104,10 @@ def build_parser() -> argparse.ArgumentParser:
         "--profile", default=None, metavar="DIR",
         help="dump a torch.profiler trace of the run to DIR",
     )
+    p_dec.add_argument(
+        "--device", default="cuda", choices=["cuda", "cpu"],
+        help="where the decoders run: on the card (beam search in the CUDA "
+        "kernel), or their plain PyTorch versions on the CPU")
 
     # ---- pair-decode ----
     p_pair = subparsers.add_parser(
@@ -195,7 +201,9 @@ def _call(args):
 
 
 def _decode(args):
-    _not_ported("decode", "A7")
+    from .decoding.decode import decode
+
+    decode(args)
 
 
 def _benchmark(args):
@@ -214,7 +222,7 @@ _PAIR_UNPORTED = [
      lambda a: a.beam_search_method != "row_col", "A13"),
     ("--basecaller bonito", lambda a: a.basecaller == "bonito", "A2b"),
     ("--basecaller flappie|guppy",
-     lambda a: a.basecaller in ("flappie", "guppy"), "A7"),
+     lambda a: a.basecaller in ("flappie", "guppy"), "A2b"),
 ]
 
 

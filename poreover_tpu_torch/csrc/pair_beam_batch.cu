@@ -37,11 +37,35 @@
 // meta int64 [B, 12]; scratch float32 4*C*(Wst0+Wst1) per pair; outputs
 // prov int8 [sum N, W], score float32 [B, C], valid uint8 [B, C].
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
+
+using poreover::M1;
+using poreover::M2;
+using poreover::lse;
+
+constexpr unsigned FULL = 0xffffffffu;
+
+// Warp-wide arg-max of (score, index) pairs, ties to the lowest index (as
+// lax.top_k and a stable sort pick). Every lane returns the winner.
+__device__ __forceinline__ void warp_argmax_lowest(float& bs, int& bi) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const float os = __shfl_xor_sync(FULL, bs, o);
+    const int oi = __shfl_xor_sync(FULL, bi, o);
+    if (os > bs || (os == bs && oi < bi)) {
+      bs = os;
+      bi = oi;
+    }
+  }
+}
+
+// Warp-wide maximum; every lane returns it.
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
 
 constexpr int CHUNK = 128;
 constexpr int SCAN_N = CHUNK + 1;
@@ -49,20 +73,10 @@ constexpr int CMAX = 32;
 constexpr int A = 4;
 constexpr int NT = 256;
 constexpr int NWARP = NT / 32;
-constexpr unsigned FULL = 0xffffffffu;
-constexpr unsigned M1 = 2654435761u;
-constexpr unsigned M2 = 40503u;
 
 enum { MAIN = 0, C0RUN = 1, C1RUN = 2 };
 enum { M_T1, M_L1, M_Y1, M_T2, M_L2, M_Y2, M_PLAN, M_N, M_WST0, M_WST1,
        M_SCR, META_COLS = 12 };
-
-__device__ __forceinline__ float lse(float a, float b) {
-  // the formula of torch.logaddexp, so the plain version matches bit for bit
-  if (isinf(a) && a == b) return a;
-  const float m = fmaxf(a, b);
-  return m + log1pf(expf(-fabsf(a - b)));
-}
 
 struct Table {
   unsigned k1[CMAX], k2[CMAX], pk1[CMAX], pk2[CMAX];
@@ -213,14 +227,7 @@ pair_beam_kernel(const float* __restrict__ planes1,
       for (int w = 0; w < W; ++w) {
         float bs = taken ? -INFINITY : sc;
         int bi = taken ? (1 << 20) : i;
-        for (int o = 16; o > 0; o >>= 1) {
-          const float os = __shfl_xor_sync(FULL, bs, o);
-          const int oi = __shfl_xor_sync(FULL, bi, o);
-          if (os > bs || (os == bs && oi < bi)) {
-            bs = os;
-            bi = oi;
-          }
-        }
+        warp_argmax_lowest(bs, bi);
         if (i == bi) taken = true;
         if (i == 0) sh.beam_src[w] = bi;
       }
@@ -447,8 +454,7 @@ pair_beam_kernel(const float* __restrict__ planes1,
               sh.cur[row][w] = o;
               mxw = fmaxf(mxw, o);
             }
-            for (int o = 16; o > 0; o >>= 1)
-              mxw = fmaxf(mxw, __shfl_xor_sync(FULL, mxw, o));
+            mxw = warp_max(mxw);
             if (lane == 0) sh.mx[a][row] = fmaxf(sh.mx[a][row], mxw);
             __syncwarp();
           }

@@ -113,8 +113,8 @@ def pair_decode_helper(args, _workload_sink=None):
     assert model1.kind == model2.kind
     if model1.kind != "poreover":
         raise NotImplementedError(
-            f"{model1.kind} traces are not ported to PyTorch yet (ROADMAP "
-            "items A2b and A7)")
+            f"{model1.kind} pair consensus is not ported to PyTorch yet "
+            "(ROADMAP item A2b)")
 
     summary = {"read1": in_path[0], "read2": in_path[1]}
     y1 = model1.log_prob

@@ -3,8 +3,8 @@
 Mirrors the behavioral surface of the reference's transducer classes
 (poreover/decoding/transducer.py:11-106) — the same three model kinds with
 the same decode/reverse-complement semantics. The poreover and bonito
-Viterbi decodes are per-step argmax (numpy); the flip-flop Viterbi DP is
-not ported yet (ROADMAP item A7).
+Viterbi decodes are per-step argmax (numpy, on the host); the flip-flop
+Viterbi DP runs in ``ops/viterbi.py`` on the requested device.
 
 Model kinds (shared vocabulary with the decoding kernels):
 
@@ -16,8 +16,7 @@ Model kinds (shared vocabulary with the decoding kernels):
   runs), then drop blanks (reference transducer.py:83-89).
 - ``flipflop`` (model string "ctc_flipflop"): [T,8] A,C,G,T,a,c,g,t with the
   8-state transition mask (reference transducer.py:94-103); decode is a true
-  Viterbi DP + traceback, then collapse repeats and uppercase. Its decode
-  raises NotImplementedError here until ROADMAP item A7 ports it.
+  Viterbi DP + traceback, then collapse repeats and uppercase.
 """
 from __future__ import annotations
 
@@ -86,7 +85,10 @@ class Transducer:
         s = self.path_to_string(path)
         return (s, path) if return_path else s
 
-    def viterbi_decode(self, return_path: bool = False):
+    def viterbi_decode(self, return_path: bool = False, device=None):
+        """Decode the best path. ``device`` places the flip-flop DP; the
+        poreover and bonito kinds take it for the common signature and
+        ignore it: their argmax runs in numpy on the host."""
         raise NotImplementedError
 
     def reverse_complement(self) -> None:
@@ -108,7 +110,7 @@ class poreover(Transducer):
     def reverse_complement(self) -> None:
         self.log_prob = self.log_prob[::-1, _REVCOMP_CTC]
 
-    def viterbi_decode(self, return_path: bool = False):
+    def viterbi_decode(self, return_path: bool = False, device=None):
         # With no transition constraints the Viterbi path is the per-step
         # argmax; blanks render as '' so they drop out of the string while
         # repeats are preserved (reference transducer.py:72-73).
@@ -124,7 +126,7 @@ class bonito(Transducer):
     def reverse_complement(self) -> None:
         self.log_prob = self.log_prob[::-1, _REVCOMP_CTC]
 
-    def viterbi_decode(self, return_path: bool = False):
+    def viterbi_decode(self, return_path: bool = False, device=None):
         path = np.argmax(self.log_prob, axis=1)
         keep = np.ones(len(path), dtype=bool)
         keep[1:] = path[1:] != path[:-1]
@@ -142,10 +144,14 @@ class flipflop(Transducer):
     def reverse_complement(self) -> None:
         self.log_prob = self.log_prob[::-1, _REVCOMP_FLIPFLOP]
 
-    def viterbi_decode(self, return_path: bool = False):
-        raise NotImplementedError(
-            "flip-flop Viterbi decoding is not ported to PyTorch yet "
-            "(ROADMAP item A7)")
+    def viterbi_decode(self, return_path: bool = False, device=None):
+        """Masked Viterbi DP on ``device`` (default cuda), in float32."""
+        from ..ops.viterbi import viterbi_path_masked
+
+        path = viterbi_path_masked(self.log_prob.astype(np.float32),
+                                   self.transition, device=device)
+        s = remove_repeated(self.path_to_string(path)).upper()
+        return (s, path) if return_path else s
 
 
 def from_kind(kind: str, log_prob) -> Transducer:

@@ -90,3 +90,35 @@ def _shift_window(vec, prev_off, new_off, Wb: int, extra: int = 1,
     shape = vec.shape[:-1] + (Wb + extra,)
     out = torch.gather(vec, -1, src.clamp(0, Wb - 1).expand(shape))
     return torch.where(ok.expand(shape), out, _NEG_INF)
+
+
+def beam_search_2d(y1, y2, envelope=None, beam_width: int = 25,
+                   alphabet: str = "ACGT", model: str = "ctc",
+                   method: str = "row", device=None) -> str:
+    """2D pair beam search for one pair (``poreover_tpu/ops/beam2d.py:
+    beam_search_2d``; the reference's cpp_beam_search_2d).
+
+    envelope: optional [U, 2] int array of per-u [row_start, row_end);
+    None is the full lattice. Ported so far: ``method="row_col"`` for plain
+    CTC, which on a CUDA device runs in the pair-beam kernel launched with
+    one CTA (``pair_beam_batch.pair_beam_single``, the port of the
+    single-pair Pallas kernel) and on the CPU in the kernel's plain
+    version. Other methods and model kinds raise NotImplementedError."""
+    import numpy as np
+
+    if method not in ("row", "row_col", "row_col_steps", "grid"):
+        raise ValueError(f"unsupported 2D beam method {method!r}")
+    if method != "row_col":
+        raise NotImplementedError(
+            f"beam_search_2d method {method!r} is not ported to PyTorch yet "
+            "(ROADMAP item A13)")
+    from .beam2d_planned import _check_model
+    from .pair_beam_batch import pair_beam_single
+
+    _check_model(model, False)
+    y1 = np.asarray(y1)
+    y2 = np.asarray(y2)
+    if envelope is None:
+        envelope = np.tile(np.array([0, len(y2)], dtype=np.int64),
+                           (len(y1), 1))
+    return pair_beam_single(y1, y2, envelope, beam_width, alphabet, device)

@@ -26,18 +26,15 @@ import ctypes
 import numpy as np
 import torch
 
-from ..build import PKG_DIR, build_shared, find_tool
+from ..build import build_kernel
 from ..device import resolve_device
 from .beam2d_planned import (
     M_N, M_WST0, M_WST1, META_COLS, pack_pairs, planned_scan, tracebacks,
 )
 
-launch_count = 0
+launch_count = 0  # launches for a batch of pairs (``pair_beam_batch``)
+single_launch_count = 0  # launches of the single-pair entry (one CTA)
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
-SOURCE = PKG_DIR / "csrc" / "pair_beam_batch.cu"
 CMAX = 32  # candidate slots the kernel's shared table holds
 KERNEL_A = 4  # alphabet size the kernel is compiled for
 
@@ -49,9 +46,7 @@ def load_kernel():
     global _lib
     if _lib is not None:
         return _lib
-    nvcc = find_tool("nvcc", ["/usr/local/cuda/bin"])
-    lib = ctypes.CDLL(str(build_shared("libpair_beam_batch", nvcc,
-                                       NVCC_FLAGS, [SOURCE])))
+    lib = ctypes.CDLL(str(build_kernel("pair_beam_batch")))
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.pair_beam_batch_launch.restype = i
     lib.pair_beam_batch_launch.argtypes = [vp, vp, vp, vp, i, i, vp, vp, vp,
@@ -73,13 +68,9 @@ def _check(name, t, dtype, dim, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-def pair_beam_cuda(planes1, planes2, plan, meta, meta_h, W: int,
-                   A: int = KERNEL_A):
-    """Launch the kernel on the current stream; returns (prov int8
-    [sum N, W], score float32 [B, C], valid bool [B, C]) without
-    synchronising. ``meta_h`` is the host copy of ``meta`` (sizes the
-    scratch without a device round trip)."""
-    global launch_count
+def _launch(planes1, planes2, plan, meta, meta_h, W: int, A: int):
+    """Check the tensors and launch the kernel on the current stream, one
+    CTA per row of ``meta``; counts nothing."""
     dev = planes1.device
     _check("planes1", planes1, torch.float32, 1, dev)
     _check("planes2", planes2, torch.float32, 1, dev)
@@ -118,8 +109,19 @@ def pair_beam_cuda(planes1, planes2, plan, meta, meta_h, W: int,
     if err != 0:
         raise RuntimeError(f"pair_beam_batch kernel launch failed: CUDA "
                            f"error {err}")
-    launch_count += 1
     return prov[:n_total], score, valid
+
+
+def pair_beam_cuda(planes1, planes2, plan, meta, meta_h, W: int,
+                   A: int = KERNEL_A):
+    """Launch the kernel on the current stream; returns (prov int8
+    [sum N, W], score float32 [B, C], valid bool [B, C]) without
+    synchronising. ``meta_h`` is the host copy of ``meta`` (sizes the
+    scratch without a device round trip)."""
+    global launch_count
+    outs = _launch(planes1, planes2, plan, meta, meta_h, W, A)
+    launch_count += 1
+    return outs
 
 
 def prepare_pairs(pairs, beam_width: int = 5, alphabet: str = "ACGT",
@@ -173,3 +175,25 @@ def pair_beam_batch(pairs, beam_width: int = 5, alphabet: str = "ACGT",
     prep = prepare_pairs(pairs, beam_width=beam_width, alphabet=alphabet,
                          steps_per_grid=steps_per_grid, device=device)
     return fetch_prepared(prep, launch_prepared(prep))
+
+
+def pair_beam_single(y1, y2, envelope, beam_width: int = 5,
+                     alphabet: str = "ACGT", device=None) -> str:
+    """The same search for one pair: the kernel launched with one CTA.
+
+    Replaces ``poreover_tpu/ops/pallas_pair_beam.py`` (``pair_beam_pallas``,
+    the single-pair Pallas kernel launched by its ``_run_kernel``). That
+    kernel's scalar bookkeeping and sweep tiles were the TPU's way to run
+    one pair; here one pair is a batch of one. A launch made here counts
+    in ``single_launch_count``, not in ``launch_count``."""
+    global single_launch_count
+    prep = prepare_pairs([(y1, y2, envelope)], beam_width=beam_width,
+                         alphabet=alphabet, device=device)
+    if not prep["live"]:
+        return ""
+    if prep["device"].type == "cuda":
+        outs = _launch(*prep["dev"], prep["meta"], prep["W"], prep["A"])
+        single_launch_count += 1
+    else:
+        outs = planned_scan(*prep["dev"], prep["W"], prep["A"])
+    return fetch_prepared(prep, outs)[0]

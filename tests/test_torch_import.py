@@ -20,6 +20,7 @@ MODULES = [
     "poreover_tpu_torch.native",
     "poreover_tpu_torch.sim",
     "poreover_tpu_torch.decoding.pair",
+    "poreover_tpu_torch.decoding.decode",
     "poreover_tpu_torch.decoding.envelope",
     "poreover_tpu_torch.io.trace",
     "poreover_tpu_torch.models.transducer",
@@ -27,6 +28,9 @@ MODULES = [
     "poreover_tpu_torch.ops.beam2d",
     "poreover_tpu_torch.ops.beam2d_planned",
     "poreover_tpu_torch.ops.pair_beam_batch",
+    "poreover_tpu_torch.ops.beam1d",
+    "poreover_tpu_torch.ops.viterbi",
+    "poreover_tpu_torch.ops.prefix",
     "poreover_tpu_torch.utils",
 ]
 

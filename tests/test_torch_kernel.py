@@ -1,8 +1,9 @@
-"""The CUDA pair-beam kernel's wrapper (ops/pair_beam_batch.py).
+"""The CUDA kernels' wrappers (ops/pair_beam_batch.py, ops/beam1d.py).
 
-On the CPU: argument checks, the packed layout both the kernel and its
-plain version read, and the plain route. Tests marked ``cuda`` build and
-launch the kernel and hold it against the plain version on the card; they
+On the CPU: argument checks, the packed layout both the pair-beam kernel
+and its plain version read, and the plain route (the 1D kernel's CPU side
+is in tests/test_torch_beam1d.py). Tests marked ``cuda`` build and launch
+each kernel and hold it against its plain version on the card; they
 skip without one (run them with ``python -m pytest --noconftest -m cuda
 tests/test_torch_kernel.py`` on a CUDA machine, where ``tests/conftest.py``
 would import jax; ``python3 chip_smoke.py`` covers the same ground at full
@@ -12,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from poreover_tpu_torch.ops import beam1d
+from poreover_tpu_torch.ops import beam2d
 from poreover_tpu_torch.ops import beam2d_planned as tp
 from poreover_tpu_torch.ops import pair_beam_batch as pbb
 
@@ -122,3 +125,49 @@ def test_main_path_counts_launches(cuda_device):
     before = pbb.launch_count
     pbb.pair_beam_batch(_pairs(), device=cuda_device)
     assert pbb.launch_count == before + 1
+
+
+@pytest.mark.cuda
+def test_single_pair_entry_launches_one_cta(cuda_device):
+    y1, y2, env = _pairs()[0]
+    before = (pbb.launch_count, pbb.single_launch_count)
+    got = beam2d.beam_search_2d(y1, y2, env, beam_width=5, method="row_col",
+                                device=cuda_device)
+    assert (pbb.launch_count, pbb.single_launch_count) == \
+        (before[0], before[1] + 1)
+    assert got == tp.beam_search_2d_planned(y1, y2, env, device=cuda_device)
+
+
+def _reads(S):
+    rng = np.random.default_rng(7)
+
+    def lp(T):
+        x = rng.normal(size=(T, S)) * 2
+        return (x - np.log(np.exp(x).sum(1, keepdims=True))).astype(
+            np.float32)
+
+    return [lp(T) for T in (300, 257, 512, 100, 1, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,S", [("ctc", 5), ("ctc_merge_repeats", 5),
+                                     ("ctc_flipflop", 8)])
+@pytest.mark.parametrize("W", [25, 5])
+def test_beam1d_kernel_matches_plain_on_card(cuda_device, model, S, W):
+    """Provenance, chars and the final table are bit-equal: both run the
+    same float32 ops in the same order."""
+    from poreover_tpu_torch.ops.beam import beam_search_batch
+
+    ys = _reads(S)
+    prep = beam1d.prepare_beam1d(ys, beam_width=W, model=model,
+                                 device=cuda_device)
+    before = beam1d.launch_count
+    k = beam1d.launch_beam1d(prep)
+    assert beam1d.launch_count == before + 1
+    p = beam1d.beam1d_plain(*prep["dev"], prep["meta"], W, 4,
+                            prep["model_id"])
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert torch.equal(a.cpu(), b.cpu())
+    assert beam1d.fetch_beam1d(prep, k) == beam_search_batch(
+        ys, W, model=model, device=cuda_device)

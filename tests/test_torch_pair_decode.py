@@ -100,6 +100,7 @@ def test_two_read_form(runs):
     (["--f64"], "A11"),
     (["--beam_search_method", "grid"], "A13"),
     (["--basecaller", "bonito"], "A2b"),
+    (["--basecaller", "flappie"], "A2b"),
 ])
 def test_unported_flags_exit(tmp_path, capsys, flags, item):
     with pytest.raises(SystemExit, match=item):
@@ -108,7 +109,8 @@ def test_unported_flags_exit(tmp_path, capsys, flags, item):
 
 
 @pytest.mark.parametrize("cmd", [
-    ["train", "--data", "d.npz"], ["call", "x.fast5"], ["decode", "x.npy"],
+    ["train", "--data", "d.npz"], ["call", "x.fast5"],
+    ["call", "x.fast5", "--decode", "beam"],
     ["benchmark", "--reference", "r.fa"]])
 def test_other_subcommands_exit(cmd):
     with pytest.raises(SystemExit, match="ROADMAP item A"):

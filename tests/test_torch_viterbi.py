@@ -1,0 +1,103 @@
+"""The port's Viterbi decoders against the JAX package's, on the CPU.
+
+Paths are integer state sequences and must be equal; strings exact. Inputs
+come from a numpy seed and go to both packages unchanged (float32 tables,
+the flip-flop 0/1 transition mask).
+"""
+import numpy as np
+import pytest
+import torch
+
+from poreover_tpu.models import transducer as jtrans
+from poreover_tpu.ops import viterbi as jvit
+
+from poreover_tpu_torch.models import transducer as ttrans
+from poreover_tpu_torch.ops import viterbi as tvit
+
+torch.set_num_threads(1)
+
+MASK = jtrans.flipflop_transition_mask()
+
+
+def dirichlet_log(T, S, seed):
+    rng = np.random.default_rng(seed)
+    return np.log(rng.dirichlet(np.ones(S), size=T)).astype(np.float32)
+
+
+def test_transition_mask_is_the_same():
+    np.testing.assert_array_equal(ttrans.flipflop_transition_mask(), MASK)
+
+
+@pytest.mark.parametrize("mask_mode", ["additive", "hard"])
+@pytest.mark.parametrize("T,seed", [(1, 0), (2, 1), (31, 2), (257, 3)])
+def test_single_path_equals_jax(mask_mode, T, seed):
+    y = dirichlet_log(T, 8, seed)
+    want = np.asarray(jvit.viterbi_path_masked(y, MASK, mask_mode))
+    got = tvit.viterbi_path_masked(y, MASK, mask_mode, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.int32
+
+
+@pytest.mark.parametrize("mask_mode", ["additive", "hard"])
+def test_batch_equals_jax_and_single(mask_mode):
+    ys = [dirichlet_log(T, 8, 100 + s) for s, T in enumerate([31, 12, 45, 1])]
+    want = jvit.viterbi_path_masked_batch(ys, MASK, mask_mode)
+    got = tvit.viterbi_path_masked_batch(ys, MASK, mask_mode, device="cpu")
+    assert len(got) == len(ys)
+    for y, g, w in zip(ys, got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+        np.testing.assert_array_equal(
+            g, tvit.viterbi_path_masked(y, MASK, mask_mode, device="cpu"))
+    assert tvit.viterbi_path_masked_batch([], MASK, device="cpu") == []
+
+
+def test_ties_take_the_first_maximum():
+    """A table quantised to a few levels (as uint8 traces are) is full of
+    exact ties; both packages must break them the same way."""
+    rng = np.random.default_rng(9)
+    y = np.log((rng.integers(1, 5, size=(200, 8)) / 4.0)).astype(np.float32)
+    for mode in ("additive", "hard"):
+        np.testing.assert_array_equal(
+            tvit.viterbi_path_masked(y, MASK, mode, device="cpu"),
+            np.asarray(jvit.viterbi_path_masked(y, MASK, mode)))
+
+
+def test_five_state_table():
+    y = dirichlet_log(60, 5, 4)
+    mask = np.ones((5, 5), np.float32)
+    np.testing.assert_array_equal(
+        tvit.viterbi_path_masked(y, mask, device="cpu"),
+        np.asarray(jvit.viterbi_path_masked(y, mask)))
+
+
+def test_argmax_paths_equal_jax():
+    y = np.stack([dirichlet_log(40, 5, s) for s in range(3)])
+    want = np.asarray(jvit.argmax_path_batch(y))
+    got = tvit.argmax_path_batch(y, device="cpu")
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        tvit.argmax_path(y[0], device="cpu").numpy(),
+        np.asarray(jvit.argmax_path(y[0])))
+
+
+@pytest.mark.parametrize("T,seed", [(12, 5), (90, 6), (300, 7)])
+def test_flipflop_viterbi_decode_string(T, seed):
+    y = dirichlet_log(T, 8, seed).astype(np.float64)
+    want_s, want_p = jtrans.flipflop(y).viterbi_decode(return_path=True)
+    got_s, got_p = ttrans.flipflop(y).viterbi_decode(return_path=True,
+                                                     device="cpu")
+    assert got_s == want_s
+    np.testing.assert_array_equal(got_p, np.asarray(want_p))
+    assert ttrans.flipflop(y).viterbi_decode(device="cpu") == want_s
+
+
+def test_unknown_mask_mode_and_missing_card(monkeypatch):
+    y = dirichlet_log(5, 8, 1)
+    with pytest.raises(ValueError, match="mask_mode"):
+        tvit.viterbi_path_masked(y, MASK, "soft", device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tvit.viterbi_path_masked(y, MASK)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrans.flipflop(y).viterbi_decode()
