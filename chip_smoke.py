@@ -1,21 +1,21 @@
 #!/usr/bin/env python3
-"""On-GPU smoke test of the PyTorch/CUDA port's main paths (pair-decode
-and decode).
+"""On-GPU smoke test of the PyTorch/CUDA port's main paths (pair-decode,
+decode and anchored pair-decode).
 
 Run from a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
 Phases (each fails the run if it fails):
-  1. build: the C++ host runtime (g++) and the two CUDA kernels (nvcc,
+  1. build: the C++ host runtime (g++) and the three CUDA kernels (nvcc,
      sm_90a, one process each), all from the checkout's sources, in
-     parallel; prints build seconds and the compiler's register / spill
-     report.
+     parallel; prints build seconds and the compiler's register / shared
+     memory / spill report.
   2. kernels vs plain versions on the card.
      Pair beam (``pair_beam_cuda`` against ``planned_scan``): the five
      envelope cases of tests/test_pallas.py at B=1, 4 and 8, the 24 anchor
      boxes of tests/data/boxes.npz as one batch, and two simulated pairs of
-     ~1000 bases. Strings and final validity must be equal, final scores
+     ~600 bases. Strings and final validity must be equal, final scores
      within 1e-3; steps whose provenance differs are counted (expected:
      none, and scores bit-equal, since both run the same ops in the same
      order).
@@ -24,6 +24,14 @@ Phases (each fails the run if it fails):
      W=25 and W=5. Strings, chars and final validity must be equal, the
      final table within 1e-3 (expected bit-equal, provenance too), and
      the strings equal to the engine ``beam_search_batch`` on the card.
+     Box beam (``box_beam_cuda`` against ``box_beam_plain``): the 24 anchor
+     boxes in one launch capped at 3 CTAs (so that boxes run back to back
+     in a CTA) and in a second launch at the default grid. Provenance, final
+     picks and strings must be equal (tolerance 0: they are integers) to
+     the plain version's and between the two launches; the boxes over the
+     storage limit must be the ones their plans' storage widths predict
+     (at least one; the pair kernel's batch of all 24 boxes above holds
+     them to their plain version).
   3. pair-decode at full size, through the CLI entry point
      (``poreover_tpu_torch.cli.main``): 8 simulated pairs (seed 7,
      5200-8200 bases, ~36k-58k steps per read) decoded with
@@ -46,7 +54,7 @@ Phases (each fails the run if it fails):
      same reads with ``--algorithm viterbi``. The shortest read's beam
      string must be at least as likely under the read's own emissions (the float64 forward sum over alignments) as its Viterbi
      string; how the beam's strings differ from the true ones (inserted,
-     missing, substituted bases) is printed. Then 4 reads of ~1500 bases
+     missing, substituted bases) is printed. Then 2 reads of ~1500 bases
      each as bonito ``.npy`` and flip-flop ``.csv`` traces, ``beam`` and
      ``viterbi``, each byte-identical to the same command with ``--device
      cpu``.
@@ -54,6 +62,20 @@ Phases (each fails the run if it fails):
      reads, and its bound; kernel vs plain version on that whole wave, every
      step of every read (strings, chars, provenance, final table), timed
      both; the strings must be the ones phase 6's FASTA holds.
+  8. anchored pair-decode at full size, through the CLI: phase 3's 8 pairs
+     with ``--skip_matches --skip_threshold 10 --reverse_complement
+     --threads 8``; per pair the 1D identity, anchors, boxes, plan steps
+     per box and boxes over the storage limit are printed first; launch
+     counts are zeroed just before and read just after. 8 records, none
+     skipped; each pair's anchored consensus at identity >= 0.95 to phase
+     3's full consensus; pair 0's boxes each decoded by the f64
+     windowed-memo C++ oracle and stitched with the same anchors at
+     identity >= 0.999 to the run's consensus; the box kernel equal to its
+     plain version on all boxes of pair 0.
+  9. timing of the box kernel with CUDA events on phase 8's wave (all
+     boxes of the 8 pairs in one launch), and its bound; the pair kernel's
+     time for the boxes over the limit, and for the same boxes with one
+     CTA each.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -87,6 +109,9 @@ PLAIN_STEPS = 1500
 PLAIN_STEPS_SINGLE = 500
 DEVICE = "cuda"
 IDENTITY_FLOOR = 0.9  # a decoded simulated read against its true sequence
+ANCHORED_FLOOR = 0.95  # a pair's anchored consensus against its full one
+N_CPU_READS = 2  # bonito / flip-flop reads also decoded with --device cpu
+FEW_CTAS = 3  # grid cap that makes boxes run back to back in a CTA
 # 1D beam, float operations per step and read: each of the C candidates
 # updates its state (two adds and a log-add-exp of six ops; the two-state
 # kinds do this twice and add a log-add-exp for the parent and one for the
@@ -193,16 +218,19 @@ def cells_of(prep) -> int:
                + (W * w1)[ty == C1RUN].sum())
 
 
-def bound_ms(prep) -> tuple[float, str, str]:
+def bound_ms(prep, out_bytes=None) -> tuple[float, str, str]:
     """Least time for the work: bytes each input read once and each output
     written once over HBM bandwidth, vs float ops over f32 peak. Returns
-    (ms, what bounds it, a line with both terms)."""
+    (ms, what bounds it, a line with both terms). ``out_bytes`` is what a
+    problem writes besides its provenance: the pair kernel's final scores
+    and validity (the default), or the box kernel's one picked slot."""
     n = len(prep["plan"])
     C = prep["W"] * (prep["A"] + 1)
     B = len(prep["meta"])
     nbytes = (prep["planes1"].nbytes + prep["planes2"].nbytes
               + prep["plan"].nbytes + prep["meta"].nbytes
-              + n * prep["W"] + B * C * 5)
+              + n * prep["W"] + B * (C * 5 if out_bytes is None
+                                     else out_bytes))
     nops = cells_of(prep) * OPS_PER_CELL
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = nops / F32_FLOPS * 1e3
@@ -256,6 +284,77 @@ def compare(name, prep, stats):
         f"provenance differs at {n_prov} steps, max |score err| {err:.3g}; "
         f"kernel {t_k:.1f} ms, plain {t_p:.1f} ms")
     return t_k, t_p
+
+
+def compare_boxes(name, bxs, stats, few_ctas=None):
+    """Box kernel vs plain version on one launch of boxes, both on the
+    card: provenance, final picks and strings, tolerance 0. With
+    ``few_ctas`` the kernel also runs capped at that many CTAs, and both
+    launches must agree. Returns (the strings, kernel ms, plain ms, the
+    prepared launch)."""
+    import torch
+    from poreover_tpu_torch.ops import box_beam as bb
+    from poreover_tpu_torch.ops.beam2d_planned import build_plan, plan_wst
+
+    prep = bb.prepare_boxes(bxs, device=DEVICE)
+    want_over = [i for i, (y1, y2, env) in enumerate(bxs)
+                 if len(y1) and len(y2) and bb.storage_bytes(
+                     plan_wst(build_plan(env, len(y1), len(y2))), prep["W"])
+                 > bb.STORAGE_LIMIT_BYTES]
+    if prep["overflow"] != want_over:
+        fail(f"{name}: boxes over the limit {prep['overflow']}, predicted "
+             f"{want_over}")
+    k, t_k = timed(lambda: bb.launch_boxes(prep))
+    info = dict(prep["info"])
+    p, t_p = timed(lambda: bb.box_beam_plain(*prep["dev"], prep["W"],
+                                             prep["A"]))
+    runs = [("default grid", k)]
+    if few_ctas:
+        kf, t_f = timed(lambda: bb.launch_boxes(prep, max_ctas=few_ctas))
+        if prep["info"]["grid"] > few_ctas:
+            fail(f"{name}: grid {prep['info']['grid']} over the cap")
+        runs.append((f"{few_ctas} CTAs, {t_f:.1f} ms", kf))
+    sp = bb.fetch_boxes(prep, p)
+    for what, out in runs:
+        err = max(int((a.int() - b.int()).abs().max()) if a.numel() else 0
+                  for a, b in zip(out, p))
+        stats["max_abs_err"] = max(stats["max_abs_err"], float(err))
+        if err or bb.fetch_boxes(prep, out) != sp:
+            n_prov = int((out[0] != p[0]).any(1).sum())
+            fail(f"{name} ({what}): kernel differs from the plain version: "
+                 f"provenance at {n_prov} steps, picks at "
+                 f"{int((out[1] != p[1]).sum())} boxes")
+    steps = prep["meta"][:, 7]
+    log(f"  {name}: {len(steps)} boxes in the kernel ({len(want_over)} over "
+        f"the limit: {want_over}), steps={int(steps.sum())} (max "
+        f"{int(steps.max())} per box), grid {info['grid']} CTAs x "
+        f"{info['smem_bytes']} B storage; provenance, picks and strings "
+        f"equal to the plain version ("
+        + "; ".join(w for w, _ in runs) + f"); kernel {t_k:.1f} ms, plain "
+        f"{t_p:.1f} ms")
+    return sp, t_k, t_p, prep
+
+
+def anchored_boxes_of(d, r1, r2):
+    """Stages 1-3 of the port in anchored mode for one pair of .npy files:
+    (its boxes [(y1, y2, env)], the continuation that stitches box
+    consensi with the anchors into the pair's consensus, its summary)."""
+    from poreover_tpu_torch.cli import build_parser
+    from poreover_tpu_torch.decoding.pair import pair_decode_helper
+
+    args = build_parser().parse_args(
+        ["pair-decode", r1, r2, "--dir", d, "--basecaller", "poreover",
+         "--reverse_complement", "--skip_matches", "--skip_threshold", "10"])
+    got = []
+    pair_decode_helper(args, _workload_sink=lambda *a: got.append(a))
+    if not got:
+        fail(f"pair {r1} {r2} was skipped before stage 4")
+    bxs, finish, summary = got[0]
+
+    def stitch(seqs):
+        return "".join(finish(seqs)[1].splitlines()[1:])
+
+    return bxs, stitch, summary
 
 
 def timed(fn):
@@ -420,6 +519,7 @@ def main():
     sys.path.insert(0, HERE)
     from poreover_tpu_torch import build, native
     from poreover_tpu_torch.ops import beam1d
+    from poreover_tpu_torch.ops import box_beam as bb
     from poreover_tpu_torch.ops import pair_beam_batch as pbb
 
     t_start = time.perf_counter()
@@ -428,7 +528,7 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    # ---- phase 1: build the three libraries in parallel
+    # ---- phase 1: build the four libraries in parallel
     t0 = time.perf_counter()
     errs = []
 
@@ -439,7 +539,8 @@ def main():
             errs.append(exc)
 
     ths = [threading.Thread(target=run, args=(f,))
-           for f in (native.load, pbb.load_kernel, beam1d.load_kernel)]
+           for f in (native.load, pbb.load_kernel, beam1d.load_kernel,
+                     bb.load_kernel)]
     for th in ths:
         th.start()
     for th in ths:
@@ -447,7 +548,7 @@ def main():
     if errs:
         fail(f"build: {errs[0]}")
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s")
-    for kernel in ("pair_beam_batch", "beam1d"):
+    for kernel in ("pair_beam_batch", "beam1d", "box_beam"):
         for line in build.ptxas_report(kernel):
             log(f"  ptxas {kernel}: {line}")
 
@@ -461,8 +562,8 @@ def main():
     batches = [(f"case{i}", [c]) for i, c in enumerate(cs)]
     batches += [("cases B=4", cs[:4]), ("cases B=8", (cs * 2)[:8]),
                 ("boxes B=24", boxes()),
-                ("sim pairs ~1000 bases B=2",
-                 sim_workloads(2, seed=3, lo=900, hi=1100))]
+                ("sim pairs ~600 bases B=2",
+                 sim_workloads(2, seed=3, lo=550, hi=650))]
     for name, batch in batches:
         compare(name, upload(pack_pairs(batch)), stats)
 
@@ -476,6 +577,15 @@ def main():
                                          device=DEVICE)
             compare_beam1d(f"beam1d {model} W={W}", prep, stats1d,
                            engine_ys=ys)
+    stats_box = {"max_abs_err": 0.0}
+    _, _, _, prep24 = compare_boxes("box beam, boxes.npz", boxes(),
+                                    stats_box, few_ctas=FEW_CTAS)
+    if not prep24["overflow"]:
+        fail("no box of boxes.npz is over the storage limit: the reroute "
+             "is not exercised")
+    log(f"  the boxes over the limit {prep24['overflow']} went through the "
+        "pair kernel in 'boxes B=24' above, equal to their plain version")
+    del prep24
     log(f"phase 2 done: {time.perf_counter() - t_start:.0f} s elapsed")
 
     # ---- phase 3: pair-decode at full size, through the CLI
@@ -505,7 +615,8 @@ def main():
         if len(recs) != 8 or any(r[-1] != "0" for r in rows):
             fail(f"expected 8 consensus records and no skips; got "
                  f"{len(recs)} records, log rows {rows}")
-        cons0 = "".join(recs[0].splitlines()[1:])
+        cons_full = ["".join(r.splitlines()[1:]) for r in recs]
+        cons0 = cons_full[0]
         log(f"phase 3 pair-decode: 8 pairs, {launches} launch(es), "
             f"end-to-end {t_e2e:.2f} s, consensus stage {t_cons:.2f} s")
         wave = [workload_of(d, f"s{i}_1.npy", f"s{i}_2.npy")
@@ -640,9 +751,10 @@ def main():
              f"than Viterbi's ({ll['viterbi']})")
     for kind, basecaller in (("bonito", "bonito"), ("flipflop", "flappie")):
         with tempfile.TemporaryDirectory() as d:
-            truth4 = write_reads(d, 4, seed=5, lo=1400, hi=1600, kind=kind)
+            truth4 = write_reads(d, N_CPU_READS, seed=5, lo=1400, hi=1600,
+                                 kind=kind)
             inputs = [d] if kind == "bonito" else [
-                os.path.join(d, f"r{i}.csv") for i in range(4)]
+                os.path.join(d, f"r{i}.csv") for i in range(N_CPU_READS)]
             for alg in ("beam", "viterbi"):
                 beam1d.launch_count = 0
                 on_card, t_card, tm = decode_cli(d, inputs, basecaller, alg,
@@ -654,12 +766,13 @@ def main():
                                               f"{alg}_cpu", device="cpu")
                 a = open(os.path.join(d, f"{alg}_cuda.fasta"), "rb").read()
                 b = open(os.path.join(d, f"{alg}_cpu.fasta"), "rb").read()
-                if a != b or len(on_card) != 4:
+                if a != b or len(on_card) != N_CPU_READS:
                     fail(f"decode {kind} {alg}: the card's FASTA differs "
                          "from --device cpu")
                 ids = [identity(on_card[f"r{i}"], truth4[i])
-                       for i in range(4)]
-                log(f"  decode {kind} {alg}: 4 reads byte-identical to "
+                       for i in range(N_CPU_READS)]
+                log(f"  decode {kind} {alg}: {N_CPU_READS} reads "
+                    f"byte-identical to "
                     f"--device cpu; card {t_card:.2f} s ({n_l} beam1d "
                     f"launches; stages "
                     + " ".join(f"{k}={v:.3f}s" for k, v in tm.items())
@@ -691,6 +804,109 @@ def main():
                  "the plain version's string")
     log("  the 32 strings equal the records decode wrote")
 
+    del wave1d, prep
+    log(f"phase 7 done: {time.perf_counter() - t_start:.0f} s elapsed")
+
+    # ---- phase 8: anchored pair-decode at full size, through the CLI
+    with tempfile.TemporaryDirectory() as d:
+        pairs_txt = write_pairs(d, 8, seed=7, lo=5200, hi=8200)
+        anch = [anchored_boxes_of(d, f"s{i}_1.npy", f"s{i}_2.npy")
+                for i in range(8)]
+        log("phase 8 anchored pair-decode (--skip_matches --skip_threshold "
+            "10): the simulated pairs' boxes")
+        for i, (bxs, _, summ) in enumerate(anch):
+            preps = [bb.prepare_box(*b) for b in bxs]
+            n = np.array([q["n"] for q in preps if q is not None])
+            log(f"  pair {i}: 1D identity {summ['sequence_identity']:.4f}, "
+                f"{len(bxs) - 1} anchors, {len(bxs)} boxes, plan steps per "
+                f"box median {np.median(n):.0f} p99 "
+                f"{np.percentile(n, 99):.0f} max {n.max()} (sum {n.sum()}), "
+                f"{sum(q is None for q in preps)} over the storage limit")
+        out = os.path.join(d, "anch")
+        bb.box_launch_count = 0
+        pbb.launch_count = 0
+        t0 = time.perf_counter()
+        cli_main(["pair-decode", pairs_txt, "--dir", d, "--basecaller",
+                  "poreover", "--reverse_complement", "--threads", "8",
+                  "--skip_matches", "--skip_threshold", "10", "--out", out])
+        torch.cuda.synchronize()
+        t_anch = time.perf_counter() - t0
+        box_launches, reroute_launches = bb.box_launch_count, pbb.launch_count
+        anch_timers = dict(timers.seconds)
+        if box_launches < 1:
+            fail("pair-decode --skip_matches launched box_beam no time")
+        recs = open(out + ".2d.fasta").read().split(">")[1:]
+        rows = [r.split("\t") for r in open(out + ".log").read().splitlines()
+                if not r.startswith("#")]
+        if len(recs) != 8 or any(r[-1] != "0" for r in rows):
+            fail(f"anchored: expected 8 consensus records and no skips; got "
+                 f"{len(recs)} records, log rows {rows}")
+        cons_anch = ["".join(r.splitlines()[1:]) for r in recs]
+    n_boxes = sum(len(bxs) for bxs, _, _ in anch)
+    log(f"  8 pairs, {n_boxes} boxes, {box_launches} box launch(es) "
+        f"({n_boxes / box_launches:.0f} boxes per launch), "
+        f"{reroute_launches} pair-kernel launch(es) for boxes over the "
+        f"limit; end-to-end {t_anch:.2f} s ({8 / t_anch:.2f} pairs/s; "
+        f"full envelope {8 / t_e2e:.2f}); stages "
+        + " ".join(f"{k}={v:.3f}s" for k, v in anch_timers.items()))
+    idents = [identity(a, f) for a, f in zip(cons_anch, cons_full)]
+    log("  identity of the anchored to the full consensus, per pair: "
+        + " ".join(f"{x:.4f}" for x in idents))
+    if not all(np.isfinite(idents)) or min(idents) < ANCHORED_FLOOR:
+        fail(f"anchored consensus identity {min(idents)} < {ANCHORED_FLOOR}")
+    bxs0, stitch0, _ = anch[0]
+    t0 = time.perf_counter()
+    oracle = stitch0([
+        native.pair_beam_row_col_cpu_emul(*b, beam_width=5)
+        if len(b[0]) and len(b[1]) else "" for b in bxs0])
+    ident = identity(cons_anch[0], oracle)
+    log(f"  pair 0: anchored consensus {len(cons_anch[0])} bases; its "
+        f"{len(bxs0)} boxes by the f64 oracle, stitched: {len(oracle)} "
+        f"bases ({time.perf_counter() - t0:.1f} s), aligned identity "
+        f"{ident:.6f}")
+    if not np.isfinite(ident) or ident < 0.999:
+        fail(f"pair 0 anchored identity {ident} to the f64 oracle < 0.999")
+    seqs0, box0_k, box0_p, prep0 = compare_boxes(
+        "box beam, all boxes of pair 0", bxs0, stats_box)
+    if stitch0(seqs0) != cons_anch[0]:
+        fail("pair 0: the stitched box strings differ from the consensus "
+             "pair-decode --skip_matches wrote")
+    box0_bound = bound_ms(prep0, out_bytes=4)[0]
+    del prep0
+
+    # ---- phase 9: timing of the box kernel on phase 8's wave
+    all_boxes = [b for bxs, _, _ in anch for b in bxs]
+    prep = bb.prepare_boxes(all_boxes, device=DEVICE)
+    box_ms = event_ms(lambda: bb.launch_boxes(prep), reps=3)
+    box_bound, box_by, box_terms = bound_ms(prep, out_bytes=4)
+    bsteps = prep["meta"][:, 7]
+    info = prep["info"]
+    log(f"phase 9 [{gpu}]: box_beam {box_ms:.1f} ms per 8-pair anchored "
+        f"wave: {len(bsteps)} boxes, {int(bsteps.sum())} plan steps (longest "
+        f"box {int(bsteps.max())}), grid {info['grid']} CTAs x "
+        f"{info['smem_bytes']} B storage; {box_ms * 1e3 / bsteps.max():.2f} "
+        f"us per step of the longest box; the CTAs are busy "
+        f"{bsteps.sum() / (info['grid'] * bsteps.max()):.1%} of the launch "
+        f"(plan steps over grid x longest box); bound {box_bound:.4f} ms "
+        f"({box_by}); consensus "
+        f"{8 / (box_ms / 1e3):.2f} pairs/s (kernel), "
+        f"{8 / anch_timers['consensus_2d']:.2f} pairs/s (stage 4 wall)")
+    log(f"  bound terms: {box_terms}")
+    in_kernel = [all_boxes[i] for i in prep["order"]]
+    as_pairs = pbb.prepare_pairs(in_kernel, device=DEVICE)
+    as_pairs_ms = event_ms(lambda: pbb.launch_prepared(as_pairs), reps=2)
+    log(f"  the same {len(in_kernel)} boxes through the pair kernel (one "
+        f"CTA per box, storage in global scratch): {as_pairs_ms:.1f} ms")
+    if prep["overflow"]:
+        over = pbb.prepare_pairs([all_boxes[i] for i in prep["overflow"]],
+                                 device=DEVICE)
+        over_ms = event_ms(lambda: pbb.launch_prepared(over), reps=2)
+        log(f"  the {len(prep['overflow'])} boxes over the limit through "
+            f"the pair kernel: {over_ms:.1f} ms")
+    else:
+        log("  no box of this wave is over the storage limit")
+    del prep, as_pairs, anch, all_boxes, in_kernel
+
     kernels = [{
         "name": "pair_beam_batch", "route": "cuda",
         "source": "poreover_tpu_torch/csrc/pair_beam_batch.cu",
@@ -720,6 +936,15 @@ def main():
         "bound_by": b4_by, "library_ms": None,
         "plain_input": "the whole decode wave, as for ms",
         "prov_rows_differ": stats1d["prov_rows_differ"],
+    }, {
+        "name": "box_beam", "route": "cuda",
+        "source": "poreover_tpu_torch/csrc/box_beam.cu",
+        "replaces": "poreover_tpu/ops/pallas_box_beam.py:1007",
+        "launches": box_launches, "max_abs_err": stats_box["max_abs_err"],
+        "ms": box_ms, "plain_ms": box0_p, "bound_ms": box_bound,
+        "bound_by": box_by, "library_ms": None,
+        "plain_input": "all boxes of pair 0 of the anchored wave",
+        "ms_on_plain_input": box0_k, "bound_ms_on_plain_input": box0_bound,
     }]
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_start:.0f} s")

@@ -5,8 +5,10 @@ Two libraries, both loaded with ctypes through a plain C interface:
 - the C++ host runtime, from ``native/*.cpp`` at the repo root, with
   ``g++`` (see ``native.py``);
 - the CUDA kernels, one library per ``poreover_tpu_torch/csrc/*.cu``, with
-  ``nvcc`` for ``sm_90a`` (``build_kernel``; see ``ops/pair_beam_batch.py``
-  and ``ops/beam1d.py``). They share the header ``csrc/common.cuh``.
+  ``nvcc`` for ``sm_90a`` (``build_kernel``; see ``ops/pair_beam_batch.py``,
+  ``ops/box_beam.py`` and ``ops/beam1d.py``). They share the headers
+  ``csrc/*.cuh`` (``common.cuh``; ``pair_search.cuh``, the search both pair
+  kernels run).
 
 Outputs go to ``poreover_tpu_torch/_build/`` (listed in ``.gitignore``),
 named by a hash of the sources and flags, so an edited source is rebuilt
@@ -78,17 +80,18 @@ CSRC_DIR = PKG_DIR / "csrc"
 
 
 def build_kernel(name: str) -> Path:
-    """Build ``csrc/<name>.cu`` (with ``csrc/common.cuh``) into
+    """Build ``csrc/<name>.cu`` (with the headers ``csrc/*.cuh``) into
     ``_build/lib<name>-<hash>.so`` with nvcc for sm_90a, no fast math."""
     nvcc = find_tool("nvcc", ["/usr/local/cuda/bin"])
     return build_shared(f"lib{name}", nvcc, NVCC_FLAGS,
                         [CSRC_DIR / f"{name}.cu"],
-                        headers=[CSRC_DIR / "common.cuh"])
+                        headers=sorted(CSRC_DIR.glob("*.cuh")))
 
 
 def ptxas_report(name: str) -> list[str]:
-    """The register / spill lines ptxas printed when ``csrc/<name>.cu`` was
-    built (the newest log of that kernel in ``_build/``)."""
+    """The register / shared memory / spill lines ptxas printed when
+    ``csrc/<name>.cu`` was built (the newest log of that kernel in
+    ``_build/``)."""
     logs = sorted(BUILD_DIR.glob(f"lib{name}-*.log"),
                   key=lambda p: p.stat().st_mtime)
     if not logs:

@@ -212,7 +212,6 @@ def _benchmark(args):
 
 # pair-decode flags outside the ported main path: (flag, test, ROADMAP item)
 _PAIR_UNPORTED = [
-    ("--skip_matches", lambda a: a.skip_matches, "A6"),
     ("--method split|align", lambda a: a.method != "envelope", "A13"),
     ("--algorithm prefix", lambda a: a.algorithm != "beam", "A13"),
     ("--single beam", lambda a: a.single != "viterbi", "A10"),

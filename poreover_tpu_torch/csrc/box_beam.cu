@@ -1,0 +1,124 @@
+// Segmented box-batch pair-consensus beam search (plain CTC), CUDA for
+// sm_90a: many small anchor boxes per launch, several back to back in each
+// CTA.
+//
+// Replaces the Pallas TPU kernel poreover_tpu/ops/pallas_box_beam.py
+// (_build_kernel / _step_body, launched by _run_kernel). It computes, per
+// box, what pair_beam_batch.cu computes per pair (the same search,
+// pair_search.cuh:run_search, bit-equal to the plain PyTorch version
+// ops/beam2d_planned.py:planned_scan), plus the final pick: the best valid
+// candidate of the final deduplicated table, ties to the lowest slot, so
+// no score table comes back (the TPU kernel's zero-width "FIN" step).
+//
+// Design. A lane of the TPU kernel is a persistent CTA here. The boxes of a
+// launch stand in a queue (the wrapper sorts them by descending plan
+// length); a CTA takes the next box with one atomic add, runs it from the
+// t = 0 state (run_search rewrites every piece of state it reads: the
+// reset between boxes), writes its provenance and final pick at the box's
+// own offsets, and takes the next. A box's result does not depend on which
+// CTA ran it or on what ran before. Each candidate's windowed storage and
+// frozen parent copies, 16*C*(Wst0+Wst1) bytes per box, live in dynamic
+// shared memory beside the 28 KB of tables: that is the static storage
+// budget (STORAGE_LIMIT_BYTES, sized so that at least two CTAs share an
+// SM). Boxes over it are not launched; the wrapper (ops/box_beam.py) hands
+// them to the pair kernel. The grid is the number of CTAs the card holds at
+// once at this launch's shared-memory size, or the number of boxes.
+//
+// What bounds it: latency, as for the pair kernel (a step is a chain of
+// small dependent phases between barriers); with hundreds of boxes per
+// launch every SM has work, which the pair kernel's one CTA per pair never
+// gives. The largest box of a launch sets every CTA's shared-memory size
+// and so the CTAs per SM (2 to 4); splitting a launch by box size is later
+// work.
+//
+// Interface (plain C, loaded with ctypes; see ops/box_beam.py): planes,
+// plan and meta as for pair_beam_batch.cu (meta's scratch column unused);
+// queue int32 [1], zero on entry; outputs prov int8 [sum N, W] and pick
+// int32 [nbox].
+
+#include "pair_search.cuh"
+
+namespace {
+
+using namespace poreover::pair_search;
+
+// storage a box may need (dynamic shared memory beside the static tables):
+// the most at which two CTAs still share an SM's 228 KB
+constexpr int STORAGE_LIMIT_BYTES = 85 * 1024;
+
+__global__ void __launch_bounds__(NT)
+box_beam_kernel(const float* __restrict__ planes1,
+                const float* __restrict__ planes2,
+                const int* __restrict__ plan,
+                const long long* __restrict__ meta, int nbox, int W,
+                int* __restrict__ queue, signed char* __restrict__ prov,
+                int* __restrict__ pick) {
+  __shared__ Shared sh;
+  __shared__ int next_box;
+  extern __shared__ float store[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int C = W * (A + 1);
+
+  for (;;) {
+    if (tid == 0) next_box = atomicAdd(queue, 1);
+    __syncthreads();
+    const int box = next_box;
+    if (box >= nbox) break;
+    const long long* m = meta + (long long)box * META_COLS;
+    const Problem pr = load_problem(planes1, planes2, plan, m);
+    const int ct = run_search(sh, pr, W, store, prov + m[M_PLAN] * W);
+
+    // ---- final pick: arg-max of the deduplicated table, lowest slot
+    if (warp == 0) {
+      const Table& t = sh.tab[ct];
+      const bool in = lane < C;
+      float bs = (in && final_keep(t, lane)) ? t.score[lane] : -INFINITY;
+      int bi = in ? lane : (1 << 20);
+      warp_argmax_lowest(bs, bi);
+      if (lane == 0) pick[box] = bi;
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int box_beam_storage_limit() { return STORAGE_LIMIT_BYTES; }
+
+// Launches the kernel on `stream` with `smem_bytes` of storage per CTA (the
+// largest box's need) and at most `max_ctas` CTAs (0: as many as the card
+// holds at once); writes the grid it used to *grid_out. Returns a
+// cudaError_t (cudaErrorInvalidValue for storage over the limit).
+int box_beam_launch(const float* planes1, const float* planes2,
+                    const int* plan, const long long* meta, int nbox, int W,
+                    int smem_bytes, int max_ctas, int* queue,
+                    signed char* prov, int* pick, int* grid_out,
+                    void* stream) {
+  *grid_out = 0;
+  if (nbox <= 0) return 0;
+  if (smem_bytes < 0 || smem_bytes > STORAGE_LIMIT_BYTES)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      box_beam_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      STORAGE_LIMIT_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, box_beam_kernel, NT, (size_t)smem_bytes)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  int grid = min(nbox, sms * per_sm);
+  if (max_ctas > 0) grid = min(grid, max_ctas);
+  box_beam_kernel<<<grid, NT, (size_t)smem_bytes, (cudaStream_t)stream>>>(
+      planes1, planes2, plan, meta, nbox, W, queue, prov, pick);
+  *grid_out = grid;
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

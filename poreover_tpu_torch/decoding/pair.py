@@ -2,7 +2,8 @@
 
 Port of ``poreover_tpu/decoding/pair.py`` for the main path: poreover CTC
 traces, ``--method envelope``, ``--algorithm beam``, ``row_col``,
-``--single viterbi``. Stages per pair (reference pair_decode.py:305-529):
+``--single viterbi``, and its anchored mode ``--skip_matches``. Stages per
+pair (reference pair_decode.py:305-529):
   1. 1D basecall of both reads (per-step argmax, numpy)
   2. Global alignment of the two basecalls (banded NW, C++ via ctypes)
   3. Banded alignment envelope over the U x V lattice (numpy)
@@ -10,6 +11,12 @@ traces, ``--method envelope``, ``--algorithm beam``, ``row_col``,
      of ``--threads`` pairs through one launch of the CUDA kernel
      (ops/pair_beam_batch.py); on ``--device cpu`` its plain PyTorch
      version runs instead.
+
+Anchored mode (reference pair_decode.py:412-452): stretches where the two
+1D basecalls agree for ``--skip_threshold`` bases are taken verbatim as
+anchors, and only the boxes between anchors get a 2D consensus. The boxes
+of a wave's pairs are pooled into one launch of the box kernel
+(ops/box_beam.py); boxes over its storage limit go through the pair kernel.
 
 Skip rules and the TSV summary log match the reference: length mismatch
 > 1000 bases (pair_decode.py:372-375), pairwise identity < 0.5 (:395-398).
@@ -72,6 +79,93 @@ def get_sequence_mapping(path, kind: str):
     return sequence_to_signal, signal_to_sequence
 
 
+def get_anchors(alignment, matches: int, indels: int):
+    """Contiguous match/indel stretches usable as anchors
+    (reference pair_decode.py:53-89)."""
+    state_start = 0
+    state_counter = 1
+    prev_state = "START"
+    anchor_ranges = []
+    anchor_type = []
+    for i, (a1, a2) in enumerate(alignment.T):
+        if a1 == a2:
+            state = "mat"
+        elif a1 == "-":
+            state = "ins"
+        elif a2 == "-":
+            state = "del"
+        else:
+            state = "mis"
+        if prev_state == state and state != "mis":
+            state_counter += 1
+        else:
+            if prev_state in ("ins", "del") and state_counter >= indels:
+                anchor_ranges.append((state_start, i))
+                anchor_type.append(prev_state)
+            if prev_state == "mat" and state_counter >= matches:
+                anchor_ranges.append((state_start, i))
+                anchor_type.append(prev_state)
+            prev_state = state
+            state_counter = 1
+            state_start = i
+    return anchor_ranges, anchor_type
+
+
+def _anchor_boxes(alignment, a2s, s2s1, s2s2, anchor_ranges, anchor_type,
+                  U: int, V: int):
+    """Anchors (sort_key, sequence) taken verbatim from the 1D alignment
+    and the 4-coordinate signal boxes between them (reference
+    pair_decode.py:412-452)."""
+    boxes, anchors = [], []
+    for i, (cs, ce) in enumerate(anchor_ranges):
+        # 'mat' and 'del' take read 1's letters
+        row = 1 if anchor_type[i] == "ins" else 0
+        anchors.append((s2s1[a2s[0, cs]], "".join(alignment[row, cs:ce])))
+        if i > 0:
+            pe = anchor_ranges[i - 1][1]
+            boxes.append((s2s1[a2s[0, pe]], s2s1[a2s[0, cs]],
+                          s2s2[a2s[1, pe]], s2s2[a2s[1, cs]]))
+        else:
+            boxes.append((0, s2s1[a2s[0, cs]], 0, s2s2[a2s[1, cs]]))
+    le = anchor_ranges[-1][1]
+    boxes.append((s2s1[a2s[0, le]], U, s2s2[a2s[1, le]], V))
+    return boxes, anchors
+
+
+def anchored_box_workloads(y1, y2, envelope, alignment, s2s1, s2s2,
+                           matches: int = 10, indels: int = 100):
+    """Anchor/box decomposition for a prepared pair (the --skip_matches
+    machinery as a standalone function): returns (box_workloads, anchors)
+    where box_workloads are (sort_key, y1_slice, y2_slice, env_slice)
+    consensus problems between anchors and anchors are (sort_key, sequence).
+    Returns (None, None) when no anchors exist."""
+    anchor_ranges, anchor_type = get_anchors(alignment, matches=matches,
+                                             indels=indels)
+    if not anchor_ranges:
+        return None, None
+    boxes, anchors = _anchor_boxes(
+        alignment, _alignment_to_sequence(alignment), s2s1, s2s2,
+        anchor_ranges, anchor_type, len(y1), len(y2))
+    return extract_box_workloads(y1, y2, envelope, boxes), anchors
+
+
+def extract_box_workloads(y1, y2, envelope, basecall_boxes):
+    """Slice the per-pair consensus problem into independent anchor-box
+    workloads (reference pair_decode.py:510-522 semantics): each box decodes
+    the envelope restricted to its row range, rebased to its own y slices.
+    Returns [(sort_key, y1_slice, y2_slice, env_slice), ...]; boxes with an
+    empty row range contribute nothing (no signal)."""
+    out = []
+    for b in basecall_boxes:
+        b0, b1 = b[0], b[1]
+        env_slice = envelope[b0:b1]
+        if len(env_slice) == 0:
+            continue
+        y2lo, y2hi = int(env_slice[0, 0]), int(env_slice[-1, 1])
+        out.append((b0, y1[b0:b1], y2[y2lo:y2hi], env_slice - y2lo))
+    return out
+
+
 def _alignment_to_sequence(alignment):
     """Alignment column -> sequence index map (pair_decode.py:403-410)."""
     a2s = np.zeros(alignment.shape, dtype=int)
@@ -91,7 +185,9 @@ def pair_decode_helper(args, _workload_sink=None):
     the prepared (y1, y2, envelope) workload plus a ``finish(consensus)``
     continuation are handed to the sink and this function returns None;
     pair_decode batches the sunk workloads into kernel waves. Without a
-    sink the pair's consensus runs here, as a wave of one.
+    sink the pair's consensus runs here, as a wave of one. In anchored
+    mode the workload is the list of the pair's (y1, y2, envelope) boxes
+    and ``finish`` takes their consensi.
     """
     in_path = list(getattr(args, "in"))
     assert len(in_path) == 2, "exactly two reads are required"
@@ -169,6 +265,37 @@ def pair_decode_helper(args, _workload_sink=None):
             skipped=0,
         )
 
+        alignment_to_sequence = _alignment_to_sequence(alignment)
+
+    # ---- anchor boxes for --skip_matches ----
+    # (reference pair_decode.py:412-452: 4-coordinate boxes over both axes)
+    if args.skip_matches:
+        anchor_ranges, anchor_type = get_anchors(
+            alignment, matches=args.skip_threshold, indels=100
+        )
+        assert len(anchor_ranges) > 0, (
+            "No matches/indels of sufficient length found in alignment"
+        )
+        basecall_boxes, basecall_anchors = _anchor_boxes(
+            alignment, alignment_to_sequence, sequence_to_signal1,
+            sequence_to_signal2, anchor_ranges, anchor_type, U, V)
+        assert abs(len(basecall_boxes) - len(basecall_anchors)) == 1
+
+        if args.debug:
+            with open("debug.p", "wb") as pfile:
+                pickle.dump(
+                    {
+                        "alignment_to_sequence": alignment_to_sequence,
+                        "sequence_to_signal1": sequence_to_signal1,
+                        "sequence_to_signal2": sequence_to_signal2,
+                        "alignment": alignment,
+                        "basecall_boxes": basecall_boxes,
+                        "basecall_anchors": basecall_anchors,
+                        "anchor_ranges": anchor_ranges,
+                    },
+                    pfile,
+                )
+
     # ---- stage 3: envelope ----
     _t0 = time.perf_counter()
     if args.diagonal_envelope:
@@ -180,8 +307,7 @@ def pair_decode_helper(args, _workload_sink=None):
             with open("debug.p", "wb") as pfile:
                 pickle.dump(
                     {
-                        "alignment_to_sequence": _alignment_to_sequence(
-                            alignment),
+                        "alignment_to_sequence": alignment_to_sequence,
                         "sequence_to_signal1": sequence_to_signal1,
                         "sequence_to_signal2": sequence_to_signal2,
                         "alignment": alignment,
@@ -219,6 +345,26 @@ def pair_decode_helper(args, _workload_sink=None):
         )
 
     # ---- stage 4: consensus ----
+    if args.skip_matches:
+        # anchored mode: the pair's boxes join the wave's pooled box
+        # launch; the finish continuation stitches the box consensi with
+        # the anchor sequences
+        box_workloads = extract_box_workloads(
+            y1, y2, alignment_envelope, basecall_boxes
+        )
+        boxes = [(wl[1], wl[2], wl[3]) for wl in box_workloads]
+
+        def _finish_boxes(seqs):
+            joined = "".join(s for _, s in sorted(
+                basecall_anchors
+                + [(k, s) for (k, *_), s in zip(box_workloads, seqs)]
+            ))
+            return _format_result(joined)
+
+        if _workload_sink is not None:
+            _workload_sink(boxes, _finish_boxes, summary)
+            return None
+        return _finish_boxes(_batched_box_consensus([boxes], args)[0])
     workload = (y1, y2, alignment_envelope)
     if _workload_sink is not None:
         _workload_sink(workload, _format_result, summary)
@@ -258,6 +404,53 @@ def _batched_consensus(workloads, args):
         float(sum(np.sum(env[:, 1] - env[:, 0]) for _, _, env in workloads)),
     )
     return out
+
+
+def batched_box_decode(flat_workloads, beam_width: int = 5, device=None):
+    """Decode a flat list of (y1, y2, env) anchor boxes: one launch of the
+    box kernel (ops/box_beam.py), then the boxes over its storage limit
+    through the pair kernel in waves of 32 sorted by length. On the CPU
+    both run their plain versions, with the same limit and the same
+    rerouting. Returns one sequence per box, in order."""
+    from ..ops.box_beam import box_beam
+    from ..ops.pair_beam_batch import pair_beam_batch
+
+    seqs, overflow = box_beam(flat_workloads, beam_width=beam_width,
+                              device=device)
+    if overflow:
+        log.info("box kernel: %d/%d boxes over the storage limit; rerouting "
+                 "through the pair kernel", len(overflow),
+                 len(flat_workloads))
+    order = sorted(overflow, key=lambda i: (len(flat_workloads[i][0])
+                                            + len(flat_workloads[i][1])))
+    wave = 32
+    for i in range(0, len(order), wave):
+        sel = order[i:i + wave]
+        out = pair_beam_batch([flat_workloads[j] for j in sel],
+                              beam_width=beam_width, device=device)
+        for j, s in zip(sel, out):
+            seqs[j] = s
+    return seqs
+
+
+def _batched_box_consensus(box_lists, args):
+    """Anchored mode (--skip_matches): pool every pair's anchor boxes into
+    one box-batch decode. The boxes between anchors are small independent
+    consensus problems, so a wave's hundreds of them ride one launch.
+    Returns one list of box sequences per input pair, in order. A failed
+    build or launch raises: there is no per-pair or CPU fallback."""
+    wls = [wl for boxes in box_lists for wl in boxes]
+    log.info("anchored consensus: %d boxes across %d pairs (box kernel)",
+             len(wls), len(box_lists))
+    _t0 = time.perf_counter()
+    seqs = iter(batched_box_decode(wls, beam_width=args.beam_width,
+                                   device=args.device))
+    timers.seconds["consensus_2d"] += time.perf_counter() - _t0
+    timers.add_work(
+        "consensus_2d",
+        float(sum(np.sum(env[:, 1] - env[:, 0]) for _, _, env in wls)),
+    )
+    return [[next(seqs) for _ in boxes] for boxes in box_lists]
 
 
 def pair_decode(args) -> None:
@@ -313,7 +506,9 @@ def pair_decode(args) -> None:
         def flush_pending():
             if not pending:
                 return
-            seqs = _batched_consensus([wl for _, wl, _, _ in pending], args)
+            consensus = (_batched_box_consensus if args.skip_matches
+                         else _batched_consensus)
+            seqs = consensus([wl for _, wl, _, _ in pending], args)
             for (idx, _, finish, _), seq in zip(pending, seqs):
                 results[idx] = finish(seq)
             pending.clear()

@@ -196,25 +196,31 @@ def pack_pairs(pairs, beam_width: int = 5, alphabet: str = "ACGT",
     )
 
 
-def traceback(prov: np.ndarray, types: np.ndarray, score: np.ndarray,
-              valid: np.ndarray, W: int, A: int, alphabet: str) -> str:
-    """Walk one pair's per-step winner provenance back from the best final
-    candidate (the tail of the JAX engine's _planned_scan).
+def walk_provenance(prov: np.ndarray, types: np.ndarray, j: int, W: int,
+                    A: int, alphabet: str) -> str:
+    """Walk one search's per-step winner provenance back from slot ``j``
+    of its final table (the tail of the JAX engine's _planned_scan).
 
     prov [N, W] (winner w of MAIN step t came from slot prov[t, w]),
-    types [N], score / valid [C] of the final (deduplicated) table."""
-    j = int(np.argmax(np.where(valid, score, -np.inf)))
+    types [N]."""
     chars = []
-    for t in range(len(types) - 1, -1, -1):
-        if types[t] != MAIN:
-            continue
+    rows = prov.tolist()
+    for t in np.flatnonzero(np.asarray(types) == MAIN)[::-1].tolist():
         if j >= W:
             chars.append((j - W) % A)
             j = (j - W) // A
-        j = int(prov[t, j])
+        j = rows[t][j]
     first = (j - W) % A if j >= W else -1
     out = ([first] if first >= 0 else []) + chars[::-1]
     return "".join(alphabet[c] for c in out)
+
+
+def traceback(prov: np.ndarray, types: np.ndarray, score: np.ndarray,
+              valid: np.ndarray, W: int, A: int, alphabet: str) -> str:
+    """One pair's consensus: ``walk_provenance`` from the best candidate
+    of the final (deduplicated) table, score / valid [C]."""
+    j = int(np.argmax(np.where(valid, score, -np.inf)))
+    return walk_provenance(prov, types, j, W, A, alphabet)
 
 
 def tracebacks(packed, prov, score, valid) -> list[str]:

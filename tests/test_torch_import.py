@@ -28,6 +28,7 @@ MODULES = [
     "poreover_tpu_torch.ops.beam2d",
     "poreover_tpu_torch.ops.beam2d_planned",
     "poreover_tpu_torch.ops.pair_beam_batch",
+    "poreover_tpu_torch.ops.box_beam",
     "poreover_tpu_torch.ops.beam1d",
     "poreover_tpu_torch.ops.viterbi",
     "poreover_tpu_torch.ops.prefix",

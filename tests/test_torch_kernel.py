@@ -1,8 +1,10 @@
-"""The CUDA kernels' wrappers (ops/pair_beam_batch.py, ops/beam1d.py).
+"""The CUDA kernels' wrappers (ops/pair_beam_batch.py, ops/box_beam.py,
+ops/beam1d.py).
 
 On the CPU: argument checks, the packed layout both the pair-beam kernel
 and its plain version read, and the plain route (the 1D kernel's CPU side
-is in tests/test_torch_beam1d.py). Tests marked ``cuda`` build and launch
+is in tests/test_torch_beam1d.py, the box kernel's in
+tests/test_torch_box_beam.py). Tests marked ``cuda`` build and launch
 each kernel and hold it against its plain version on the card; they
 skip without one (run them with ``python -m pytest --noconftest -m cuda
 tests/test_torch_kernel.py`` on a CUDA machine, where ``tests/conftest.py``
@@ -16,6 +18,7 @@ import torch
 from poreover_tpu_torch.ops import beam1d
 from poreover_tpu_torch.ops import beam2d
 from poreover_tpu_torch.ops import beam2d_planned as tp
+from poreover_tpu_torch.ops import box_beam as bb
 from poreover_tpu_torch.ops import pair_beam_batch as pbb
 
 # the plain version runs many small ops: one intra-op thread is as fast
@@ -136,6 +139,70 @@ def test_single_pair_entry_launches_one_cta(cuda_device):
     assert (pbb.launch_count, pbb.single_launch_count) == \
         (before[0], before[1] + 1)
     assert got == tp.beam_search_2d_planned(y1, y2, env, device=cuda_device)
+
+
+def _small_boxes():
+    """The pairs above as boxes, one-row boxes and an empty-read box."""
+    rng = np.random.default_rng(5)
+
+    def lp(T):
+        x = rng.normal(size=(T, 5)) * 2
+        return (x - np.log(np.exp(x).sum(1, keepdims=True))).astype(
+            np.float32)
+
+    out = _pairs() * 3
+    out += [(lp(1), lp(V), np.array([[0, V]], np.int64)) for V in (9, 13)]
+    out.append((lp(4), np.zeros((0, 5), np.float32),
+                np.zeros((4, 2), np.int64)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_ctas", [None, 1, 2])
+def test_box_kernel_matches_plain_on_card(cuda_device, max_ctas):
+    """Provenance and final picks are equal at every grid size: with one
+    CTA all boxes run back to back in it, each from the t = 0 state."""
+    boxes = _small_boxes()
+    prep = bb.prepare_boxes(boxes, device=cuda_device)
+    before = bb.box_launch_count
+    k = bb.launch_boxes(prep, max_ctas=max_ctas)
+    assert bb.box_launch_count == before + 1
+    assert prep["info"]["grid"] == min(max_ctas or 99, len(boxes) - 1)
+    p = bb.box_beam_plain(*prep["dev"], 5, 4)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert torch.equal(a.cpu(), b.cpu())
+    got = bb.fetch_boxes(prep, k)
+    assert got[-1] == "" and got == [
+        tp.beam_search_2d_planned(*b, device=cuda_device) if len(b[1])
+        else "" for b in boxes]
+
+
+@pytest.mark.cuda
+def test_box_kernel_limit_and_reroute_on_card(cuda_device, monkeypatch):
+    from poreover_tpu_torch.decoding.pair import batched_box_decode
+
+    boxes = _small_boxes()
+    want, over = bb.box_beam(boxes, device=cuda_device)
+    assert over == []
+    need = sorted(bb.prepare_box(*b)["storage"] for b in boxes)
+    monkeypatch.setattr(bb, "STORAGE_LIMIT_BYTES", need[len(need) // 2])
+    counts = (bb.box_launch_count, pbb.launch_count)
+    assert batched_box_decode(boxes, device=cuda_device) == want
+    assert (bb.box_launch_count, pbb.launch_count) == (counts[0] + 1,
+                                                       counts[1] + 1)
+    # the launcher itself refuses a box over the limit
+    prep = bb.prepare_boxes(boxes, device=cuda_device)
+    monkeypatch.setattr(bb, "STORAGE_LIMIT_BYTES", need[0])
+    with pytest.raises(ValueError, match="bytes of storage"):
+        bb.launch_boxes(prep)
+
+
+@pytest.mark.cuda
+def test_pair_beam_box_batch_on_card(cuda_device):
+    pairs = _pairs()
+    assert bb.pair_beam_box_batch(pairs, device=cuda_device) == \
+        pbb.pair_beam_batch(pairs, device=cuda_device)
 
 
 def _reads(S):

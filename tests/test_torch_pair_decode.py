@@ -92,7 +92,6 @@ def test_two_read_form(runs):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--skip_matches"], "A6"),
     (["--method", "split"], "A13"),
     (["--algorithm", "prefix"], "A13"),
     (["--single", "beam"], "A10"),
