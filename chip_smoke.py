@@ -7,18 +7,20 @@ Run from a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases (each fails the run if it fails):
-  1. build: the C++ host runtime (g++) and the three CUDA kernels (nvcc,
-     sm_90a, one process each), all from the checkout's sources, in
-     parallel; prints build seconds and the compiler's register / shared
-     memory / spill report.
+  1. build: the C++ host runtime (g++), the three CUDA kernels (nvcc,
+     sm_90a) and the instrumented builds of the two pair kernels
+     (``-DPOREOVER_PHASE_CLOCKS``), one process each, all from the
+     checkout's sources, in parallel; prints build seconds and the
+     compiler's register / shared memory / spill report.
   2. kernels vs plain versions on the card.
      Pair beam (``pair_beam_cuda`` against ``planned_scan``): the five
      envelope cases of tests/test_pallas.py at B=1, 4 and 8, the 24 anchor
      boxes of tests/data/boxes.npz as one batch, and two simulated pairs of
-     ~600 bases. Strings and final validity must be equal, final scores
-     within 1e-3; steps whose provenance differs are counted (expected:
-     none, and scores bit-equal, since both run the same ops in the same
-     order).
+     ~600 bases. Strings, provenance at every plan step and final validity
+     must be equal and the final scores bit-equal (both run the same ops
+     in the same order). The sweeps these batches take on the kernel's
+     narrow path (windows of at most 31 columns, scanned in registers) and
+     on its general path are counted from the plans; neither may be 0.
      1D beam (``beam1d_cuda`` against ``beam1d_plain``): the mixed lengths
      of tests/test_pallas.py for ctc, ctc_merge_repeats and ctc_flipflop at
      W=25 and W=5. Strings, chars and final validity must be equal, the
@@ -43,10 +45,17 @@ Phases (each fails the run if it fails):
      full size against the consensus phase 3 wrote, timed; its launch
      count is zeroed just before and read just after.
   5. timing of the pair kernel with CUDA events around ``launch_prepared``
-     on phase 3's wave, and the bound of that work; then kernel vs plain
-     version again on the wave's first PLAIN_STEPS plan steps per pair (the
-     plain version is too slow for the whole wave), timed both; the same
-     for pair 0 alone (the single-pair entry's input).
+     on phase 3's wave (ms, us per step of the longest plan) and the bound
+     of that work; the same wave with the kernel's storage forced into
+     global scratch (the path of pairs over its shared-memory limit); its
+     cycle breakdown: one launch of the instrumented build, cycles per plan
+     step of each phase of the search step (thread 0 of each CTA: prune,
+     expand, permute, loads, layers, scan, wait, refresh, score) and layers
+     per sweep;
+     then kernel vs plain version again on the wave's first PLAIN_STEPS
+     plan steps per pair (the plain version is too slow for the whole
+     wave), timed both; the same for pair 0 alone (the single-pair entry's
+     input).
   6. decode at full size, through the CLI: 32 simulated poreover reads
      (seed 11, 5200-8200 bases) with ``--algorithm beam --beam_width 25
      --threads 32``, launch count zeroed just before and read just after;
@@ -73,17 +82,18 @@ Phases (each fails the run if it fails):
      identity >= 0.999 to the run's consensus; the box kernel equal to its
      plain version on all boxes of pair 0.
   9. timing of the box kernel with CUDA events on phase 8's wave (all
-     boxes of the 8 pairs in one launch), and its bound; the pair kernel's
-     time for the boxes over the limit, and for the same boxes with one
-     CTA each.
+     boxes of the 8 pairs in one launch), its bound and its cycle
+     breakdown as in phase 5; the pair kernel's time for the boxes over the
+     limit, and for the same boxes with one CTA each.
 
-Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
-and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero,
+Prints the card's name and power limit, one ``{"kernels": [...]}`` line
+(the pair and box kernels also with ``us_per_step``), and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero,
 printing no result, without a CUDA device or without the package beside
 it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -104,7 +114,7 @@ F32_FLOPS = 67e12
 # E - cw, + cw, and ~2 log-add-exps of the scan (max, sub, abs, exp,
 # log1p, add each)
 OPS_PER_CELL = 3 + 2 * 6
-SCORE_TOL = 1e-3
+SCORE_TOL = 1e-3  # the 1D kernel's final table (B1 and B3: bit-equal)
 PLAIN_STEPS = 1500
 PLAIN_STEPS_SINGLE = 500
 DEVICE = "cuda"
@@ -120,6 +130,10 @@ FEW_CTAS = 3  # grid cap that makes boxes run back to back in a CTA
 OPS_LSE = 6
 BEAM1D_UPDATE_OPS = {0: 2 + OPS_LSE, 1: 2 * (2 + OPS_LSE) + 2 * OPS_LSE,
                      2: 2 * (2 + OPS_LSE) + 2 * OPS_LSE}
+# the phase sums of csrc/pair_search.cuh's instrumented build (CK_*)
+CLOCK_PHASES = ("prune", "expand", "permute", "loads", "layers", "refresh",
+                "score", "scan", "wait")
+CK_STEPS, CK_SWEEPS, CK_LAYER_N, CK_NARROW, CK_N = 9, 10, 11, 12, 13
 MIXED_LENGTHS = {"ctc": (300, 257, 512, 100, 421, 380, 256, 64),
                  "ctc_merge_repeats": (300, 257, 512, 100, 401, 77),
                  "ctc_flipflop": (300, 257, 512, 100, 401, 77)}
@@ -262,6 +276,9 @@ def compare(name, prep, stats):
     p, t_p = timed(lambda: planned_scan(*prep["dev"], prep["W"], prep["A"]))
     k = [x.cpu().numpy() for x in k]
     p = [x.cpu().numpy() for x in p]
+    fin = np.isfinite(k[1]) & np.isfinite(p[1])
+    err = float(np.abs(k[1][fin] - p[1][fin]).max(initial=0.0))
+    stats["max_abs_err"] = max(stats["max_abs_err"], err)
     sk = tracebacks(prep, *k)
     sp = tracebacks(prep, *p)
     if sk != sp:
@@ -269,20 +286,22 @@ def compare(name, prep, stats):
         fail(f"{name}: kernel strings differ from the plain version at "
              f"pairs {bad}")
     n_prov = int((k[0] != p[0]).any(1).sum())
+    if n_prov:
+        fail(f"{name}: provenance differs from the plain version at {n_prov} "
+             f"steps (first {int(np.flatnonzero((k[0] != p[0]).any(1))[0])})")
     if not np.array_equal(k[2], p[2]):
         fail(f"{name}: final validity differs")
-    fk, fp = np.isfinite(k[1]), np.isfinite(p[1])
-    if not np.array_equal(fk, fp) or not np.array_equal(
-            k[1][~fk], p[1][~fp]):
-        fail(f"{name}: non-finite score positions differ")
-    err = float(np.abs(k[1][fk] - p[1][fp]).max(initial=0.0))
-    if err > SCORE_TOL:
-        fail(f"{name}: final scores differ by {err} > {SCORE_TOL}")
-    stats["max_abs_err"] = max(stats["max_abs_err"], err)
+    if not np.array_equal(k[1].view(np.int32), p[1].view(np.int32)):
+        fail(f"{name}: final scores not bit-equal (max |err| {err:.3g} "
+             "over the finite ones)")
+    from poreover_tpu_torch.ops.pair_beam_batch import sweep_paths
+    narrow, general = sweep_paths(prep["plan"])
+    stats["narrow"] = stats.get("narrow", 0) + narrow
+    stats["general"] = stats.get("general", 0) + general
     log(f"  {name}: B={len(prep['meta'])} steps={len(prep['plan'])} (max "
-        f"{int(prep['meta'][:, 7].max())} per pair) strings equal, "
-        f"provenance differs at {n_prov} steps, max |score err| {err:.3g}; "
-        f"kernel {t_k:.1f} ms, plain {t_p:.1f} ms")
+        f"{int(prep['meta'][:, 7].max())} per pair; sweeps {narrow} narrow, "
+        f"{general} general) strings, provenance and validity equal, "
+        f"scores bit-equal; kernel {t_k:.1f} ms, plain {t_p:.1f} ms")
     return t_k, t_p
 
 
@@ -369,6 +388,49 @@ def timed(fn):
     e1.record()
     torch.cuda.synchronize()
     return out, e0.elapsed_time(e1)
+
+
+@contextlib.contextmanager
+def instrumented(mod):
+    """Inside the block the kernel wrapper module ``mod``
+    (``ops.pair_beam_batch`` or ``ops.box_beam``) launches its instrumented
+    build (``POREOVER_PHASE_CLOCKS``); yields that library."""
+    normal, clk = mod.load_kernel(), mod.load_kernel(phase_clocks=True)
+    mod._libs[False] = clk
+    try:
+        yield clk
+    finally:
+        mod._libs[False] = normal
+
+
+def phase_breakdown(name, mod, launch):
+    """One ``launch`` of ``mod``'s instrumented build (``instrumented``):
+    prints the cycles per plan step of each phase of the search step,
+    summed over thread 0 of every CTA (clock64), and the layers per sweep;
+    returns the cycles per step by phase."""
+    import ctypes
+
+    import torch
+
+    buf = (ctypes.c_ulonglong * CK_N)()
+    torch.cuda.synchronize()
+    with instrumented(mod) as lib:
+        if lib.phase_clocks_read(buf, CK_N, 1):
+            fail(f"{name}: phase_clocks_read failed")
+        launch()
+        torch.cuda.synchronize()
+        if lib.phase_clocks_read(buf, CK_N, 0):
+            fail(f"{name}: phase_clocks_read failed")
+    c = list(buf)
+    steps, sweeps = max(c[CK_STEPS], 1), max(c[CK_SWEEPS], 1)
+    per = {ph: c[i] / steps for i, ph in enumerate(CLOCK_PHASES)}
+    log(f"  cycles per plan step, {name} (thread 0 of each CTA, "
+        f"{c[CK_STEPS]} steps): "
+        + " ".join(f"{ph} {v:.0f}" for ph, v in per.items())
+        + f"; total {sum(per.values()):.0f}; {c[CK_LAYER_N] / sweeps:.2f} "
+        f"layers per sweep over {c[CK_SWEEPS]} sweeps ({c[CK_NARROW]} "
+        "narrow)")
+    return per
 
 
 def event_ms(fn, reps):
@@ -509,26 +571,15 @@ def decode_cli(d, inputs, basecaller, algorithm, out, device=None,
             dict(timers.seconds))
 
 
-def main():
-    import torch
-
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false")
-    if not os.path.isdir(os.path.join(HERE, "poreover_tpu_torch")):
-        fail("poreover_tpu_torch/ is not beside this script")
-    sys.path.insert(0, HERE)
+def build_all():
+    """Phase 1: the host runtime, the three kernels and the instrumented
+    builds of the two pair kernels, one compiler process each, in
+    parallel; prints the compiler's register / spill report."""
     from poreover_tpu_torch import build, native
     from poreover_tpu_torch.ops import beam1d
     from poreover_tpu_torch.ops import box_beam as bb
     from poreover_tpu_torch.ops import pair_beam_batch as pbb
 
-    t_start = time.perf_counter()
-    gpu = gpu_line()
-    log(gpu)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)}")
-
-    # ---- phase 1: build the four libraries in parallel
     t0 = time.perf_counter()
     errs = []
 
@@ -540,7 +591,8 @@ def main():
 
     ths = [threading.Thread(target=run, args=(f,))
            for f in (native.load, pbb.load_kernel, beam1d.load_kernel,
-                     bb.load_kernel)]
+                     bb.load_kernel, lambda: pbb.load_kernel(True),
+                     lambda: bb.load_kernel(True))]
     for th in ths:
         th.start()
     for th in ths:
@@ -551,6 +603,28 @@ def main():
     for kernel in ("pair_beam_batch", "beam1d", "box_beam"):
         for line in build.ptxas_report(kernel):
             log(f"  ptxas {kernel}: {line}")
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    if not os.path.isdir(os.path.join(HERE, "poreover_tpu_torch")):
+        fail("poreover_tpu_torch/ is not beside this script")
+    sys.path.insert(0, HERE)
+    from poreover_tpu_torch import native
+    from poreover_tpu_torch.ops import beam1d
+    from poreover_tpu_torch.ops import box_beam as bb
+    from poreover_tpu_torch.ops import pair_beam_batch as pbb
+
+    t_start = time.perf_counter()
+    gpu = gpu_line()
+    log(gpu)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+
+    build_all()
 
     # ---- phase 2: kernels vs plain versions on the card
     from poreover_tpu_torch.ops.beam2d_planned import (
@@ -566,6 +640,11 @@ def main():
                  sim_workloads(2, seed=3, lo=550, hi=650))]
     for name, batch in batches:
         compare(name, upload(pack_pairs(batch)), stats)
+    log(f"  pair kernel sweeps in phase 2: {stats['narrow']} on the narrow "
+        f"path (<= {pbb.NARROW_MAX} columns), {stats['general']} on the "
+        "general path, counted from the plans")
+    if not stats["narrow"] or not stats["general"]:
+        fail("phase 2 does not exercise both sweep paths of the pair kernel")
 
     stats1d = {"max_abs_err": 0.0, "prov_rows_differ": 0}
     for model, S in (("ctc", 5), ("ctc_merge_repeats", 5),
@@ -659,18 +738,29 @@ def main():
     steps = prep["meta"][:, 7]
     wave_ms = event_ms(lambda: pbb.launch_prepared(prep), reps=2)
     wave_bound, wave_by, wave_terms = bound_ms(prep)
-    log(f"phase 5 [{gpu}]: kernel {wave_ms:.1f} ms per 8-pair wave "
+    log(f"phase 5 [{gpu}]: kernel {wave_ms:.1f} ms per 8-pair wave, "
+        f"{wave_ms * 1e3 / steps.max():.2f} us per step of the longest plan "
         f"(bound {wave_bound:.4f} ms, {wave_by}); plan steps per pair "
         f"{steps.tolist()} (mean {steps.mean():.0f}); consensus "
         f"{8 / (wave_ms / 1e3):.2f} pairs/s (kernel), "
         f"{8 / t_cons:.2f} pairs/s (stage 4 wall); end-to-end "
         f"{8 / t_e2e:.2f} pairs/s")
     log(f"  bound terms: {wave_terms}")
+    glob_ms = event_ms(lambda: pbb._launch(
+        *prep["dev"], prep["meta"], prep["W"], prep["A"], in_smem=False),
+        reps=2)
+    log(f"  the same wave with the storage in global scratch (the path of "
+        f"pairs over the shared-memory limit): {glob_ms:.1f} ms; in shared "
+        f"memory {(1 - wave_ms / glob_ms):.1%} faster")
     prep1 = pbb.prepare_pairs(wave[:1], device=DEVICE)
     one_ms = event_ms(lambda: pbb.launch_prepared(prep1), reps=1)
     one_bound, one_by, one_terms = bound_ms(prep1)
-    log(f"  pair 0 alone (one CTA): kernel {one_ms:.1f} ms (bound "
+    log(f"  pair 0 alone (one CTA): kernel {one_ms:.1f} ms, "
+        f"{one_ms * 1e3 / steps[0]:.2f} us per step (bound "
         f"{one_bound:.4f} ms, {one_by}); {one_terms}")
+    wave_steps, one_steps = int(steps.max()), int(steps[0])
+    phase_breakdown("pair wave", pbb, lambda: pbb._launch(
+        *prep["dev"], prep["meta"], prep["W"], prep["A"]))
     # the plain version is far too slow for the whole wave (~10 ms per
     # plan step), so both run the wave's first PLAIN_STEPS plan steps per
     # pair, at the full plans' storage widths
@@ -892,11 +982,14 @@ def main():
         f"{8 / (box_ms / 1e3):.2f} pairs/s (kernel), "
         f"{8 / anch_timers['consensus_2d']:.2f} pairs/s (stage 4 wall)")
     log(f"  bound terms: {box_terms}")
+    box_steps = int(bsteps.max())
+    phase_breakdown("anchored wave", bb, lambda: bb.box_beam_cuda(
+        *prep["dev"], prep["meta"], prep["W"], prep["A"]))
     in_kernel = [all_boxes[i] for i in prep["order"]]
     as_pairs = pbb.prepare_pairs(in_kernel, device=DEVICE)
     as_pairs_ms = event_ms(lambda: pbb.launch_prepared(as_pairs), reps=2)
     log(f"  the same {len(in_kernel)} boxes through the pair kernel (one "
-        f"CTA per box, storage in global scratch): {as_pairs_ms:.1f} ms")
+        f"CTA per box): {as_pairs_ms:.1f} ms")
     if prep["overflow"]:
         over = pbb.prepare_pairs([all_boxes[i] for i in prep["overflow"]],
                                  device=DEVICE)
@@ -913,6 +1006,7 @@ def main():
         "replaces": "poreover_tpu/ops/pallas_pair_beam_batch.py:1169",
         "launches": launches, "max_abs_err": stats["max_abs_err"],
         "ms": wave_ms, "plain_ms": short_p, "bound_ms": wave_bound,
+        "us_per_step": wave_ms * 1e3 / wave_steps,
         "bound_by": wave_by, "library_ms": None,
         "plain_input": f"pair wave, first {PLAIN_STEPS} plan steps per pair",
         "ms_on_plain_input": short_k, "bound_ms_on_plain_input": short_bound,
@@ -923,6 +1017,7 @@ def main():
         "launches": single_launches,
         "max_abs_err": stats_single["max_abs_err"],
         "ms": one_ms, "plain_ms": short1_p, "bound_ms": one_bound,
+        "us_per_step": one_ms * 1e3 / one_steps,
         "bound_by": one_by, "library_ms": None,
         "plain_input": f"pair 0, first {PLAIN_STEPS_SINGLE} plan steps",
         "ms_on_plain_input": short1_k,
@@ -942,6 +1037,7 @@ def main():
         "replaces": "poreover_tpu/ops/pallas_box_beam.py:1007",
         "launches": box_launches, "max_abs_err": stats_box["max_abs_err"],
         "ms": box_ms, "plain_ms": box0_p, "bound_ms": box_bound,
+        "us_per_step": box_ms * 1e3 / box_steps,
         "bound_by": box_by, "library_ms": None,
         "plain_input": "all boxes of pair 0 of the anchored wave",
         "ms_on_plain_input": box0_k, "bound_ms_on_plain_input": box0_bound,

@@ -79,11 +79,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 CSRC_DIR = PKG_DIR / "csrc"
 
 
-def build_kernel(name: str) -> Path:
+def build_kernel(name: str, defines: tuple[str, ...] = ()) -> Path:
     """Build ``csrc/<name>.cu`` (with the headers ``csrc/*.cuh``) into
-    ``_build/lib<name>-<hash>.so`` with nvcc for sm_90a, no fast math."""
+    ``_build/lib<name>-<hash>.so`` with nvcc for sm_90a, no fast math.
+    ``defines`` are macros passed as ``-D``; they enter the hash and the
+    library's name (``lib<name>_<macro>-<hash>.so``), so an instrumented
+    build never replaces the normal one."""
     nvcc = find_tool("nvcc", ["/usr/local/cuda/bin"])
-    return build_shared(f"lib{name}", nvcc, NVCC_FLAGS,
+    stem = f"lib{name}" + "".join(f"_{d.lower()}" for d in defines)
+    return build_shared(stem, nvcc, NVCC_FLAGS + [f"-D{d}" for d in defines],
                         [CSRC_DIR / f"{name}.cu"],
                         headers=sorted(CSRC_DIR.glob("*.cuh")))
 

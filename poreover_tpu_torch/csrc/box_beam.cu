@@ -18,14 +18,15 @@
 // own offsets, and takes the next. A box's result does not depend on which
 // CTA ran it or on what ran before. Each candidate's windowed storage and
 // frozen parent copies, 16*C*(Wst0+Wst1) bytes per box, live in dynamic
-// shared memory beside the 28 KB of tables: that is the static storage
-// budget (STORAGE_LIMIT_BYTES, sized so that at least two CTAs share an
-// SM). Boxes over it are not launched; the wrapper (ops/box_beam.py) hands
+// shared memory beside the search's 7.6 KB of static shared memory: that
+// is the static storage budget (STORAGE_LIMIT_BYTES, sized so that at
+// least two CTAs share an SM; __launch_bounds__ keeps the registers of
+// two). Boxes over it are not launched; the wrapper (ops/box_beam.py) hands
 // them to the pair kernel. The grid is the number of CTAs the card holds at
 // once at this launch's shared-memory size, or the number of boxes.
 //
 // What bounds it: latency, as for the pair kernel (a step is a chain of
-// small dependent phases between barriers); with hundreds of boxes per
+// small dependent phases); with hundreds of boxes per
 // launch every SM has work, which the pair kernel's one CTA per pair never
 // gives. The largest box of a launch sets every CTA's shared-memory size
 // and so the CTAs per SM (2 to 4); splitting a launch by box size is later
@@ -42,11 +43,15 @@ namespace {
 
 using namespace poreover::pair_search;
 
-// storage a box may need (dynamic shared memory beside the static tables):
-// the most at which two CTAs still share an SM's 228 KB
-constexpr int STORAGE_LIMIT_BYTES = 85 * 1024;
+// storage a box may need (dynamic shared memory beside the static
+// Shared, 7.6 KB): the most at which two CTAs, each with 1 KB the system
+// reserves, still share an SM's 228 KB
+constexpr int STORAGE_LIMIT_BYTES = 105 * 1024;
+static_assert(2 * (STORAGE_LIMIT_BYTES + sizeof(Shared) + 16 + 1024) <=
+                  228 * 1024,
+              "two CTAs per SM at the storage limit");
 
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 2)
 box_beam_kernel(const float* __restrict__ planes1,
                 const float* __restrict__ planes2,
                 const int* __restrict__ plan,
@@ -66,13 +71,13 @@ box_beam_kernel(const float* __restrict__ planes1,
     if (box >= nbox) break;
     const long long* m = meta + (long long)box * META_COLS;
     const Problem pr = load_problem(planes1, planes2, plan, m);
-    const int ct = run_search(sh, pr, W, store, prov + m[M_PLAN] * W);
+    const Row r = run_search(sh, pr, W, store, prov + m[M_PLAN] * W);
 
     // ---- final pick: arg-max of the deduplicated table, lowest slot
     if (warp == 0) {
-      const Table& t = sh.tab[ct];
       const bool in = lane < C;
-      float bs = (in && final_keep(t, lane)) ? t.score[lane] : -INFINITY;
+      const bool keep = final_keep(r, lane);
+      float bs = (in && keep) ? r.score : -INFINITY;
       int bi = in ? lane : (1 << 20);
       warp_argmax_lowest(bs, bi);
       if (lane == 0) pick[box] = bi;

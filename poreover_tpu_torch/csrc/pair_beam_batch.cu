@@ -10,22 +10,28 @@
 // Design: one persistent CTA per pair walks that pair's own host plan
 // (MAIN / C0RUN / C1RUN steps) inside one launch; no per-step host
 // launches and no padding of plans to a common length. The search itself
-// (candidate table in shared memory, layered chunked sweeps, bit-exactness
-// rules) is pair_search.cuh:run_search, shared with box_beam.cu; here each
-// candidate's windowed per-read storage and frozen parent copies live in
-// per-pair global scratch.
+// (candidate table in registers, both reads swept at once by two warp
+// groups, register scans of narrow windows, bit-exactness rules) is
+// pair_search.cuh:run_search, shared with box_beam.cu. Each candidate's
+// windowed per-read storage and frozen parent copies live in the CTA's
+// dynamic shared memory when the launch's largest pair fits
+// (SMEM_STORAGE_LIMIT_BYTES; a full-size simulated pair needs ~70 KB),
+// else in per-pair global scratch. On the full-size 8-pair wave of
+// chip_smoke.py the shared-memory path is ~7% faster (H100 SXM: 704 ms
+// against 759 ms), mostly in the storage passes.
 //
 // What bounds it: latency, not bytes or FLOPs. A step is a chain of small
-// dependent phases separated by __syncthreads; per MAIN step the CTA moves
-// ~6 rows-of-Wst copies per read (permute, frozen-parent gather, refresh)
-// through L2. Only B CTAs run (one per pair of a wave), so at B=8 the card
-// is mostly idle. Later work: warp-level top-k, storage tiles in shared
-// memory, copy-on-write storage, more pairs per wave.
+// dependent phases (see pair_search.cuh for what the step does about
+// it); per MAIN step each read group moves ~2 rows-of-Wst copies per
+// candidate (permute with frozen-parent gather, refresh). Only B CTAs run
+// (one per pair of a wave), so at B=8 the card is mostly idle. Later
+// work: more pairs per wave.
 //
 // Interface (plain C, loaded with ctypes; see ops/pair_beam_batch.py):
 // planes: per pair a [A+2, T+1] float32 plane (rows 0..3 emissions, 4 gap,
 // 5 the root's value at t-1), flat, at meta offsets; plan int32 [sum N, 5];
-// meta int64 [B, 12]; scratch float32 4*C*(Wst0+Wst1) per pair; outputs
+// meta int64 [B, 12]; scratch float32 4*C*(Wst0+Wst1) per pair (unused
+// when the storage is in shared memory); outputs
 // prov int8 [sum N, W], score float32 [B, C], valid uint8 [B, C].
 
 #include "pair_search.cuh"
@@ -34,28 +40,39 @@ namespace {
 
 using namespace poreover::pair_search;
 
+// storage a pair may keep in shared memory: what a CTA may hold beside the
+// search's static shared memory (one CTA per pair, so one per SM)
+constexpr int SMEM_STORAGE_LIMIT_BYTES = 216 * 1024;
+static_assert(SMEM_STORAGE_LIMIT_BYTES + sizeof(Shared) <= 227 * 1024,
+              "a CTA's shared memory");
+
 __global__ void __launch_bounds__(NT)
 pair_beam_kernel(const float* __restrict__ planes1,
                  const float* __restrict__ planes2,
                  const int* __restrict__ plan,
-                 const long long* __restrict__ meta, int W,
+                 const long long* __restrict__ meta, int W, int in_smem,
                  float* __restrict__ scratch, signed char* __restrict__ prov,
                  float* __restrict__ score_out,
                  unsigned char* __restrict__ valid_out) {
   __shared__ Shared sh;
-  const int tid = threadIdx.x;
+  extern __shared__ float smem_store[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int C = W * (A + 1);
   const long long* m = meta + (long long)blockIdx.x * META_COLS;
   const Problem pr = load_problem(planes1, planes2, plan, m);
-  const int ct = run_search(sh, pr, W, scratch + m[M_SCR],
-                            prov + m[M_PLAN] * W);
+  // two inlined copies of the search, so that each knows the address
+  // space of its storage
+  signed char* pv = prov + m[M_PLAN] * W;
+  const Row r = in_smem ? run_search(sh, pr, W, smem_store, pv)
+                        : run_search(sh, pr, W, scratch + m[M_SCR], pv);
 
   // ---- final table, deduplicated
-  if (tid < C) {
-    const Table& t = sh.tab[ct];
-    const int keep = final_keep(t, tid);
-    score_out[blockIdx.x * C + tid] = keep ? t.score[tid] : -INFINITY;
-    valid_out[blockIdx.x * C + tid] = (unsigned char)keep;
+  if (warp == 0) {
+    const bool keep = final_keep(r, lane);
+    if (lane < C) {
+      score_out[blockIdx.x * C + lane] = keep ? r.score : -INFINITY;
+      valid_out[blockIdx.x * C + lane] = (unsigned char)keep;
+    }
   }
 }
 
@@ -63,15 +80,32 @@ pair_beam_kernel(const float* __restrict__ planes1,
 
 extern "C" {
 
-// Launches one CTA per pair on `stream`; returns cudaGetLastError().
+int pair_beam_storage_limit() { return SMEM_STORAGE_LIMIT_BYTES; }
+
+// widest window the search sweeps on its narrow (register) path
+int pair_beam_narrow_max() { return NARROW_MAX; }
+
+// Launches one CTA per pair on `stream`. With smem_bytes > 0 (the largest
+// pair's storage, at most the limit) each CTA keeps its storage in that
+// much dynamic shared memory and scratch is not touched; with 0 it lives
+// in scratch. Returns a cudaError_t.
 int pair_beam_batch_launch(const float* planes1, const float* planes2,
                            const int* plan, const long long* meta, int B,
-                           int W, float* scratch, signed char* prov,
-                           float* score, unsigned char* valid,
-                           void* stream) {
-  if (B > 0)
-    pair_beam_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(
-        planes1, planes2, plan, meta, W, scratch, prov, score, valid);
+                           int W, int smem_bytes, float* scratch,
+                           signed char* prov, float* score,
+                           unsigned char* valid, void* stream) {
+  if (B <= 0) return 0;
+  if (smem_bytes < 0 || smem_bytes > SMEM_STORAGE_LIMIT_BYTES)
+    return (int)cudaErrorInvalidValue;
+  if (smem_bytes > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        pair_beam_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  pair_beam_kernel<<<B, NT, (size_t)smem_bytes, (cudaStream_t)stream>>>(
+      planes1, planes2, plan, meta, W, smem_bytes > 0, scratch, prov, score,
+      valid);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
 // The row_col pair-consensus beam search of one (y1, y2, plan) problem by
 // one CTA: device code shared by pair_beam_batch.cu (one CTA per pair,
-// storage in global scratch) and box_beam.cu (many anchor boxes per CTA,
-// storage in shared memory). Header only; part of both kernels' build hash.
+// storage in shared memory or global scratch) and box_beam.cu (many anchor
+// boxes per CTA, storage in shared memory). Header only; part of both kernels' build hash.
 //
 // Computes what the plan-driven engine
 // poreover_tpu/ops/beam2d_planned.py:_planned_scan computes for model "ctc"
@@ -9,20 +9,43 @@
 // ops/beam2d_planned.py:planned_scan computes, op for op, so kernel and
 // plain version agree bit for bit on the card.
 //
-// The candidate table (C = W*(A+1) <= 32 slots: hash keys, chars, validity,
-// scores, storage offsets, frozen-parent offsets) lives in shared memory
-// (`Shared`); warp 0 does the dedup + top-W prune (ties to the lowest slot,
-// as lax.top_k and a stable sort do). Each candidate's windowed per-read
-// storage ("sweep") and its frozen parent copy ("psweep"), [C, Wst] float32
-// per read, live in the caller's `store` (4*C*(Wst0+Wst1) floats,
-// double-buffered, so a MAIN step's permutation is one gather pass). A
-// sweep runs in CHUNK-column pieces; inside a chunk the candidates are
-// layered over their parent forest, one warp per ready row, and each row's
-// stay chain is the closed form cw + cumlse(seed, E - cw), whose inclusive
-// log-add-exp scan walks the same pairwise tree as
-// jax.lax.associative_scan. cw is a float64 prefix sum rounded once to
-// float32. No fast math: expf / log1pf stay IEEE; no TF32 or bf16 touches a
-// log-prob. log(0) is -inf and lse(-inf, -inf) is -inf.
+// What bounds a step: latency. It is a chain of small dependent phases, so
+// the design cuts the chain's barriers and its serial and wasted work:
+//
+// - The candidate table (C = W*(A+1) <= 32 slots) lives in registers, one
+//   lane per slot, and every warp holds its own copy and updates it the
+//   same way: prune (dedup by __match_any_sync on the 64-bit key, ties to
+//   the lowest slot; top-W by each lane's rank), expand (shuffles from the
+//   winners' lanes) and the key lookups (first masked slot with a key, by
+//   32 broadcasts) need no shared memory and no barrier.
+// - The two reads sweep at the same time: warps 0-3 sweep read 0, warps
+//   4-7 read 1, each group synchronised by its own named barrier. The
+//   groups meet once per MAIN step, where a candidate's score is the sum
+//   of its two window maxima; on a catch-up run (C0RUN / C1RUN) one group
+//   sweeps and the other goes on to the next step.
+// - A sweep costs its live columns. Inside a chunk the candidates are
+//   layered over their parent forest, and each row's stay chain is the
+//   closed form cw + cumlse(seed, E - cw), whose inclusive log-add-exp
+//   scan walks the pairwise tree of jax.lax.associative_scan. That tree is
+//   prefix-consistent (a position's value depends only on the positions
+//   before it, combined in the same pairs whatever the length), so a
+//   window of at most NARROW_MAX columns (most sweeps) runs in registers:
+//   seed and columns in a segment of S = 2^k lanes, 32/S rows per warp,
+//   the tree level by level with __shfl_up_sync. Wider windows take the
+//   general path: CHUNK-column pieces, each scanned in a per-warp shared
+//   buffer cut to the chunk's live width. cw is a float64 prefix sum
+//   rounded once to float32. A row's values go straight into its storage,
+//   where its children read them after the layer's barrier.
+// - The storage passes (the MAIN permutation with the re-anchoring shift,
+//   the frozen-parent gather and refresh) run a row per warp, RB rows and
+//   CPL columns per lane in flight.
+//
+// Each candidate's windowed per-read storage ("sweep") and its frozen
+// parent copy ("psweep"), [C, Wst] float32 per read, live in the caller's
+// `store` (4*C*(Wst0+Wst1) floats, double-buffered, so a MAIN step's
+// permutation is one gather pass). No fast math: expf / log1pf stay IEEE;
+// no TF32 or bf16 touches a log-prob. log(0) is -inf and lse(-inf, -inf)
+// is -inf.
 //
 // run_search starts from the t = 0 state and rewrites every piece of table
 // and storage state it later reads, so a CTA may run one problem after
@@ -37,63 +60,82 @@ namespace pair_search {
 
 constexpr unsigned FULL = 0xffffffffu;
 
-// Warp-wide arg-max of (score, index) pairs, ties to the lowest index (as
-// lax.top_k and a stable sort pick). Every lane returns the winner.
-__device__ __forceinline__ void warp_argmax_lowest(float& bs, int& bi) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float os = __shfl_xor_sync(FULL, bs, o);
-    const int oi = __shfl_xor_sync(FULL, bi, o);
-    if (os > bs || (os == bs && oi < bi)) {
-      bs = os;
-      bi = oi;
-    }
-  }
-}
-
-// Warp-wide maximum; every lane returns it.
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
 constexpr int CHUNK = 128;
 constexpr int SCAN_N = CHUNK + 1;
 constexpr int CMAX = 32;
 constexpr int A = 4;
 constexpr int NT = 256;
 constexpr int NWARP = NT / 32;
+constexpr int GWARP = NWARP / 2;  // warps of one read's group
+constexpr int GT = 32 * GWARP;    // threads of one read's group
+constexpr int NARROW_MAX = 31;    // widest window of the register path
+constexpr int RB = 4;   // storage passes: rows per warp at a time,
+constexpr int CPL = 2;  // and columns per lane and row
 
 enum { MAIN = 0, C0RUN = 1, C1RUN = 2 };
 // columns of a problem's int64 meta row (ops/beam2d_planned.py:pack_pairs)
 enum { M_T1, M_L1, M_Y1, M_T2, M_L2, M_Y2, M_PLAN, M_N, M_WST0, M_WST1,
        M_SCR, META_COLS = 12 };
 
-struct Table {
-  unsigned k1[CMAX], k2[CMAX], pk1[CMAX], pk2[CMAX];
-  int chr[CMAX], pch[CMAX], valid[CMAX];
-  float score[CMAX];
+// Per-phase cycle sums of thread 0 of every CTA (clock64; thread 0 sweeps
+// read 0, so the score phase holds its wait for read 1; layers are the
+// rows' loads and stores, scan their lse trees, wait the group barriers),
+// and counts of the sweeps and layers of both groups, compiled only with
+// -DPOREOVER_PHASE_CLOCKS (build.py: build_kernel(..., defines)): the
+// normal build has none of this code. Slots CK_STEPS.. are counts.
+#ifdef POREOVER_PHASE_CLOCKS
+enum { CK_PRUNE, CK_EXPAND, CK_PERMUTE, CK_LOADS, CK_LAYERS, CK_REFRESH,
+       CK_SCORE, CK_SCAN, CK_WAIT, CK_STEPS, CK_SWEEPS, CK_LAYER_N,
+       CK_NARROW, CK_N };
+__device__ unsigned long long g_phase_clocks[CK_N];
+#define CLK_INIT() long long clk_t_ = clock64()
+#define CLK(p)                                                          \
+  do {                                                                  \
+    if (threadIdx.x == 0) {                                             \
+      const long long n_ = clock64();                                   \
+      atomicAdd(&g_phase_clocks[p], (unsigned long long)(n_ - clk_t_)); \
+      clk_t_ = n_;                                                      \
+    }                                                                   \
+  } while (0)
+#define CLK_COUNT(p, v)                                                 \
+  do {                                                                  \
+    if (threadIdx.x % GT == 0)                                          \
+      atomicAdd(&g_phase_clocks[p], (unsigned long long)(v));           \
+  } while (0)
+#define CLK_PARAM , long long &clk_t_
+#define CLK_ARG , clk_t_
+#else
+#define CLK_INIT()
+#define CLK(p)
+#define CLK_COUNT(p, v)
+#define CLK_PARAM
+#define CLK_ARG
+#endif
+
+// One candidate slot; lane i of every warp holds slot i.
+struct Row {
+  unsigned k1, k2, pk1, pk2;
+  int chr, pch, valid;
+  float score;
+};
+
+// A warp's own scratch: the keys and scores of its copy of the table,
+// which its lanes read back with broadcast vector loads (key lookups and
+// ranks), and the rows of a narrow layer in the order of their slots
+// (sharing the general path's scan buffer, which a narrow sweep leaves
+// alone).
+struct WarpScratch {
+  uint2 key[CMAX];  // (k1, k2)
+  float sc[CMAX];
+  union {
+    float scan[SCAN_N + 3];  // general path: the warp's scan tree
+    int4 rows[CMAX];         // narrow path: (row, pslot, chr, poff)
+  };
 };
 
 struct Shared {
-  Table tab[2];
-  int keep[CMAX];
-  int beam_src[CMAX];
-  int child_idx[CMAX];    // new child slot -> old slot of the same key, -1
-  int refresh_idx[CMAX];  // slot of the parent among valid rows, -1
-  int pslot[CMAX];        // slot of the parent among swept rows, -1
-  int is_root[CMAX];
-  int smask[CMAX];        // swept rows of the current sweep
-  int sel[CMAX];          // catch-up runs: rows of the current beam
-  int poff[2][CMAX];
-  float seeds[CMAX];
-  float mx[2][CMAX];
-  int done[CMAX], rdy[CMAX], rlist[CMAX];
-  int nready;
-  float emis[A][CHUNK];
-  float gapw[CHUNK], root[CHUNK], cwv[CHUNK];
-  float cur[CMAX][CHUNK];
-  float scan[NWARP][SCAN_N + 3];
+  float mx[2][2][CMAX];  // [MAIN-step parity][read][slot]
+  WarpScratch ws[NWARP];
 };
 
 // One search problem: two reads' planes ([A+2, T+1] float32: rows 0..3
@@ -124,12 +166,74 @@ __device__ __forceinline__ Problem load_problem(const float* planes1,
   return pr;
 }
 
-// In-place inclusive lse scan of buf[0..SCAN_N) by one warp: the up- and
-// down-sweep form of jax.lax.associative_scan's recursive odd/even tree
-// (same pairs combined in the same order).
-__device__ __forceinline__ void warp_tree_scan(float* buf, int lane) {
+// Warp-wide arg-max of (score, index) pairs, ties to the lowest index (as
+// lax.top_k and a stable sort pick). Every lane returns the winner.
+__device__ __forceinline__ void warp_argmax_lowest(float& bs, int& bi) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const float os = __shfl_xor_sync(FULL, bs, o);
+    const int oi = __shfl_xor_sync(FULL, bi, o);
+    if (os > bs || (os == bs && oi < bi)) {
+      bs = os;
+      bi = oi;
+    }
+  }
+}
+
+// Warp-wide maximum; every lane returns it.
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+// Synchronises the GT threads of read group g (named barrier g + 1).
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "n"(GT) : "memory");
+}
+
+// First slot j in mask m whose key (ws.key[j]) equals (q1, q2); -1 if
+// none. The keys come as broadcast 16-byte loads, two slots each, so the
+// loads of all slots are in flight at once.
+__device__ __forceinline__ int lookup(const WarpScratch& ws, unsigned m,
+                                      unsigned q1, unsigned q2) {
+  int r = -1;
+#pragma unroll
+  for (int j = CMAX - 2; j >= 0; j -= 2) {
+    const uint4 k = *reinterpret_cast<const uint4*>(&ws.key[j]);
+    if (((m >> (j + 1)) & 1u) && k.z == q1 && k.w == q2) r = j + 1;
+    if (((m >> j) & 1u) && k.x == q1 && k.y == q2) r = j;
+  }
+  return r;
+}
+
+// Publishes the lane's key into its warp's scratch.
+__device__ __forceinline__ void put_key(WarpScratch& ws, int lane,
+                                        unsigned k1, unsigned k2) {
+  __syncwarp();
+  ws.key[lane] = make_uint2(k1, k2);
+  __syncwarp();
+}
+
+// Position of the n-th (0-based) set bit of m; n < popc(m).
+__device__ __forceinline__ int nth_set_bit(unsigned m, int n) {
+  int base = 0;
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    const int c = __popc((m >> base) & ((1u << s) - 1u));
+    if (n >= c) {
+      n -= c;
+      base += s;
+    }
+  }
+  return base;
+}
+
+// In-place inclusive lse scan of buf[0..n) by one warp, n <= SCAN_N: the
+// up- and down-sweep form of jax.lax.associative_scan's recursive odd/even
+// tree (same pairs combined in the same order).
+__device__ __forceinline__ void warp_tree_scan(float* buf, int lane, int n) {
   int nls[8];
-  int L = 0, nl = SCAN_N, s = 1;
+  int L = 0, nl = n, s = 1;
   while (nl >= 2) {
     const int half = nl / 2;
     for (int j = lane; j < half; j += 32) {
@@ -142,8 +246,8 @@ __device__ __forceinline__ void warp_tree_scan(float* buf, int lane) {
     s *= 2;
   }
   for (int l = L - 1; l >= 0; --l) {
-    const int st = 1 << l, n = nls[l];
-    for (int i = 1 + lane; 2 * i < n; i += 32) {
+    const int st = 1 << l, nn = nls[l];
+    for (int i = 1 + lane; 2 * i < nn; i += 32) {
       const int pe = 2 * i * st + st - 1, po = (2 * i - 1) * st + st - 1;
       buf[pe] = lse(buf[po], buf[pe]);
     }
@@ -151,195 +255,290 @@ __device__ __forceinline__ void warp_tree_scan(float* buf, int lane) {
   }
 }
 
-// First slot j of `t` with key (q1, q2) among rows where mask[j]; -1 if none.
-__device__ __forceinline__ int lookup(const unsigned* k1, const unsigned* k2,
-                                      const int* mask, int C, unsigned q1,
-                                      unsigned q2) {
-  for (int j = 0; j < C; ++j)
-    if (mask[j] && k1[j] == q1 && k2[j] == q2) return j;
-  return -1;
+// Whether lane's slot of the final table survives deduplication: valid,
+// and no lower valid lane holds the same key.
+__device__ __forceinline__ bool final_keep(const Row& r, int lane) {
+  const unsigned grp =
+      __match_any_sync(FULL, ((unsigned long long)r.k2 << 32) | r.k1) &
+      __ballot_sync(FULL, r.valid);
+  return r.valid && __ffs(grp) - 1 == lane;
 }
 
-// Whether slot i of the final table survives deduplication (valid, and no
-// earlier valid slot holds the same key).
-__device__ __forceinline__ int final_keep(const Table& t, int i) {
-  int keep = t.valid[i];
-  for (int j = 0; keep && j < i; ++j)
-    if (t.valid[j] && t.k1[j] == t.k1[i] && t.k2[j] == t.k2[i]) keep = 0;
-  return keep;
+// What a swept row needs besides the read's columns, shuffled from the
+// row's lane.
+struct RowIn {
+  int ps, ch, po;
+  bool root;
+};
+
+__device__ __forceinline__ RowIn row_in(int pslot, int chr, int poff,
+                                        bool root, int row) {
+  RowIn r;
+  r.ps = __shfl_sync(FULL, pslot, row);
+  r.ch = max(__shfl_sync(FULL, chr, row), 0);
+  r.po = __shfl_sync(FULL, poff, row);
+  r.root = __shfl_sync(FULL, (int)root, row) != 0;
+  return r;
+}
+
+// A row's parent value at column t (storage column c of a swept parent):
+// the swept parent's fresh value, the root's, or the frozen parent copy.
+__device__ __forceinline__ float parent_at(const RowIn& ri, const float* St,
+                                           const float* Pt, int Wa, int row,
+                                           int c, int t, float root_t) {
+  if (ri.ps >= 0) return St[ri.ps * Wa + c];
+  if (ri.root) return root_t;
+  const int fi = t - 1 - ri.po;
+  return (fi >= 0 && fi < Wa) ? Pt[row * Wa + fi] : -INFINITY;
+}
+
+// A narrow sweep's columns, one per lane: position p of the lane's
+// segment of Sg lanes (p = 0 the seed, p >= 1 column t = lo + p - 1), the
+// column's emissions, root value and cw, and the storage columns of lo
+// (pos) and of the seed (sp).
+struct Narrow {
+  int p, Sg, t, pos, sp;
+  bool inr;
+  float em[A], root_t, cw;
+};
+
+// One round of the narrow path: each lane segment sweeps R of the layer's
+// nr ready rows, `rows[q]` for q = q0 + u*nslots + slot, u < R ((row,
+// pslot, chr + 4 if a root, poff) in slot order), the R rows' trees
+// interleaved level by level so that their latencies overlap. All lanes of
+// the warp call it.
+template <int R>
+__device__ __forceinline__ void narrow_round(
+    const Narrow& nw, const int4* rows, int nr, int q0, int nslots,
+    int slot, float* St, const float* Pt, int Wa, float* mxo CLK_PARAM) {
+  int row[R];
+  bool act[R];
+  float v[R];
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    const int q = q0 + u * nslots + slot;
+    act[u] = q < nr;
+    const int4 rr = rows[min(q, nr - 1)];
+    row[u] = rr.x;
+    RowIn ri;
+    ri.ps = rr.y;
+    ri.ch = rr.z & 3;
+    ri.root = rr.z >= 4;
+    ri.po = rr.w;
+    v[u] = -INFINITY;
+    if (act[u]) {
+      if (nw.p == 0) {
+        if (nw.sp >= 0) v[u] = St[row[u] * Wa + nw.sp];
+      } else if (nw.inr) {
+        const float pa = parent_at(ri, St, Pt, Wa, row[u],
+                                   nw.pos + nw.p - 2, nw.t, nw.root_t);
+        const float e = ri.ch == 0 ? nw.em[0] : ri.ch == 1 ? nw.em[1]
+                        : ri.ch == 2 ? nw.em[2] : nw.em[3];
+        v[u] = (pa + e) - nw.cw;
+      }
+    }
+  }
+  CLK(CK_LAYERS);
+  // inclusive lse scan over each segment of Sg lanes: the odd/even tree
+  // of jax.lax.associative_scan for a segment of length Sg, level by
+  // level (up-sweep: position 2js+2s-1 takes 2js+s-1; down-sweep:
+  // (2i+1)st-1 takes 2i*st-1, i >= 1). By prefix consistency its first n
+  // values are those of the same tree over any n or more elements.
+  const int p = nw.p;
+  for (int s = 1; s < nw.Sg; s <<= 1) {
+    float w[R];
+#pragma unroll
+    for (int u = 0; u < R; ++u) w[u] = __shfl_up_sync(FULL, v[u], s);
+    if (((p + 1) & (2 * s - 1)) == 0) {
+#pragma unroll
+      for (int u = 0; u < R; ++u) v[u] = lse(w[u], v[u]);
+    }
+  }
+  for (int st = nw.Sg >> 2; st >= 1; st >>= 1) {
+    float w[R];
+#pragma unroll
+    for (int u = 0; u < R; ++u) w[u] = __shfl_up_sync(FULL, v[u], st);
+    if (((p + 1) & (2 * st - 1)) == st && p + 1 >= 3 * st) {
+#pragma unroll
+      for (int u = 0; u < R; ++u) v[u] = lse(w[u], v[u]);
+    }
+  }
+  CLK(CK_SCAN);
+  float m[R];
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    m[u] = -INFINITY;
+    if (act[u] && nw.inr) {
+      m[u] = v[u] + nw.cw;
+      St[row[u] * Wa + nw.pos + p - 1] = m[u];
+    }
+  }
+  for (int o = 1; o < nw.Sg; o <<= 1) {
+#pragma unroll
+    for (int u = 0; u < R; ++u)
+      m[u] = fmaxf(m[u], __shfl_xor_sync(FULL, m[u], o));
+  }
+#pragma unroll
+  for (int u = 0; u < R; ++u)
+    if (act[u] && p == 0) mxo[row[u]] = m[u];
 }
 
 // Runs problem `pr` from the t = 0 state through its whole plan; all NT
 // threads of the CTA call it together. `store` holds 4*C*(Wst0+Wst1)
 // floats (global or shared memory; its contents on entry do not matter),
 // `pv` receives the winners' provenance, W int8 per plan step (0 on run
-// steps). Returns which of sh.tab[0..1] holds the final table; the CTA is
-// synchronised on return.
-__device__ __forceinline__ int run_search(Shared& sh, const Problem& pr,
+// steps). Returns the lane's slot of the final table, in every warp; the
+// CTA is synchronised on return.
+__device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
                                           int W, float* store,
                                           signed char* pv) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = warp / GWARP, gw = warp % GWARP, gt = tid % GT;
   const int C = W * (A + 1);
-  const int T[2] = {pr.T[0], pr.T[1]};
-  const int Lp[2] = {pr.Lp[0], pr.Lp[1]};
-  const float* y[2] = {pr.y[0], pr.y[1]};
   const int* pl = pr.pl;
   const int N = pr.N;
-  const int Wst[2] = {pr.Wst[0], pr.Wst[1]};
-  float* base0 = store;
-  float* base1 = base0 + 4LL * C * Wst[0];
-  float* S[2][2] = {{base0, base0 + (long long)C * Wst[0]},
-                    {base1, base1 + (long long)C * Wst[1]}};
-  float* P[2][2] = {{base0 + 2LL * C * Wst[0], base0 + 3LL * C * Wst[0]},
-                    {base1 + 2LL * C * Wst[1], base1 + 3LL * C * Wst[1]}};
+  // this group's read and its storage
+  const int Wa = pr.Wst[g], Ta = pr.T[g], La = pr.Lp[g];
+  const float* ya = pr.y[g];
+  const int n_st = C * Wa;
+  // storage buffers b = 0, 1 at base + b*n_st, frozen copies at
+  // base + (2+b)*n_st (offsets, not an array of pointers, keep the
+  // pointers' address space known to the compiler)
+  float* const base = store + (g == 0 ? 0 : 4 * C * pr.Wst[0]);
 
   // ---- initial table: the A root children in beam row 0's child slots
-  if (tid < CMAX) {
-    Table& t0 = sh.tab[0];
-    const int i = tid;
-    const bool child = i >= W && i < W + A;
-    const unsigned cc = (unsigned)(i - W + 1);
-    t0.k1[i] = child ? cc : 0u;
-    t0.k2[i] = child ? cc : 0u;
-    t0.pk1[i] = 0u;
-    t0.pk2[i] = 0u;
-    t0.chr[i] = child ? i - W : -1;
-    t0.pch[i] = -1;
-    t0.valid[i] = child && i < C;
-    t0.score[i] = (child && i < C) ? 0.f : -INFINITY;
-    sh.poff[0][i] = 0;
-    sh.poff[1][i] = 0;
+  Row cur;
+  {
+    const bool child = lane >= W && lane < W + A;
+    const unsigned cc = (unsigned)(lane - W + 1);
+    cur.k1 = child ? cc : 0u;
+    cur.k2 = child ? cc : 0u;
+    cur.pk1 = 0u;
+    cur.pk2 = 0u;
+    cur.chr = child ? lane - W : -1;
+    cur.pch = -1;
+    cur.valid = child && lane < C;
+    cur.score = cur.valid ? 0.f : -INFINITY;
   }
-  for (int a = 0; a < 2; ++a) {
-    const int n = C * Wst[a];
-    for (int k = tid; k < n; k += NT) {
-      const int i = k / Wst[a], j = k - i * Wst[a];
-      S[a][0][k] = (j == 0 && i >= W && i < W + A) ? y[a][(i - W) * Lp[a]]
-                                                    : -INFINITY;
-      P[a][0][k] = -INFINITY;
-    }
+  for (int k = gt; k < n_st; k += GT) {
+    const int i = k / Wa, j = k - i * Wa;
+    base[k] = (j == 0 && i >= W && i < W + A) ? ya[(i - W) * La] : -INFINITY;
+    base[2 * n_st + k] = -INFINITY;
   }
-  // per-thread copies of block-uniform state: current table, storage
-  // offsets, and which of the two buffers holds storage / frozen copies
-  int ct = 0;
-  int off[2] = {0, 0}, sb[2] = {0, 0}, pb[2] = {0, 0};
+  // the group's state of its read: storage anchor, which buffers hold the
+  // storage and the frozen copies, and (lane = slot) frozen-copy offsets;
+  // par: which half of sh.mx the next MAIN step uses
+  int off = 0, sb = 0, pb = 0, poff = 0, par = 0;
   __syncthreads();
+  CLK_INIT();
+
+  int nxt[5];
+#pragma unroll
+  for (int c = 0; c < 5; ++c) nxt[c] = N > 0 ? pl[c] : 0;
 
   for (int step = 0; step < N; ++step) {
-    const int ty = pl[step * 5];
-    const int lo_[2] = {pl[step * 5 + 1], pl[step * 5 + 3]};
-    const int hi_[2] = {pl[step * 5 + 2], pl[step * 5 + 4]};
+    const int ty = nxt[0];
+    const int lo = nxt[1 + 2 * g], hi = nxt[2 + 2 * g];
+    if (step + 1 < N) {
+#pragma unroll
+      for (int c = 0; c < 5; ++c) nxt[c] = pl[(step + 1) * 5 + c];
+    }
     const bool is_main = ty == MAIN;
-    const Table& old = sh.tab[ct];
 
-    // ---- prune: dedup + top-W (warp 0)
-    if (warp == 0) {
-      const int i = lane;
-      const bool in = i < C;
-      int keep = 0;
-      float sc = -INFINITY;
-      if (in && old.valid[i]) {
-        keep = 1;
-        for (int j = 0; j < i; ++j)
-          if (old.valid[j] && old.k1[j] == old.k1[i] &&
-              old.k2[j] == old.k2[i]) {
-            keep = 0;
-            break;
-          }
-        if (keep) sc = old.score[i];
-      }
-      sh.keep[i] = keep;
-      bool taken = !in;
-      for (int w = 0; w < W; ++w) {
-        float bs = taken ? -INFINITY : sc;
-        int bi = taken ? (1 << 20) : i;
-        warp_argmax_lowest(bs, bi);
-        if (i == bi) taken = true;
-        if (i == 0) sh.beam_src[w] = bi;
-      }
+    // ---- prune: dedup + top-W by rank (ties to the lowest slot)
+    WarpScratch& ws = sh.ws[warp];
+    const bool in = lane < C;
+    const unsigned vm = __ballot_sync(FULL, cur.valid);
+    put_key(ws, lane, cur.k1, cur.k2);
+    const bool keep =
+        cur.valid && lookup(ws, vm & ((1u << lane) - 1u), cur.k1, cur.k2) < 0;
+    const float sc = keep ? cur.score : -INFINITY;
+    ws.sc[lane] = sc;
+    __syncwarp();
+    int rank = 0;  // slots that beat this one
+#pragma unroll
+    for (int j = 0; j < CMAX; j += 4) {
+      const float4 o = *reinterpret_cast<const float4*>(&ws.sc[j]);
+      rank += (j < C && (o.x > sc || (o.x == sc && j < lane))) +
+              (j + 1 < C && (o.y > sc || (o.y == sc && j + 1 < lane))) +
+              (j + 2 < C && (o.z > sc || (o.z == sc && j + 2 < lane))) +
+              (j + 3 < C && (o.w > sc || (o.w == sc && j + 3 < lane)));
     }
-    __syncthreads();
-    if (tid < W) pv[(long long)step * W + tid] =
-        is_main ? (signed char)sh.beam_src[tid] : (signed char)0;
+    // src: the old slot this lane's new slot comes from (the winner of its
+    // rank for a winner slot, of its beam row for a child slot)
+    const int tr = lane < W ? lane : (lane - W) / A;
+    int src = 0;
+    for (int w = 0; w < W; ++w) {
+      const int l = __ffs(__ballot_sync(FULL, in && rank == w)) - 1;
+      if (tr == w) src = l;
+    }
+    if (warp == 0 && lane < W && !is_main)
+      pv[(long long)step * W + lane] = 0;
+    if (warp == 0 && in && rank < W && is_main)
+      pv[(long long)step * W + rank] = (signed char)lane;
+    CLK(CK_PRUNE);
 
+    // ---- expand (MAIN) or select the beam (runs); key lookups
+    Row nt = cur;   // the table this step's sweeps use
+    int psrc = -1;  // MAIN: old storage row of this slot, -1 none
+    int refresh, pslot;
+    bool root;
+    unsigned smask;  // swept slots
     if (is_main) {
-      // ---- expand: winners + their children into the other table
-      Table& nt = sh.tab[1 - ct];
-      if (tid < C) {
-        const int i = tid;
-        if (i < W) {
-          const int s = sh.beam_src[i];
-          nt.k1[i] = old.k1[s];
-          nt.k2[i] = old.k2[s];
-          nt.pk1[i] = old.pk1[s];
-          nt.pk2[i] = old.pk2[s];
-          nt.chr[i] = old.chr[s];
-          nt.pch[i] = old.pch[s];
-          nt.valid[i] = sh.keep[s];
-        } else {
-          const int b = (i - W) / A, c = (i - W) % A;
-          const int s = sh.beam_src[b];
-          const unsigned p1 = old.k1[s], p2 = old.k2[s];
-          const unsigned q1 = p1 * M1 + (unsigned)(c + 1);
-          const unsigned q2 = p2 * M2 + (unsigned)(c + 1);
-          nt.k1[i] = q1;
-          nt.k2[i] = q2;
-          nt.pk1[i] = p1;
-          nt.pk2[i] = p2;
-          nt.chr[i] = c;
-          nt.pch[i] = old.chr[s];
-          nt.valid[i] = sh.keep[s];
-          sh.child_idx[i] = lookup(old.k1, old.k2, old.valid, C, q1, q2);
-        }
+      const unsigned p1 = __shfl_sync(FULL, cur.k1, src);
+      const unsigned p2 = __shfl_sync(FULL, cur.k2, src);
+      const unsigned pp1 = __shfl_sync(FULL, cur.pk1, src);
+      const unsigned pp2 = __shfl_sync(FULL, cur.pk2, src);
+      const int pc = __shfl_sync(FULL, cur.chr, src);
+      const int ppc = __shfl_sync(FULL, cur.pch, src);
+      const int kp = __shfl_sync(FULL, (int)keep, src);
+      const int c = (lane - W) % A;
+      const unsigned q1 = p1 * M1 + (unsigned)(c + 1);
+      const unsigned q2 = p2 * M2 + (unsigned)(c + 1);
+      const int child_idx = lookup(ws, vm, q1, q2);
+      if (lane < W) {
+        nt.k1 = p1;
+        nt.k2 = p2;
+        nt.pk1 = pp1;
+        nt.pk2 = pp2;
+        nt.chr = pc;
+        nt.pch = ppc;
+        nt.valid = kp;
+        psrc = src;
+      } else if (in) {
+        nt.k1 = q1;
+        nt.k2 = q2;
+        nt.pk1 = p1;
+        nt.pk2 = p2;
+        nt.chr = c;
+        nt.pch = pc;
+        nt.valid = kp;
+        psrc = child_idx;
+      } else {
+        nt.valid = 0;
       }
-      __syncthreads();
-      if (tid < C) {
-        const int i = tid;
-        const int r = lookup(nt.k1, nt.k2, nt.valid, C, nt.pk1[i], nt.pk2[i]);
-        const int root = nt.pk1[i] == 0u && nt.pk2[i] == 0u;
-        sh.refresh_idx[i] = r;
-        sh.is_root[i] = root;
-        sh.pslot[i] = root ? -1 : r;
-        sh.smask[i] = nt.valid[i];
-      }
+      smask = __ballot_sync(FULL, nt.valid);
+      put_key(ws, lane, nt.k1, nt.k2);
+      refresh = lookup(ws, smask, nt.pk1, nt.pk2);
+      root = nt.pk1 == 0u && nt.pk2 == 0u;
+      pslot = root ? -1 : refresh;
     } else {
-      // ---- catch-up run: sweep the current beam only
-      if (tid < C) {
-        const int i = tid;
-        int s = 0;
-        if (old.valid[i])
-          for (int w = 0; w < W; ++w) {
-            const int b = sh.beam_src[w];
-            if (sh.keep[b] && old.k1[i] == old.k1[b] &&
-                old.k2[i] == old.k2[b]) {
-              s = 1;
-              break;
-            }
-          }
-        sh.sel[i] = s;
-      }
-      __syncthreads();
-      if (tid < C) {
-        const int i = tid;
-        const int root = old.pk1[i] == 0u && old.pk2[i] == 0u;
-        sh.refresh_idx[i] =
-            lookup(old.k1, old.k2, old.valid, C, old.pk1[i], old.pk2[i]);
-        sh.is_root[i] = root;
-        sh.pslot[i] =
-            root ? -1 : lookup(old.k1, old.k2, sh.sel, C, old.pk1[i],
-                               old.pk2[i]);
-        sh.smask[i] = sh.sel[i];
-      }
+      // catch-up run: sweep the current beam only (the valid slots whose
+      // key a surviving winner holds)
+      const unsigned wkept = __ballot_sync(FULL, in && rank < W && keep);
+      smask = __ballot_sync(
+          FULL, cur.valid && lookup(ws, wkept, cur.k1, cur.k2) >= 0);
+      refresh = lookup(ws, vm, cur.pk1, cur.pk2);
+      const int ps = lookup(ws, smask, cur.pk1, cur.pk2);
+      root = cur.pk1 == 0u && cur.pk2 == 0u;
+      pslot = root ? -1 : ps;
     }
-    __syncthreads();
-    const Table& tu = sh.tab[is_main ? 1 - ct : ct];  // table in use
+    CLK(CK_EXPAND);
 
-    for (int a = 0; a < 2; ++a) {
-      if (!is_main && ty != (a == 0 ? C0RUN : C1RUN)) continue;
-      const int lo = lo_[a], hi = hi_[a], Wa = Wst[a];
-      const int so = off[a];
+    if (is_main || ty == (g == 0 ? C0RUN : C1RUN)) {
       // storage anchor: keep if the window fits, else minimal right shift;
       // must cover the seed column lo-1 and the window [lo, hi)
+      const int so = off;
       int no = hi > so + Wa ? hi - Wa : so;
       no = min(no, lo - 1);
       if (hi > no + Wa) no = hi - Wa;
@@ -348,182 +547,341 @@ __device__ __forceinline__ int run_search(Shared& sh, const Problem& pr,
       int d = no - so + Wa + 1;
       if (d < 0) d += 3 * Wa + 2;
       d = min(max(d, 0), 2 * Wa + 2) - (Wa + 1);
-      const int n = C * Wa;
 
       // ---- storage permute (MAIN) / re-anchor shift
-      if (is_main) {
-        const float* Sold = S[a][sb[a]];
-        float* Snew = S[a][1 - sb[a]];
-        const float* Pold = P[a][pb[a]];
-        float* Pnew = P[a][1 - pb[a]];
-        for (int k = tid; k < n; k += NT) {
-          const int i = k / Wa, j = k - i * Wa;
-          const int src = i < W ? sh.beam_src[i] : sh.child_idx[i];
-          const int jj = j + d;
-          Snew[k] = (src >= 0 && jj >= 0 && jj < Wa)
-                        ? Sold[(long long)src * Wa + jj] : -INFINITY;
-          // frozen parent copies; rows whose parent is in the table are
-          // refreshed after the sweep and never read it before
-          if (sh.refresh_idx[i] < 0)
-            Pnew[k] = i < W ? Pold[(long long)sh.beam_src[i] * Wa + j]
-                            : Sold[(long long)sh.beam_src[(i - W) / A] * Wa + j];
+      if (is_main || d != 0) {
+        const float* Sold = base + sb * n_st;
+        float* Snew = base + (1 - sb) * n_st;
+        const float* Pold = base + (2 + pb) * n_st;
+        float* Pnew = base + (3 - pb) * n_st;
+        // warp gw takes rows gw, gw + GWARP, ..., RB of them at a time
+        for (int i0 = gw; i0 < C; i0 += RB * GWARP) {
+          int sr[RB];
+#pragma unroll
+          for (int r = 0; r < RB; ++r) {
+            const int i = i0 + r * GWARP;
+            const int q = is_main ? __shfl_sync(FULL, psrc, min(i, CMAX - 1))
+                                  : i;
+            sr[r] = i < C ? q : -2;  // -2: no such row
+          }
+          for (int j0 = 0; j0 < Wa; j0 += 32 * CPL) {
+            float sv[RB][CPL];
+#pragma unroll
+            for (int r = 0; r < RB; ++r)
+#pragma unroll
+              for (int c = 0; c < CPL; ++c) {
+                const int j = j0 + 32 * c + lane, jj = j + d;
+                sv[r][c] = (sr[r] >= 0 && j < Wa && jj >= 0 && jj < Wa)
+                               ? Sold[sr[r] * Wa + jj] : -INFINITY;
+              }
+#pragma unroll
+            for (int r = 0; r < RB; ++r)
+#pragma unroll
+              for (int c = 0; c < CPL; ++c) {
+                const int j = j0 + 32 * c + lane;
+                if (sr[r] != -2 && j < Wa)
+                  Snew[(i0 + r * GWARP) * Wa + j] = sv[r][c];
+              }
+          }
         }
-        const bool wr = tid < C && sh.refresh_idx[tid] < 0;
-        const int npo = wr ? (tid < W ? sh.poff[a][sh.beam_src[tid]] : so)
-                           : 0;
-        __syncthreads();
-        if (wr) sh.poff[a][tid] = npo;
-        sb[a] = 1 - sb[a];
-        pb[a] = 1 - pb[a];
-      } else if (d != 0) {
-        const float* Sold = S[a][sb[a]];
-        float* Snew = S[a][1 - sb[a]];
-        for (int k = tid; k < n; k += NT) {
-          const int i = k / Wa, j = k - i * Wa;
-          const int jj = j + d;
-          Snew[k] = (jj >= 0 && jj < Wa) ? Sold[(long long)i * Wa + jj]
-                                         : -INFINITY;
+        if (is_main) {
+          // frozen parent copies of the rows whose parent is not in the
+          // table (the others are refreshed after the sweep and never read
+          // theirs before): a winner keeps its source's, a child takes its
+          // winner's storage
+          const unsigned fmask = __ballot_sync(FULL, in && refresh < 0);
+          const int nf = __popc(fmask);
+          for (int q0 = gw; q0 < nf; q0 += RB * GWARP) {
+            int i[RB];
+            const float* fsrc[RB];
+#pragma unroll
+            for (int r = 0; r < RB; ++r) {
+              const int q = q0 + r * GWARP;
+              i[r] = q < nf ? nth_set_bit(fmask, q) : -1;
+              const int fs = __shfl_sync(FULL, src, max(i[r], 0));
+              fsrc[r] = (i[r] < W ? Pold : Sold) + fs * Wa;
+            }
+            for (int j0 = 0; j0 < Wa; j0 += 32 * CPL) {
+              float fv[RB][CPL];
+#pragma unroll
+              for (int r = 0; r < RB; ++r)
+#pragma unroll
+                for (int c = 0; c < CPL; ++c) {
+                  const int j = j0 + 32 * c + lane;
+                  fv[r][c] = (i[r] >= 0 && j < Wa) ? fsrc[r][j] : 0.f;
+                }
+#pragma unroll
+              for (int r = 0; r < RB; ++r)
+#pragma unroll
+                for (int c = 0; c < CPL; ++c) {
+                  const int j = j0 + 32 * c + lane;
+                  if (i[r] >= 0 && j < Wa) Pnew[i[r] * Wa + j] = fv[r][c];
+                }
+            }
+          }
         }
-        sb[a] = 1 - sb[a];
+        if (is_main) {
+          const int fpo = __shfl_sync(FULL, poff, src);
+          if (refresh < 0) poff = lane < W ? fpo : so;
+          pb = 1 - pb;
+        }
+        sb = 1 - sb;
+        CLK(CK_PERMUTE);
+        group_sync(g);
+        CLK(CK_WAIT);
       }
-      __syncthreads();
-      float* St = S[a][sb[a]];
-      float* Pt = P[a][pb[a]];
-      const float* ya = y[a];
-      const int La = Lp[a], Ta = T[a];
-
-      // ---- seeds: own value at lo-1
-      if (tid < C) {
-        const int sp = min(lo - 1 - no, Wa - 1);
-        sh.seeds[tid] = sp >= 0 ? St[(long long)tid * Wa + sp] : -INFINITY;
-        sh.mx[a][tid] = -INFINITY;
-      }
-      __syncthreads();
-
-      const int nch = hi > lo ? (hi - lo + CHUNK - 1) / CHUNK : 0;
-      for (int kc = 0; kc < nch; ++kc) {
-        const int c_lo = lo + kc * CHUNK;
-        if (tid < CHUNK) {
-          const int t = c_lo + tid;
+      CLK(CK_PERMUTE);
+      float* St = base + sb * n_st;
+      const float* Pt = base + (2 + pb) * n_st;
+      float* mxo = sh.mx[par][g];
+      const int width = hi - lo;
+      int nlayers = 0;
+      if (width <= 0) {
+        if (is_main && gw == 0) mxo[lane] = -INFINITY;
+      } else if (width <= NARROW_MAX) {
+        // ---- narrow path: seed and columns in a segment of Sg lanes
+        Narrow nw;
+        nw.Sg = 2;
+        while (nw.Sg < width + 1) nw.Sg <<= 1;
+        const int p = nw.p = lane & (nw.Sg - 1), rpw = 32 / nw.Sg;
+        const int nslots = GWARP * rpw, slot = gw * rpw + lane / nw.Sg;
+        const int t = nw.t = lo + p - 1, pos = nw.pos = lo - no;
+        const bool inr = nw.inr = p >= 1 && p <= width;
+        nw.root_t = -INFINITY;
+        float gap = 0.f;
+#pragma unroll
+        for (int c = 0; c < A; ++c) nw.em[c] = -INFINITY;
+        if (inr) {
+#pragma unroll
           for (int c = 0; c < A; ++c)
-            sh.emis[c][tid] = t < Ta ? ya[(long long)c * La + t] : -INFINITY;
-          sh.gapw[tid] = t < hi ? ya[(long long)A * La + t] : 0.f;
-          sh.root[tid] = t <= Ta ? ya[(long long)(A + 1) * La + t] : -INFINITY;
+            if (t < Ta) nw.em[c] = ya[c * La + t];
+          gap = ya[A * La + t];
+          if (t <= Ta) nw.root_t = ya[(A + 1) * La + t];
         }
-        if (tid < CMAX) sh.done[tid] = 0;
-        __syncthreads();
-        if (warp == 0) {
-          // cw: float64 inclusive prefix sum of the gap weights, rounded once
-          double v[4], run = 0.0;
+        // cw: float64 inclusive prefix sum of the gap weights, rounded once
+        double x = inr ? (double)gap : 0.0;
+        for (int o = 1; o < nw.Sg; o <<= 1) {
+          const double y = __shfl_up_sync(FULL, x, o);
+          if (p >= o) x += y;
+        }
+        nw.cw = (float)x;
+        nw.sp = min(pos - 1, Wa - 1);  // the seed's column
+        CLK(CK_LOADS);
+
+        // ---- layers over the parent forest
+        unsigned done = 0;
+        for (int layer = 0; layer <= C; ++layer) {
+          const bool r = (((smask & ~done) >> lane) & 1u) &&
+                         (pslot < 0 || ((done >> pslot) & 1u));
+          const unsigned rdy = __ballot_sync(FULL, r);
+          if (!rdy) break;
+          ++nlayers;
+          const int nr = __popc(rdy);
+          // the ready rows in slot order, with what their sweep needs
+          __syncwarp();
+          if (r)
+            ws.rows[__popc(rdy & ((1u << lane) - 1u))] = make_int4(
+                lane, pslot, max(nt.chr, 0) + (root ? 4 : 0), poff);
+          __syncwarp();
+          // rows per lane segment and round: one, or 3 when the layer
+          // has more rows than segments
+          const int R = nr <= nslots ? 1 : 3;
+          for (int q0 = 0; q0 < nr; q0 += R * nslots) {
+            if (R == 1)
+              narrow_round<1>(nw, ws.rows, nr, q0, nslots, slot, St, Pt, Wa,
+                              mxo CLK_ARG);
+            else
+              narrow_round<3>(nw, ws.rows, nr, q0, nslots, slot, St, Pt, Wa,
+                              mxo CLK_ARG);
+          }
+          CLK(CK_LAYERS);
+          group_sync(g);
+          CLK(CK_WAIT);
+          done |= rdy;
+        }
+        // rows never ready (only a parent cycle, i.e. a hash collision,
+        // makes one): -inf, as in the plain version
+        const unsigned stuck = smask & ~done;
+        if (stuck) {
+          if (gw == 0)
+            for (unsigned m = stuck; m; m &= m - 1) {
+              const int row = __ffs(m) - 1;
+              if (inr) St[row * Wa + pos + p - 1] = -INFINITY;
+              if (lane == 0) mxo[row] = -INFINITY;
+            }
+          group_sync(g);
+        }
+        CLK_COUNT(CK_NARROW, 1);
+      } else {
+        // ---- general path: CHUNK-column pieces, one row per warp
+        float* buf = ws.scan;
+        const int nch = (width + CHUNK - 1) / CHUNK;
+        for (int kc = 0; kc < nch; ++kc) {
+          const int c_lo = lo + kc * CHUNK, pos = c_lo - no;
+          const int cl = min(CHUNK, hi - c_lo);
+          const int sp = kc == 0 ? min(pos - 1, Wa - 1) : pos - 1;
+          // cw: float64 inclusive prefix sum of the gap weights, rounded
+          // once; the lane holds columns 4*lane .. 4*lane+3
+          double v4[4], run = 0.0;
+#pragma unroll
           for (int q = 0; q < 4; ++q) {
-            run += (double)sh.gapw[4 * lane + q];
-            v[q] = run;
+            const int w = 4 * lane + q;
+            run += w < cl ? (double)ya[A * La + c_lo + w] : 0.0;
+            v4[q] = run;
           }
           double incl = run;
           for (int o = 1; o < 32; o <<= 1) {
-            const double t = __shfl_up_sync(FULL, incl, o);
-            if (lane >= o) incl += t;
+            const double y = __shfl_up_sync(FULL, incl, o);
+            if (lane >= o) incl += y;
           }
           double excl = __shfl_up_sync(FULL, incl, 1);
           if (lane == 0) excl = 0.0;
-          for (int q = 0; q < 4; ++q)
-            sh.cwv[4 * lane + q] = (float)(excl + v[q]);
-        }
-        __syncthreads();
+          float cw4[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) cw4[q] = (float)(excl + v4[q]);
+          CLK(CK_LOADS);
 
-        // ---- layers over the parent forest
-        for (int layer = 0; layer <= C; ++layer) {
-          if (tid < C) {
-            const int ps = sh.pslot[tid];
-            sh.rdy[tid] = !sh.done[tid] && sh.smask[tid] &&
-                          (ps < 0 || sh.done[ps]);
-          }
-          __syncthreads();
-          if (tid == 0) {
-            int c = 0;
-            for (int i = 0; i < C; ++i)
-              if (sh.rdy[i]) sh.rlist[c++] = i;
-            sh.nready = c;
-          }
-          __syncthreads();
-          const int nr = sh.nready;
-          if (nr == 0) break;
-          for (int q = warp; q < nr; q += NWARP) {
-            const int row = sh.rlist[q];
-            float* buf = sh.scan[warp];
-            const int ps = sh.pslot[row];
-            const int ch = tu.chr[row] < 0 ? 0 : tu.chr[row];
-            const int po = sh.poff[a][row];
-            const bool rt = sh.is_root[row];
-            for (int w = lane; w < CHUNK; w += 32) {
-              const int t = c_lo + w;
-              float par;
-              if (ps >= 0) {
-                par = w == 0 ? sh.seeds[ps] : sh.cur[ps][w - 1];
-              } else if (rt) {
-                par = sh.root[w];
-              } else {
-                const int fi = t - 1 - po;
-                par = (fi >= 0 && fi < Wa) ? Pt[(long long)row * Wa + fi]
-                                           : -INFINITY;
+          unsigned done = 0;
+          for (int layer = 0; layer <= C; ++layer) {
+            const bool r = (((smask & ~done) >> lane) & 1u) &&
+                           (pslot < 0 || ((done >> pslot) & 1u));
+            const unsigned rdy = __ballot_sync(FULL, r);
+            if (!rdy) break;
+            ++nlayers;
+            const int nr = __popc(rdy);
+            for (int q0 = 0; q0 < nr; q0 += GWARP) {
+              const int q = q0 + gw;
+              const int row = nth_set_bit(rdy, min(q, nr - 1));
+              const RowIn ri = row_in(pslot, nt.chr, poff, root, row);
+              if (q >= nr) continue;  // warp-uniform
+              if (lane == 0)
+                buf[0] = sp >= 0 ? St[row * Wa + sp] : -INFINITY;
+#pragma unroll
+              for (int q4 = 0; q4 < 4; ++q4) {
+                const int w = 4 * lane + q4, t = c_lo + w;
+                if (w < cl) {
+                  const float rt = (ri.root && t <= Ta)
+                      ? ya[(A + 1) * La + t] : -INFINITY;
+                  const float pa = parent_at(ri, St, Pt, Wa, row,
+                                             pos + w - 1, t, rt);
+                  const float e = t < Ta ? ya[ri.ch * La + t]
+                                         : -INFINITY;
+                  buf[w + 1] = (pa + e) - cw4[q4];
+                }
               }
-              const float E = t < hi ? par + sh.emis[ch][w] : -INFINITY;
-              buf[w + 1] = E - sh.cwv[w];
+              __syncwarp();
+              CLK(CK_LAYERS);
+              warp_tree_scan(buf, lane, cl + 1);
+              CLK(CK_SCAN);
+              float m = -INFINITY;
+#pragma unroll
+              for (int q4 = 0; q4 < 4; ++q4) {
+                const int w = 4 * lane + q4;
+                if (w < cl) {
+                  const float o = buf[w + 1] + cw4[q4];
+                  St[row * Wa + pos + w] = o;
+                  m = fmaxf(m, o);
+                }
+              }
+              m = warp_max(m);
+              if (lane == 0) mxo[row] = kc == 0 ? m : fmaxf(mxo[row], m);
+              __syncwarp();
             }
-            if (lane == 0) buf[0] = sh.seeds[row];
-            __syncwarp();
-            warp_tree_scan(buf, lane);
-            float mxw = -INFINITY;
-            for (int w = lane; w < CHUNK; w += 32) {
-              const float o = c_lo + w < hi ? buf[w + 1] + sh.cwv[w]
-                                            : -INFINITY;
-              sh.cur[row][w] = o;
-              mxw = fmaxf(mxw, o);
-            }
-            mxw = warp_max(mxw);
-            if (lane == 0) sh.mx[a][row] = fmaxf(sh.mx[a][row], mxw);
-            __syncwarp();
+            CLK(CK_LAYERS);
+            group_sync(g);
+            CLK(CK_WAIT);
+            done |= rdy;
           }
-          __syncthreads();
-          if (tid < C && sh.rdy[tid]) sh.done[tid] = 1;
-          __syncthreads();
+          const unsigned stuck = smask & ~done;
+          if (stuck) {
+            if (gw == 0)
+              for (unsigned m = stuck; m; m &= m - 1) {
+                const int row = __ffs(m) - 1;
+                for (int w = lane; w < cl; w += 32)
+                  St[row * Wa + pos + w] = -INFINITY;
+                if (lane == 0 && kc == 0) mxo[row] = -INFINITY;
+              }
+            group_sync(g);
+          }
         }
-
-        // ---- merge the chunk into storage; next chunk's seeds
-        const int pos = c_lo - no;
-        for (int k = tid; k < C * CHUNK; k += NT) {
-          const int i = k / CHUNK, w = k - i * CHUNK;
-          if (sh.smask[i] && c_lo + w < hi)
-            St[(long long)i * Wa + pos + w] = sh.cur[i][w];
-        }
-        __syncthreads();
-        if (tid < C && sh.smask[tid]) sh.seeds[tid] = sh.cur[tid][CHUNK - 1];
-        __syncthreads();
       }
+      CLK(CK_LAYERS);
+      CLK_COUNT(CK_SWEEPS, 1);
+      CLK_COUNT(CK_LAYER_N, nlayers);
 
       // ---- frozen parent copies := parent's current storage
-      for (int k = tid; k < n; k += NT) {
-        const int i = k / Wa, j = k - i * Wa;
-        const int r = sh.refresh_idx[i];
-        if (r >= 0) Pt[k] = St[(long long)r * Wa + j];
+      float* Pw = base + (2 + pb) * n_st;
+      const unsigned fmask = __ballot_sync(FULL, lane < C && refresh >= 0);
+      const int nf = __popc(fmask);
+      // warp gw takes the refreshed rows gw, gw + GWARP, ... (in slot
+      // order), RB of them at a time
+      for (int q0 = gw; q0 < nf; q0 += RB * GWARP) {
+        int i[RB], rf[RB];
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          const int q = q0 + r * GWARP;
+          i[r] = q < nf ? nth_set_bit(fmask, q) : -1;
+          rf[r] = __shfl_sync(FULL, refresh, max(i[r], 0));
+        }
+        for (int j0 = 0; j0 < Wa; j0 += 32 * CPL) {
+          float fv[RB][CPL];
+#pragma unroll
+          for (int r = 0; r < RB; ++r)
+#pragma unroll
+            for (int c = 0; c < CPL; ++c) {
+              const int j = j0 + 32 * c + lane;
+              fv[r][c] = (i[r] >= 0 && j < Wa)
+                             ? St[rf[r] * Wa + j] : 0.f;
+            }
+#pragma unroll
+          for (int r = 0; r < RB; ++r)
+#pragma unroll
+            for (int c = 0; c < CPL; ++c) {
+              const int j = j0 + 32 * c + lane;
+              if (i[r] >= 0 && j < Wa) Pw[i[r] * Wa + j] = fv[r][c];
+            }
+        }
       }
-      __syncthreads();
-      if (tid < C && sh.refresh_idx[tid] >= 0) sh.poff[a][tid] = no;
-      off[a] = no;
-      __syncthreads();
+      if (refresh >= 0) poff = no;
+      off = no;
+      // the group's next passes read what this sweep wrote (on a MAIN
+      // step the join below orders them)
+      CLK(CK_REFRESH);
+      if (!is_main) group_sync(g);
+      CLK(CK_WAIT);
     }
 
+    // ---- join (MAIN): a candidate's score is the sum of its window maxima
     if (is_main) {
-      Table& nt = sh.tab[1 - ct];
-      if (tid < C)
-        nt.score[tid] = nt.valid[tid] ? sh.mx[0][tid] + sh.mx[1][tid]
-                                      : -INFINITY;
-      ct = 1 - ct;
+      __syncthreads();
+      nt.score = nt.valid ? sh.mx[par][0][lane] + sh.mx[par][1][lane]
+                          : -INFINITY;
+      cur = nt;
+      par ^= 1;
     }
-    __syncthreads();
+    CLK(CK_SCORE);
+    if (tid == 0) CLK_COUNT(CK_STEPS, 1);
   }
-  return ct;
+  __syncthreads();
+  return cur;
 }
 
 }  // namespace pair_search
 }  // namespace poreover
+
+#ifdef POREOVER_PHASE_CLOCKS
+// Copies the phase sums to out[n] (blocking) and, with reset, zeroes them;
+// returns a cudaError_t (cudaErrorInvalidValue unless n is CK_N).
+extern "C" int phase_clocks_read(unsigned long long* out, int n,
+                                 int reset) {
+  using poreover::pair_search::g_phase_clocks;
+  if (n != poreover::pair_search::CK_N) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_phase_clocks,
+                                         sizeof(g_phase_clocks));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[poreover::pair_search::CK_N] = {};
+    err = cudaMemcpyToSymbol(g_phase_clocks, zero, sizeof(zero));
+  }
+  return (int)err;
+}
+#endif

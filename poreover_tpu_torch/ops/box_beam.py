@@ -48,33 +48,36 @@ from .beam2d_planned import (
     plan_wst, planned_scan, walk_provenance,
 )
 from .pair_beam_batch import (
-    CMAX, KERNEL_A, _check, fetch_prepared, launch_prepared, prepare_pairs,
+    CMAX, KERNEL_A, PHASE_CLOCKS, _check, bind_phase_clocks, fetch_prepared,
+    launch_prepared, prepare_pairs,
 )
 
 box_launch_count = 0  # launches of the box kernel
 
 # storage a box may need in the kernel: the most at which two CTAs (each
-# with the search's 28 KB of tables beside it) still share an SM's 228 KB
-# of shared memory, so that one large box never halves a launch's CTAs
-STORAGE_LIMIT_BYTES = 85 * 1024
+# with the search's 7.6 KB of static shared memory beside it) still share
+# an SM's 228 KB of shared memory, so that one large box never halves a
+# launch's CTAs (csrc/box_beam.cu checks the same sum at compile time)
+STORAGE_LIMIT_BYTES = 105 * 1024
 
-_lib = None
+_libs = {}
 
 
-def load_kernel():
-    """Build (once) and load the kernel library; returns the ctypes lib."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(str(build_kernel("box_beam")))
+def load_kernel(phase_clocks: bool = False):
+    """Build (once) and load the kernel library; returns the ctypes lib.
+    With ``phase_clocks`` the instrumented build (a library of its own)."""
+    if phase_clocks in _libs:
+        return _libs[phase_clocks]
+    lib = ctypes.CDLL(str(build_kernel(
+        "box_beam", (PHASE_CLOCKS,) if phase_clocks else ())))
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.box_beam_storage_limit.restype = i
     lib.box_beam_storage_limit.argtypes = []
     lib.box_beam_launch.restype = i
     lib.box_beam_launch.argtypes = [vp, vp, vp, vp, i, i, i, i, vp, vp, vp,
                                     ctypes.POINTER(i), vp]
-    _lib = lib
-    return _lib
+    _libs[phase_clocks] = bind_phase_clocks(lib) if phase_clocks else lib
+    return lib
 
 
 def storage_bytes(wst, beam_width: int, A: int = KERNEL_A):

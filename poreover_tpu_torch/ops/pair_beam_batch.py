@@ -29,30 +29,55 @@ import torch
 from ..build import build_kernel
 from ..device import resolve_device
 from .beam2d_planned import (
-    M_N, M_WST0, M_WST1, META_COLS, pack_pairs, planned_scan, tracebacks,
+    C0RUN, C1RUN, M_N, M_WST0, M_WST1, META_COLS, pack_pairs, planned_scan,
+    tracebacks,
 )
 
 launch_count = 0  # launches for a batch of pairs (``pair_beam_batch``)
 single_launch_count = 0  # launches of the single-pair entry (one CTA)
 
-CMAX = 32  # candidate slots the kernel's shared table holds
+CMAX = 32  # candidate slots the kernel's table holds (one lane each)
 KERNEL_A = 4  # alphabet size the kernel is compiled for
+# widest window (columns) the kernel sweeps on its narrow path: seed and
+# columns in one warp's lanes (csrc/pair_search.cuh: NARROW_MAX; checked
+# against the built library when it loads)
+NARROW_MAX = 31
 
-_lib = None
+PHASE_CLOCKS = "POREOVER_PHASE_CLOCKS"  # macro of the instrumented build
+
+_libs = {}
 
 
-def load_kernel():
-    """Build (once) and load the kernel library; returns the ctypes lib."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(str(build_kernel("pair_beam_batch")))
+def bind_phase_clocks(lib):
+    """Declare ``phase_clocks_read(out, n, reset)`` of a library built
+    with ``PHASE_CLOCKS`` (csrc/pair_search.cuh: per-phase clock64 sums)."""
+    lib.phase_clocks_read.restype = ctypes.c_int
+    lib.phase_clocks_read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong),
+                                      ctypes.c_int, ctypes.c_int]
+    return lib
+
+
+def load_kernel(phase_clocks: bool = False):
+    """Build (once) and load the kernel library; returns the ctypes lib.
+    With ``phase_clocks`` the instrumented build (a library of its own)."""
+    if phase_clocks in _libs:
+        return _libs[phase_clocks]
+    lib = ctypes.CDLL(str(build_kernel(
+        "pair_beam_batch", (PHASE_CLOCKS,) if phase_clocks else ())))
     vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.pair_beam_storage_limit.restype = i
+    lib.pair_beam_storage_limit.argtypes = []
+    lib.pair_beam_narrow_max.restype = i
+    lib.pair_beam_narrow_max.argtypes = []
+    if lib.pair_beam_narrow_max() != NARROW_MAX:
+        raise RuntimeError(f"the kernel's narrow path is "
+                           f"{lib.pair_beam_narrow_max()} columns wide, "
+                           f"NARROW_MAX says {NARROW_MAX}")
     lib.pair_beam_batch_launch.restype = i
-    lib.pair_beam_batch_launch.argtypes = [vp, vp, vp, vp, i, i, vp, vp, vp,
-                                           vp, vp]
-    _lib = lib
-    return _lib
+    lib.pair_beam_batch_launch.argtypes = [vp, vp, vp, vp, i, i, i, vp, vp,
+                                           vp, vp, vp]
+    _libs[phase_clocks] = bind_phase_clocks(lib) if phase_clocks else lib
+    return lib
 
 
 def _check(name, t, dtype, dim, device):
@@ -68,9 +93,12 @@ def _check(name, t, dtype, dim, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-def _launch(planes1, planes2, plan, meta, meta_h, W: int, A: int):
+def _launch(planes1, planes2, plan, meta, meta_h, W: int, A: int,
+            in_smem: bool = True):
     """Check the tensors and launch the kernel on the current stream, one
-    CTA per row of ``meta``; counts nothing."""
+    CTA per row of ``meta``; counts nothing. The storage lives in shared
+    memory when the largest pair's fits; ``in_smem=False`` puts it in
+    global scratch all the same (``chip_smoke.py`` times both)."""
     dev = planes1.device
     _check("planes1", planes1, torch.float32, 1, dev)
     _check("planes2", planes2, torch.float32, 1, dev)
@@ -93,10 +121,13 @@ def _launch(planes1, planes2, plan, meta, meta_h, W: int, A: int):
     if plan.shape[0] != n_total:
         raise ValueError(f"plan has {plan.shape[0]} steps, meta {n_total}")
     lib = load_kernel()
-    scratch_floats = int((4 * C * (meta_h[:, M_WST0]
-                               + meta_h[:, M_WST1])).sum())
-    scratch = torch.empty(max(scratch_floats, 1), dtype=torch.float32,
-                          device=dev)
+    need = 4 * C * (meta_h[:, M_WST0] + meta_h[:, M_WST1])  # floats
+    # the storage in shared memory when the largest pair's fits
+    smem = 4 * int(need.max(initial=0))
+    if not in_smem or smem > lib.pair_beam_storage_limit():
+        smem = 0
+    scratch = torch.empty(1 if smem else max(int(need.sum()), 1),
+                          dtype=torch.float32, device=dev)
     prov = torch.empty(max(n_total, 1), W, dtype=torch.int8, device=dev)
     score = torch.empty(B, C, dtype=torch.float32, device=dev)
     valid = torch.empty(B, C, dtype=torch.bool, device=dev)
@@ -104,7 +135,7 @@ def _launch(planes1, planes2, plan, meta, meta_h, W: int, A: int):
     with torch.cuda.device(dev):
         err = lib.pair_beam_batch_launch(
             planes1.data_ptr(), planes2.data_ptr(), plan.data_ptr(),
-            meta.data_ptr(), B, W, scratch.data_ptr(), prov.data_ptr(),
+            meta.data_ptr(), B, W, smem, scratch.data_ptr(), prov.data_ptr(),
             score.data_ptr(), valid.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"pair_beam_batch kernel launch failed: CUDA "
@@ -122,6 +153,18 @@ def pair_beam_cuda(planes1, planes2, plan, meta, meta_h, W: int,
     outs = _launch(planes1, planes2, plan, meta, meta_h, W, A)
     launch_count += 1
     return outs
+
+
+def sweep_paths(plan: np.ndarray) -> tuple[int, int]:
+    """How many sweeps of a packed plan (int32 [N, 5]) the kernel runs on
+    its narrow path (window of 1..NARROW_MAX columns) and how many on its
+    general path (wider): MAIN steps sweep both reads, C0RUN / C1RUN one."""
+    p = np.asarray(plan, dtype=np.int64).reshape(-1, 5)
+    ty = p[:, 0]
+    widths = np.concatenate([(p[:, 2] - p[:, 1])[ty != C1RUN],
+                             (p[:, 4] - p[:, 3])[ty != C0RUN]])
+    return (int(((widths > 0) & (widths <= NARROW_MAX)).sum()),
+            int((widths > NARROW_MAX).sum()))
 
 
 def prepare_pairs(pairs, beam_width: int = 5, alphabet: str = "ACGT",

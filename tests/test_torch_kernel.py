@@ -141,6 +141,54 @@ def test_single_pair_entry_launches_one_cta(cuda_device):
     assert got == tp.beam_search_2d_planned(y1, y2, env, device=cuda_device)
 
 
+def _lp(rng, T):
+    x = rng.normal(size=(T, 5)) * 2
+    return (x - np.log(np.exp(x).sum(1, keepdims=True))).astype(np.float32)
+
+
+def narrow_pair():
+    """A pair whose every window is at most NARROW_MAX columns: the
+    kernel sweeps it on its register path only."""
+    rng = np.random.default_rng(11)
+    U, V = 70, 80
+    c = np.arange(U) * V // U
+    env = np.stack([np.clip(c - 5, 0, V - 1), np.clip(c + 6, 1, V)], 1)
+    return _lp(rng, U), _lp(rng, V), env.astype(np.int64)
+
+
+def wide_pair():
+    """A pair whose windows are all wider than NARROW_MAX columns but at
+    the envelope's far corner, where every window closes (its last
+    NARROW_MAX plan steps): the kernel's general path."""
+    rng = np.random.default_rng(12)
+    U = V = 120
+    c = np.arange(U)
+    env = np.stack([np.clip(c - 70, 0, V - 1), np.clip(c + 70, 1, V)], 1)
+    return _lp(rng, U), _lp(rng, V), env.astype(np.int64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make", [narrow_pair, wide_pair])
+def test_kernels_bit_equal_on_each_sweep_path(cuda_device, make):
+    """Both pair kernels hold provenance, final scores (bits) and picks
+    equal to their plain versions on a pair of each sweep path."""
+    pair = make()
+    prep = pbb.prepare_pairs([pair], device=cuda_device)
+    k = pbb.pair_beam_cuda(*prep["dev"], prep["meta"], 5)
+    p = tp.planned_scan(*prep["dev"], 5, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(k[0].cpu(), p[0].cpu())
+    assert torch.equal(k[1].cpu().view(torch.int32),
+                       p[1].cpu().view(torch.int32))
+    assert torch.equal(k[2].cpu(), p[2].cpu())
+    bprep = bb.prepare_boxes([pair, pair], device=cuda_device)
+    kb = bb.launch_boxes(bprep)
+    pb = bb.box_beam_plain(*bprep["dev"], 5, 4)
+    torch.cuda.synchronize()
+    for a, b in zip(kb, pb):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
 def _small_boxes():
     """The pairs above as boxes, one-row boxes and an empty-read box."""
     rng = np.random.default_rng(5)
