@@ -8,7 +8,7 @@ Run from a checkout on a machine with one CUDA card:
 
 Phases (each fails the run if it fails):
   1. build: the C++ host runtime (g++), the three CUDA kernels (nvcc,
-     sm_90a) and the instrumented builds of the two pair kernels
+     sm_90a) and the instrumented builds of all three
      (``-DPOREOVER_PHASE_CLOCKS``), one process each, all from the
      checkout's sources, in parallel; prints build seconds and the
      compiler's register / shared memory / spill report.
@@ -22,10 +22,14 @@ Phases (each fails the run if it fails):
      narrow path (windows of at most 31 columns, scanned in registers) and
      on its general path are counted from the plans; neither may be 0.
      1D beam (``beam1d_cuda`` against ``beam1d_plain``): the mixed lengths
-     of tests/test_pallas.py for ctc, ctc_merge_repeats and ctc_flipflop at
-     W=25 and W=5. Strings, chars and final validity must be equal, the
-     final table within 1e-3 (expected bit-equal, provenance too), and
-     the strings equal to the engine ``beam_search_batch`` on the card.
+     of tests/test_pallas.py and a read of T=1 for ctc, ctc_merge_repeats
+     and ctc_flipflop at W=25, 5 and 1. Strings, chars, provenance at
+     every step and final validity must be equal, the final table
+     bit-equal (int32 view), and the strings equal to the engine
+     ``beam_search_batch`` on the card. Then waves of 264 and 1056 of
+     those reads per kind (W=25), for which the kernel takes smaller hash
+     tables (more CTAs per SM), held to the plain version the same way;
+     the hash sizes taken are printed, and fewer than two fail the run.
      Box beam (``box_beam_cuda`` against ``box_beam_plain``): the 24 anchor
      boxes in one launch capped at 3 CTAs (so that boxes run back to back
      in a CTA) and in a second launch at the default grid. Provenance, final
@@ -63,14 +67,20 @@ Phases (each fails the run if it fails):
      same reads with ``--algorithm viterbi``. The shortest read's beam
      string must be at least as likely under the read's own emissions (the float64 forward sum over alignments) as its Viterbi
      string; how the beam's strings differ from the true ones (inserted,
-     missing, substituted bases) is printed. Then 2 reads of ~1500 bases
+     missing, substituted bases) is printed. Then 2 reads of ~950 bases
      each as bonito ``.npy`` and flip-flop ``.csv`` traces, ``beam`` and
      ``viterbi``, each byte-identical to the same command with ``--device
      cpu``.
   7. timing of the 1D kernel with CUDA events on phase 6's wave of 32
-     reads, and its bound; kernel vs plain version on that whole wave, every
-     step of every read (strings, chars, provenance, final table), timed
-     both; the strings must be the ones phase 6's FASTA holds.
+     reads (ms, us per step of the longest read), its bound, and its cycle
+     breakdown: one launch of the instrumented build, cycles per step of
+     each phase of the kernel's step (thread 0 of each CTA); the same 32
+     reads repeated into waves of 264 and 1056, timed (ms, hash size
+     taken), each read's outputs equal to its own in the 32-read wave;
+     kernel vs
+     plain version on that whole wave, every step of every read (strings,
+     chars, provenance, final table bits), timed both; the strings must
+     be the ones phase 6's FASTA holds.
   8. anchored pair-decode at full size, through the CLI: phase 3's 8 pairs
      with ``--skip_matches --skip_threshold 10 --reverse_complement
      --threads 8``; per pair the 1D identity, anchors, boxes, plan steps
@@ -87,9 +97,9 @@ Phases (each fails the run if it fails):
      limit, and for the same boxes with one CTA each.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
-(the pair and box kernels also with ``us_per_step``), and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero,
-printing no result, without a CUDA device or without the package beside
-it.
+(each kernel also with ``us_per_step``), and as its last line ``{"ok":
+true, "device": {...}}``. Exits non-zero, printing no result, without a
+CUDA device or without the package beside it.
 """
 from __future__ import annotations
 
@@ -114,7 +124,6 @@ F32_FLOPS = 67e12
 # E - cw, + cw, and ~2 log-add-exps of the scan (max, sub, abs, exp,
 # log1p, add each)
 OPS_PER_CELL = 3 + 2 * 6
-SCORE_TOL = 1e-3  # the 1D kernel's final table (B1 and B3: bit-equal)
 PLAIN_STEPS = 1500
 PLAIN_STEPS_SINGLE = 500
 DEVICE = "cuda"
@@ -134,9 +143,11 @@ BEAM1D_UPDATE_OPS = {0: 2 + OPS_LSE, 1: 2 * (2 + OPS_LSE) + 2 * OPS_LSE,
 CLOCK_PHASES = ("prune", "expand", "permute", "loads", "layers", "refresh",
                 "score", "scan", "wait")
 CK_STEPS, CK_SWEEPS, CK_LAYER_N, CK_NARROW, CK_N = 9, 10, 11, 12, 13
-MIXED_LENGTHS = {"ctc": (300, 257, 512, 100, 421, 380, 256, 64),
-                 "ctc_merge_repeats": (300, 257, 512, 100, 401, 77),
-                 "ctc_flipflop": (300, 257, 512, 100, 401, 77)}
+MIXED_LENGTHS = {"ctc": (300, 257, 512, 100, 421, 380, 256, 64, 1),
+                 "ctc_merge_repeats": (300, 257, 512, 100, 401, 77, 1),
+                 "ctc_flipflop": (300, 257, 512, 100, 401, 77, 1)}
+BEAM1D_WIDTHS = (25, 5, 1)  # phase 2's 1D cases
+BEAM1D_WAVES = (264, 1056)  # larger 1D waves (phases 2 and 7)
 
 
 def log(*a):
@@ -478,9 +489,10 @@ def beam1d_bound_ms(prep) -> tuple[float, str, str]:
 
 
 def compare_beam1d(name, prep, stats, engine_ys=None):
-    """1D kernel vs plain version on one prepared batch, both on the card.
-    Returns (the strings, kernel ms, plain ms), each one run timed with
-    CUDA events."""
+    """1D kernel vs plain version on one prepared batch, both on the card:
+    strings, chars, provenance at every step, final validity and the final
+    table's bits (int32 view) must be equal. Returns (the strings, kernel
+    ms, plain ms), each one run timed with CUDA events."""
     import torch
     from poreover_tpu_torch.ops import beam1d
     from poreover_tpu_torch.ops.beam import _MODEL_IDS, beam_search_batch
@@ -496,20 +508,22 @@ def compare_beam1d(name, prep, stats, engine_ys=None):
              f"reads {bad}")
     if not torch.equal(k[1], p[1]):
         fail(f"{name}: decoded chars differ")
+    differ = (k[0] != p[0]).any(1)
+    if differ.any():
+        fail(f"{name}: provenance differs from the plain version at "
+             f"{int(differ.sum())} steps (first "
+             f"{int(torch.nonzero(differ)[0, 0])})")
     if not torch.equal(k[4], p[4]):
         fail(f"{name}: final validity differs")
-    n_prov = int((k[0] != p[0]).any(1).sum())
     err = 0.0
     for a, b in ((k[2], p[2]), (k[3], p[3])):
         fa, fb = torch.isfinite(a), torch.isfinite(b)
-        if not torch.equal(fa, fb) or not torch.equal(a[~fa], b[~fb]):
-            fail(f"{name}: non-finite positions of the final table differ")
-        if fa.any():
+        if torch.equal(fa, fb) and fa.any():
             err = max(err, float((a[fa] - b[fb]).abs().max()))
-    if err > SCORE_TOL:
-        fail(f"{name}: final table differs by {err} > {SCORE_TOL}")
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            fail(f"{name}: final table not bit-equal (max |err| {err:.3g} "
+                 "over the finite values)")
     stats["max_abs_err"] = max(stats["max_abs_err"], err)
-    stats["prov_rows_differ"] += n_prov
     eng = ""
     if engine_ys is not None:
         model = [m for m, i in _MODEL_IDS.items()
@@ -519,12 +533,130 @@ def compare_beam1d(name, prep, stats, engine_ys=None):
         if sk != se:
             fail(f"{name}: kernel strings differ from the engine's")
         eng = ", equal to the engine"
-    log(f"  {name}: B={len(prep['meta'])} steps="
+    bits = beam1d.hash_bits(len(prep["meta"]), prep["model_id"], DEVICE)
+    stats.setdefault("hash_bits", set()).add(bits)
+    log(f"  {name}: B={len(prep['meta'])} (2^{bits} hash buckets) steps="
         f"{int(prep['meta'][:, 1].sum())} (max "
-        f"{int(prep['meta'][:, 1].max())} per read) strings equal{eng}, "
-        f"provenance differs at {n_prov} steps, max |table err| {err:.3g}; "
+        f"{int(prep['meta'][:, 1].max())} per read) strings, chars, "
+        f"provenance and validity equal{eng}, final table bit-equal; "
         f"kernel {t_k:.1f} ms, plain {t_p:.1f} ms")
     return sk, t_k, t_p
+
+
+def beam1d_cases(stats):
+    """Phase 2's 1D cases: kernel vs plain version (and the engine) on the
+    mixed lengths, a T=1 read among them, for each model kind at each
+    width of BEAM1D_WIDTHS."""
+    from poreover_tpu_torch.ops import beam1d
+
+    for model, S in (("ctc", 5), ("ctc_merge_repeats", 5),
+                     ("ctc_flipflop", 8)):
+        for W in BEAM1D_WIDTHS:
+            rng = np.random.default_rng(7)
+            ys = [softmax_log(rng, T, S) for T in MIXED_LENGTHS[model]]
+            prep = beam1d.prepare_beam1d(ys, beam_width=W, model=model,
+                                         device=DEVICE)
+            compare_beam1d(f"beam1d {model} W={W}", prep, stats,
+                           engine_ys=ys)
+        for B in BEAM1D_WAVES:
+            rng = np.random.default_rng(B)
+            lens = MIXED_LENGTHS[model]
+            ys = [softmax_log(rng, lens[i % len(lens)], S) for i in range(B)]
+            prep = beam1d.prepare_beam1d(ys, beam_width=25, model=model,
+                                         device=DEVICE)
+            compare_beam1d(f"beam1d {model} W=25, {B} reads", prep, stats)
+
+
+def beam1d_breakdown(name, launch):
+    """One ``launch`` of the 1D kernel's instrumented build: prints the
+    cycles per step of each phase of its step (thread 0 of each CTA,
+    clock64); returns them by phase."""
+    import ctypes
+
+    import torch
+    from poreover_tpu_torch.ops import beam1d
+
+    n = len(beam1d.CLOCK_PHASES) + 1
+    buf = (ctypes.c_ulonglong * n)()
+    torch.cuda.synchronize()
+    with instrumented(beam1d) as lib:
+        if lib.phase_clocks_read(buf, n, 1):
+            fail(f"{name}: phase_clocks_read failed")
+        launch()
+        torch.cuda.synchronize()
+        if lib.phase_clocks_read(buf, n, 0):
+            fail(f"{name}: phase_clocks_read failed")
+    c = list(buf)
+    steps = max(c[-1], 1)
+    per = {ph: c[i] / steps for i, ph in enumerate(beam1d.CLOCK_PHASES)}
+    log(f"  cycles per step, {name} (thread 0 of each CTA, {c[-1]} steps): "
+        + " ".join(f"{ph} {v:.0f}" for ph, v in per.items())
+        + f"; total {sum(per.values()):.0f}")
+    return per
+
+
+def beam1d_timing(wave1d, gpu):
+    """Phase 7's timing part: the 1D kernel with CUDA events on the 32-read
+    wave, its bound and its cycle breakdown. Returns (prep, ms, us per
+    step of the longest read, bound ms, bound_by)."""
+    from poreover_tpu_torch.ops import beam1d
+
+    prep = beam1d.prepare_beam1d(wave1d, beam_width=25, device=DEVICE)
+    lens = prep["meta"][:, 1]
+    b4_ms = event_ms(lambda: beam1d.launch_beam1d(prep), reps=3)
+    b4_us = b4_ms * 1e3 / lens.max()
+    b4_bound, b4_by, b4_terms = beam1d_bound_ms(prep)
+    log(f"phase 7 [{gpu}]: beam1d {b4_ms:.1f} ms per 32-read wave, "
+        f"{b4_us:.3f} us per step of the longest read "
+        f"({int(lens.max())} steps; mean {lens.mean():.0f}); bound "
+        f"{b4_bound:.4f} ms ({b4_by}); {32 / (b4_ms / 1e3):.1f} reads/s "
+        f"(kernel)")
+    log(f"  bound terms: {b4_terms}")
+    beam1d_breakdown("decode wave", lambda: beam1d.launch_beam1d(prep))
+    return prep, b4_ms, b4_us, b4_bound, b4_by
+
+
+def beam1d_larger_waves(wave1d, prep32):
+    """Phase 7: the 1D kernel on waves of BEAM1D_WAVES reads, phase 6's 32
+    repeated: ms per wave (CUDA events) and the hash size taken; every
+    read's chars, provenance and final table (bits) must equal its own in
+    the 32-read wave ``prep32``. Returns {reads: (ms, hash bits)}."""
+    import torch
+    from poreover_tpu_torch.ops import beam1d
+
+    ref = beam1d.launch_beam1d(prep32)
+    m32 = prep32["meta"]
+    res = {}
+    for B in BEAM1D_WAVES:
+        prep = beam1d.prepare_beam1d([wave1d[i % 32] for i in range(B)],
+                                     beam_width=25, device=DEVICE)
+        bits = beam1d.hash_bits(B, prep["model_id"], DEVICE)
+        ms = event_ms(lambda: beam1d.launch_beam1d(prep), reps=3)
+        outs = beam1d.launch_beam1d(prep)
+        torch.cuda.synchronize()
+        idx = torch.arange(B, device=DEVICE) % 32
+        for k in (2, 3):
+            if not torch.equal(outs[k].view(torch.int32),
+                               ref[k].view(torch.int32)[idx]):
+                fail(f"beam1d, {B} reads: final table differs from the "
+                     "32-read wave's")
+        if not torch.equal(outs[4], ref[4][idx]):
+            fail(f"beam1d, {B} reads: final validity differs")
+        for b, (o, t) in enumerate(prep["meta"]):
+            o32, t32 = m32[b % 32]
+            if t != t32 or not (
+                    torch.equal(outs[1][o:o + t], ref[1][o32:o32 + t])
+                    and torch.equal(outs[0][o:o + t], ref[0][o32:o32 + t])):
+                fail(f"beam1d, {B} reads: read {b} differs from its own in "
+                     "the 32-read wave")
+        steps = int(prep["meta"][:, 1].sum())
+        log(f"  beam1d, {B}-read wave (the 32 repeated; 2^{bits} hash "
+            f"buckets): {ms:.1f} ms, {B / (ms / 1e3):.1f} reads/s, "
+            f"{ms * 1e6 / steps:.2f} ns per read step; every read's "
+            "outputs equal its own in the 32-read wave")
+        res[B] = (ms, bits)
+        del prep, outs
+    return res
 
 
 def fasta_records(path):
@@ -573,8 +705,8 @@ def decode_cli(d, inputs, basecaller, algorithm, out, device=None,
 
 def build_all():
     """Phase 1: the host runtime, the three kernels and the instrumented
-    builds of the two pair kernels, one compiler process each, in
-    parallel; prints the compiler's register / spill report."""
+    builds of all three, one compiler process each, in parallel; prints
+    the compiler's register / spill report."""
     from poreover_tpu_torch import build, native
     from poreover_tpu_torch.ops import beam1d
     from poreover_tpu_torch.ops import box_beam as bb
@@ -592,7 +724,8 @@ def build_all():
     ths = [threading.Thread(target=run, args=(f,))
            for f in (native.load, pbb.load_kernel, beam1d.load_kernel,
                      bb.load_kernel, lambda: pbb.load_kernel(True),
-                     lambda: bb.load_kernel(True))]
+                     lambda: bb.load_kernel(True),
+                     lambda: beam1d.load_kernel(True))]
     for th in ths:
         th.start()
     for th in ths:
@@ -646,16 +779,12 @@ def main():
     if not stats["narrow"] or not stats["general"]:
         fail("phase 2 does not exercise both sweep paths of the pair kernel")
 
-    stats1d = {"max_abs_err": 0.0, "prov_rows_differ": 0}
-    for model, S in (("ctc", 5), ("ctc_merge_repeats", 5),
-                     ("ctc_flipflop", 8)):
-        for W in (25, 5):
-            rng = np.random.default_rng(7)
-            ys = [softmax_log(rng, T, S) for T in MIXED_LENGTHS[model]]
-            prep = beam1d.prepare_beam1d(ys, beam_width=W, model=model,
-                                         device=DEVICE)
-            compare_beam1d(f"beam1d {model} W={W}", prep, stats1d,
-                           engine_ys=ys)
+    stats1d = {"max_abs_err": 0.0}
+    beam1d_cases(stats1d)
+    log(f"  1D hash sizes taken: "
+        f"{sorted(1 << b for b in stats1d['hash_bits'])} buckets")
+    if len(stats1d["hash_bits"]) < 2:
+        fail("phase 2 does not exercise more than one 1D hash size")
     stats_box = {"max_abs_err": 0.0}
     _, _, _, prep24 = compare_boxes("box beam, boxes.npz", boxes(),
                                     stats_box, few_ctas=FEW_CTAS)
@@ -841,7 +970,7 @@ def main():
              f"than Viterbi's ({ll['viterbi']})")
     for kind, basecaller in (("bonito", "bonito"), ("flipflop", "flappie")):
         with tempfile.TemporaryDirectory() as d:
-            truth4 = write_reads(d, N_CPU_READS, seed=5, lo=1400, hi=1600,
+            truth4 = write_reads(d, N_CPU_READS, seed=5, lo=900, hi=1000,
                                  kind=kind)
             inputs = [d] if kind == "bonito" else [
                 os.path.join(d, f"r{i}.csv") for i in range(N_CPU_READS)]
@@ -873,16 +1002,8 @@ def main():
     log(f"phase 6 done: {time.perf_counter() - t_start:.0f} s elapsed")
 
     # ---- phase 7: timing of the 1D kernel on phase 6's wave
-    prep = beam1d.prepare_beam1d(wave1d, beam_width=25, device=DEVICE)
-    lens = prep["meta"][:, 1]
-    b4_ms = event_ms(lambda: beam1d.launch_beam1d(prep), reps=3)
-    b4_bound, b4_by, b4_terms = beam1d_bound_ms(prep)
-    log(f"phase 7 [{gpu}]: beam1d {b4_ms:.1f} ms per 32-read wave, "
-        f"{b4_ms * 1e3 / lens.max():.2f} us per step of the longest read "
-        f"({int(lens.max())} steps; mean {lens.mean():.0f}); bound "
-        f"{b4_bound:.4f} ms ({b4_by}); {32 / (b4_ms / 1e3):.1f} reads/s "
-        f"(kernel), {32 / dec_wall:.2f} reads/s end to end")
-    log(f"  bound terms: {b4_terms}")
+    prep, b4_ms, b4_us, b4_bound, b4_by = beam1d_timing(wave1d, gpu)
+    log(f"  decode end to end {32 / dec_wall:.2f} reads/s")
     # the plain version on the whole wave, every step of every read: slow
     # (hundreds of small launches per step), but nothing shorter holds the
     # kernel to it at the main path's lengths
@@ -893,6 +1014,7 @@ def main():
             fail(f"decode's FASTA record r{i} differs from the kernel's and "
                  "the plain version's string")
     log("  the 32 strings equal the records decode wrote")
+    b4_waves = beam1d_larger_waves(wave1d, prep)
 
     del wave1d, prep
     log(f"phase 7 done: {time.perf_counter() - t_start:.0f} s elapsed")
@@ -1028,9 +1150,11 @@ def main():
         "replaces": "poreover_tpu/ops/pallas_beam1d.py:374",
         "launches": dec_launches, "max_abs_err": stats1d["max_abs_err"],
         "ms": b4_ms, "plain_ms": b4_plain_ms, "bound_ms": b4_bound,
+        "us_per_step": b4_us,
+        "ms_by_wave": {str(B): v[0] for B, v in b4_waves.items()},
+        "hash_bits_by_wave": {str(B): v[1] for B, v in b4_waves.items()},
         "bound_by": b4_by, "library_ms": None,
         "plain_input": "the whole decode wave, as for ms",
-        "prov_rows_differ": stats1d["prov_rows_differ"],
     }, {
         "name": "box_beam", "route": "cuda",
         "source": "poreover_tpu_torch/csrc/box_beam.cu",

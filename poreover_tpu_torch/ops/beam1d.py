@@ -46,21 +46,35 @@ CMAX = 128  # candidate slots = threads of a CTA
 WMAX = 32   # winners fit one warp
 SMAX = 8    # widest emission row the kernel stages
 
-_lib = None
+PHASE_CLOCKS = "POREOVER_PHASE_CLOCKS"  # macro of the instrumented build
+# the instrumented build's phase sums (csrc/beam1d.cu: CK_*), in order; then
+# the count of steps
+CLOCK_PHASES = ("refill", "dedup", "rank", "publish", "gather", "join",
+                "update", "link", "barrier")
+
+_libs = {}
 
 
-def load_kernel():
-    """Build (once) and load the kernel library; returns the ctypes lib."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(str(build_kernel("beam1d")))
+def load_kernel(phase_clocks: bool = False):
+    """Build (once) and load the kernel library; returns the ctypes lib.
+    With ``phase_clocks`` the instrumented build (a library of its own,
+    with ``phase_clocks_read``)."""
+    if phase_clocks in _libs:
+        return _libs[phase_clocks]
+    lib = ctypes.CDLL(str(build_kernel(
+        "beam1d", (PHASE_CLOCKS,) if phase_clocks else ())))
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.beam1d_launch.restype = i
     lib.beam1d_launch.argtypes = [vp, vp, vp, i, i, i, i, i, vp, vp, vp, vp,
                                   vp, vp]
-    _lib = lib
-    return _lib
+    lib.beam1d_hash_bits.restype = i
+    lib.beam1d_hash_bits.argtypes = [i, i]
+    if phase_clocks:
+        lib.phase_clocks_read.restype = i
+        lib.phase_clocks_read.argtypes = [
+            ctypes.POINTER(ctypes.c_ulonglong), i, i]
+    _libs[phase_clocks] = lib
+    return lib
 
 
 def planes_from_numpy(ys, model: str = "ctc", A: int = 4):
@@ -157,6 +171,19 @@ def beam1d_cuda(y, root, meta, meta_h, W: int, A: int, model_id: int):
         raise RuntimeError(f"beam1d kernel launch failed: CUDA error {err}")
     launch_count += 1
     return prov, chars, st0, st1, val
+
+
+def hash_bits(B: int, model_id: int, device=None) -> int:
+    """log2 of the hash buckets per table that a launch of B reads of this
+    model kind takes on ``device`` (the kernel picks it from B and what
+    the card can keep resident: the most buckets with which the wave runs
+    in the fewest rounds of CTAs)."""
+    lib = load_kernel()
+    with torch.cuda.device(resolve_device(device)):
+        bits = lib.beam1d_hash_bits(B, model_id)
+    if bits < 0:
+        raise RuntimeError(f"beam1d_hash_bits failed: CUDA error {-bits}")
+    return bits
 
 
 def _select(sc, k1, k2, val, W: int):

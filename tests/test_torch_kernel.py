@@ -286,3 +286,58 @@ def test_beam1d_kernel_matches_plain_on_card(cuda_device, model, S, W):
         assert torch.equal(a.cpu(), b.cpu())
     assert beam1d.fetch_beam1d(prep, k) == beam_search_batch(
         ys, W, model=model, device=cuda_device)
+
+
+def _beam1d_on_card(ys, W, model, device):
+    """Kernel and plain version on the same prepared batch: every output
+    equal, the float ones bit for bit."""
+    prep = beam1d.prepare_beam1d(ys, beam_width=W, model=model,
+                                 device=device)
+    before = beam1d.launch_count
+    k = beam1d.launch_beam1d(prep)
+    assert beam1d.launch_count == before + 1
+    p = beam1d.beam1d_plain(*prep["dev"], prep["meta"], W, 4,
+                            prep["model_id"])
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        a, b = a.cpu(), b.cpu()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+    return beam1d.fetch_beam1d(prep, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,S", [("ctc", 5), ("ctc_merge_repeats", 5),
+                                     ("ctc_flipflop", 8)])
+@pytest.mark.parametrize("case", ["W=1", "T=1", "lengths 100x", "ties",
+                                  "1056 reads"])
+def test_beam1d_kernel_edge_cases_on_card(cuda_device, model, S, case):
+    """W=1, reads of one step, lengths differing a hundredfold in one
+    launch, constant emissions (every score tied), and a wave of 1056
+    reads, for which the kernel takes its smallest hash tables: chars,
+    provenance and the final table bit-equal to the plain version."""
+    rng = np.random.default_rng(17)
+
+    def lp(T):
+        x = rng.normal(size=(T, S)) * 2
+        return (x - np.log(np.exp(x).sum(1, keepdims=True))).astype(
+            np.float32)
+
+    W = 25
+    if case == "W=1":
+        ys, W = [lp(T) for T in (300, 1, 57)], 1
+    elif case == "T=1":
+        ys = [lp(1), lp(1), lp(2)]
+    elif case == "lengths 100x":
+        ys = [lp(7), lp(700), lp(7)]
+    elif case == "1056 reads":
+        ys = [lp(int(T)) for T in rng.integers(1, 120, 1056)]
+        assert beam1d.hash_bits(len(ys), beam1d._MODEL_IDS[model],
+                                cuda_device) < 12
+    else:
+        ys = [np.full((T, S), np.log(1.0 / S), np.float32)
+              for T in (200, 3, 1)]
+    strings = _beam1d_on_card(ys, W, model, cuda_device)
+    assert len(strings) == len(ys)
+
