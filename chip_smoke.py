@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
 """On-GPU smoke test of the PyTorch/CUDA port's main paths (pair-decode,
-decode and anchored pair-decode).
+decode and anchored pair-decode; pair-decode for all three model kinds).
 
 Run from a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
 Phases (each fails the run if it fails):
-  1. build: the C++ host runtime (g++), the three CUDA kernels (nvcc,
-     sm_90a) and the instrumented builds of all three
+  1. build: the C++ host runtime (g++), the four CUDA kernels (nvcc,
+     sm_90a; the pair kernels with one template instance per model kind)
+     and the instrumented builds of the first three
      (``-DPOREOVER_PHASE_CLOCKS``), one process each, all from the
      checkout's sources, in parallel; prints build seconds and the
      compiler's register / shared memory / spill report.
   2. kernels vs plain versions on the card.
      Pair beam (``pair_beam_cuda`` against ``planned_scan``): the five
-     envelope cases of tests/test_pallas.py at B=1, 4 and 8, the 24 anchor
-     boxes of tests/data/boxes.npz as one batch, and two simulated pairs of
-     ~600 bases. Strings, provenance at every plan step and final validity
+     envelope cases of tests/test_pallas.py at B=1, 4 and 8, the anchor
+     boxes of tests/data/boxes.npz with plans of at most REAL_BOX_STEPS
+     steps (21 of 24) as one batch, and two simulated pairs of ~300
+     bases. Strings, provenance at every plan step and final validity
      must be equal and the final scores bit-equal (both run the same ops
      in the same order). The sweeps these batches take on the kernel's
      narrow path (windows of at most 31 columns, scanned in registers) and
@@ -30,14 +32,25 @@ Phases (each fails the run if it fails):
      those reads per kind (W=25), for which the kernel takes smaller hash
      tables (more CTAs per SM), held to the plain version the same way;
      the hash sizes taken are printed, and fewer than two fail the run.
-     Box beam (``box_beam_cuda`` against ``box_beam_plain``): the 24 anchor
+     Box beam (``box_beam_cuda`` against ``box_beam_plain``): those anchor
      boxes in one launch capped at 3 CTAs (so that boxes run back to back
      in a CTA) and in a second launch at the default grid. Provenance, final
      picks and strings must be equal (tolerance 0: they are integers) to
      the plain version's and between the two launches; the boxes over the
      storage limit must be the ones their plans' storage widths predict
-     (at least one; the pair kernel's batch of all 24 boxes above holds
+     (at least one; the pair kernel's batch of these boxes above holds
      them to their plain version).
+     Bonito and flip-flop pairs (``ctc_merge_repeats``, ``ctc_flipflop``):
+     the pair kernel against its plain version on the five envelope cases
+     (S = 5 / 8; storage in global scratch, over the shared-memory limit)
+     and on two simulated pairs of ~200 bases of the kind (storage in
+     shared memory, then forced into global scratch, both bit-equal); the
+     box kernel on the anchored boxes of two ~600-base pairs of the kind
+     (plans of at most BOX_PLAIN_STEPS steps) at 3 CTAs and at the default
+     grid, as above. The Viterbi kernel (``viterbi_path_masked_batch``)
+     against its plain version ``_viterbi_masked_padded`` on flip-flop
+     reads of mixed lengths (a T = 1 read among them), additive and hard
+     masks: every path equal.
   3. pair-decode at full size, through the CLI entry point
      (``poreover_tpu_torch.cli.main``): 8 simulated pairs (seed 7,
      5200-8200 bases, ~36k-58k steps per read) decoded with
@@ -78,9 +91,10 @@ Phases (each fails the run if it fails):
      reads repeated into waves of 264 and 1056, timed (ms, hash size
      taken), each read's outputs equal to its own in the 32-read wave;
      kernel vs
-     plain version on that whole wave, every step of every read (strings,
-     chars, provenance, final table bits), timed both; the strings must
-     be the ones phase 6's FASTA holds.
+     plain version on that wave's reads cut to their first
+     BEAM1D_PLAIN_STEPS steps, every step of every read (strings, chars,
+     provenance, final table bits), timed both; the kernel's strings of the
+     whole wave must be the ones phase 6's FASTA holds.
   8. anchored pair-decode at full size, through the CLI: phase 3's 8 pairs
      with ``--skip_matches --skip_threshold 10 --reverse_complement
      --threads 8``; per pair the 1D identity, anchors, boxes, plan steps
@@ -90,14 +104,47 @@ Phases (each fails the run if it fails):
      3's full consensus; pair 0's boxes each decoded by the f64
      windowed-memo C++ oracle and stitched with the same anchors at
      identity >= 0.999 to the run's consensus; the box kernel equal to its
-     plain version on all boxes of pair 0.
+     plain version on pair 0's boxes with plans of at most BOX_PLAIN_STEPS
+     steps, and its strings of all of pair 0's boxes, stitched, the run's
+     consensus.
   9. timing of the box kernel with CUDA events on phase 8's wave (all
      boxes of the 8 pairs in one launch), its bound and its cycle
      breakdown as in phase 5; the pair kernel's time for the boxes over the
      limit, and for the same boxes with one CTA each.
+ 10. pair-decode for bonito and flip-flop traces at full size, per kind:
+     8 simulated pairs (seed 7, 5200-8200 bases; bonito ``.npy``, flip-flop
+     ``.csv``) through the CLI with ``--reverse_complement --threads 8``,
+     launch counts zeroed just before and read just after (one pair-kernel
+     launch for the wave; flip-flop: one Viterbi launch per pair); each
+     bonito consensus at least as close to read 1's true sequence as read
+     1's own Viterbi call (flip-flop: each consensus at identity >=
+     FLIPFLOP_RC_FLOOR, since reversing a flip-flop trace puts a flop
+     first in even homopolymer runs, which the pair model forbids; and
+     the mean of a control of the same strands with read 2 rendered in
+     template orientation and no ``--reverse_complement`` at least read
+     1's mean);
+     the same pairs with ``--skip_matches --skip_threshold
+     10`` (one box launch; each anchored consensus at identity >= 0.95 to
+     the full one); the pair kernel timed on the wave (CUDA events, us per
+     step, bound, storage path) and held to its plain version on the
+     wave's first PLAIN_STEPS_KINDS steps per pair; pair 0 through the
+     single-pair entry equal to the CLI's consensus; the box kernel timed on
+     the anchored wave, pair 0's boxes through the kernels stitched into
+     the CLI's anchored consensus, and held to its plain version on pair
+     0's boxes of <= BOX_PLAIN_STEPS steps with the wave's widest box cut
+     to BOX_PLAIN_STEPS steps (a launch with the wave's shared memory per
+     CTA); both waves' cycles per plan step by
+     phase (the instrumented builds, as in phases 5 and 9); two ~300-base
+     pairs on the card byte-identical to ``--device cpu``.
+     Flip-flop stage 1: the Viterbi kernel per pair, on all 16 reads, and
+     on one read against the old loop (the plain version on the card).
+ 11. a pairs file under ``--basecaller poreover`` with one CTC ``.npy`` pair
+     and one 8-column CSV pair: both decode, one pair-kernel launch per
+     kind.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
-(each kernel also with ``us_per_step``), and as its last line ``{"ok":
+(each kernel instance with the model kinds it ran, and with
+``us_per_step``), and as its last line ``{"ok":
 true, "device": {...}}``. Exits non-zero, printing no result, without a
 CUDA device or without the package beside it.
 """
@@ -120,15 +167,33 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # (non-tensor) FLOP/s
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
-# float operations per in-range cell of a swept candidate row: par + emit,
-# E - cw, + cw, and ~2 log-add-exps of the scan (max, sub, abs, exp,
-# log1p, add each)
-OPS_PER_CELL = 3 + 2 * 6
-PLAIN_STEPS = 1500
-PLAIN_STEPS_SINGLE = 500
+# float operations per in-range cell of a swept candidate row, by model id.
+# ctc: par + emit, E - cw, + cw, and ~2 log-add-exps of the scan (max, sub,
+# abs, exp, log1p, add each). bonito: the parent's total (a log-add-exp),
+# par + emit, - cw, the no-gap scan, + cw, - gap cw, the total's scan, +
+# gap cw, + gap, and the score's log-add-exp of the two components.
+# flip-flop: the parent's total, par + emit, - cw, par + flop, - flop cw,
+# two scans, two + cw, the score's log-add-exp.
+OPS_PER_CELL = {0: 3 + 2 * 6, 1: 6 + 2 + 12 + 2 + 12 + 2 + 6,
+                2: 6 + 2 + 2 + 24 + 2 + 6}
+# The plain versions run hundreds of small launches per step, ~13-25 ms
+# per pair-search step and ~2 ms per 1D step on the card, bound by the
+# host; these cut the depth at which they hold the kernels, so that the
+# whole run stays well inside its time limit.
+PLAIN_STEPS = 1000  # phase 5: plan steps per pair of the CTC wave
+PLAIN_STEPS_SINGLE = 500  # phases 5 and 10: pair 0 alone
+PLAIN_STEPS_KINDS = 1000  # phase 10: the bonito and flip-flop waves
+BEAM1D_PLAIN_STEPS = 10000  # phase 7: steps per read of the 1D wave
+REAL_BOX_STEPS = 2048  # phase 2: boxes.npz boxes held to the plain version
+BOX_PLAIN_STEPS = 1000  # phases 2, 8, 10: plan steps of a compared box
 DEVICE = "cuda"
 IDENTITY_FLOOR = 0.9  # a decoded simulated read against its true sequence
 ANCHORED_FLOOR = 0.95  # a pair's anchored consensus against its full one
+# phase 10, flip-flop under --reverse_complement: each consensus against
+# read 1's true sequence. Such pairs decode below read 1's own call (in the
+# JAX package as well; tests/test_torch_flipflop_rc.py), so the floor is
+# set from the runs: 0.6620-0.6724 over seed 7's 8 pairs on the H100.
+FLIPFLOP_RC_FLOOR = 0.65
 N_CPU_READS = 2  # bonito / flip-flop reads also decoded with --device cpu
 FEW_CTAS = 3  # grid cap that makes boxes run back to back in a CTA
 # 1D beam, float operations per step and read: each of the C candidates
@@ -147,6 +212,12 @@ MIXED_LENGTHS = {"ctc": (300, 257, 512, 100, 421, 380, 256, 64, 1),
                  "ctc_merge_repeats": (300, 257, 512, 100, 401, 77, 1),
                  "ctc_flipflop": (300, 257, 512, 100, 401, 77, 1)}
 BEAM1D_WIDTHS = (25, 5, 1)  # phase 2's 1D cases
+# the pair kinds of pair-decode: --basecaller and the planned engine's model
+BASECALLER = {"poreover": "poreover", "bonito": "bonito",
+              "flipflop": "flappie"}
+KIND_MODEL = {"poreover": "ctc", "bonito": "ctc_merge_repeats",
+              "flipflop": "ctc_flipflop"}
+VITERBI_LENGTHS = (300, 1, 257, 64, 65, 2, 1000, 129)  # phase 2's reads
 BEAM1D_WAVES = (264, 1056)  # larger 1D waves (phases 2 and 7)
 
 
@@ -168,11 +239,12 @@ def gpu_line() -> str:
         else f"nvidia-smi failed: {out.stderr.strip()}"
 
 
-def pallas_cases():
-    """The five envelope cases of tests/test_pallas.py:cases()."""
+def pallas_cases(S=5):
+    """The five envelope cases of tests/test_pallas.py:cases(), with S
+    columns per row (5: ctc and bonito, 8: flip-flop)."""
     rng = np.random.default_rng(7)
 
-    def softmax_log(T, S=5):
+    def softmax_log(T, S=S):
         x = rng.normal(size=(T, S)) * 2
         return (x - np.log(np.exp(x).sum(1, keepdims=True))).astype(
             np.float32)
@@ -196,20 +268,33 @@ def pallas_cases():
     return out
 
 
+def plan_steps(box) -> int:
+    from poreover_tpu_torch.ops.beam2d_planned import build_plan
+
+    y1, y2, env = box
+    return len(build_plan(env, len(y1), len(y2))["type"]) \
+        if len(y1) and len(y2) else 0
+
+
 def boxes():
+    """The real anchor boxes of tests/data/boxes.npz whose plans have at
+    most REAL_BOX_STEPS steps (21 of the 24; box 11, over the box kernel's
+    storage limit, among them)."""
     d = np.load(os.path.join(HERE, "tests", "data", "boxes.npz"))
-    return [(d[f"y1_{i}"], d[f"y2_{i}"], d[f"env_{i}"])
-            for i in range(int(d["n"]))]
+    out = [(d[f"y1_{i}"], d[f"y2_{i}"], d[f"env_{i}"])
+           for i in range(int(d["n"]))]
+    return [b for b in out if plan_steps(b) <= REAL_BOX_STEPS]
 
 
-def workload_of(d, r1, r2):
-    """Stages 1-3 of the port for one pair of .npy files: (y1, y2, env)."""
+def workload_of(d, r1, r2, kind="poreover"):
+    """Stages 1-3 of the port for one pair of reads of the kind ``kind``:
+    (y1, y2, env)."""
     from poreover_tpu_torch.decoding.pair import pair_decode_helper
     from poreover_tpu_torch.cli import build_parser
 
     args = build_parser().parse_args(
-        ["pair-decode", r1, r2, "--dir", d, "--basecaller", "poreover",
-         "--reverse_complement"])
+        ["pair-decode", r1, r2, "--dir", d, "--basecaller",
+         BASECALLER[kind], "--reverse_complement"])
     got = []
     pair_decode_helper(args, _workload_sink=lambda wl, *_: got.append(wl))
     if not got:
@@ -217,13 +302,17 @@ def workload_of(d, r1, r2):
     return got[0]
 
 
-def sim_workloads(n, seed, lo, hi):
+def pair_files(pairs_txt):
+    return [line.split() for line in open(pairs_txt) if line.split()]
+
+
+def sim_workloads(n, seed, lo, hi, kind="poreover"):
     from poreover_tpu_torch.sim import write_pairs
 
     with tempfile.TemporaryDirectory() as d:
-        write_pairs(d, n, seed, lo, hi)
-        return [workload_of(d, f"s{i}_1.npy", f"s{i}_2.npy")
-                for i in range(n)]
+        pairs_txt, _ = write_pairs(d, n, seed, lo, hi, kind=kind)
+        return [workload_of(d, r1, r2, kind)
+                for r1, r2 in pair_files(pairs_txt)]
 
 
 def cells_of(prep) -> int:
@@ -256,12 +345,13 @@ def bound_ms(prep, out_bytes=None) -> tuple[float, str, str]:
               + prep["plan"].nbytes + prep["meta"].nbytes
               + n * prep["W"] + B * (C * 5 if out_bytes is None
                                      else out_bytes))
-    nops = cells_of(prep) * OPS_PER_CELL
+    ops_cell = OPS_PER_CELL[prep["model_id"]]
+    nops = cells_of(prep) * ops_cell
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = nops / F32_FLOPS * 1e3
     terms = (f"{nbytes} bytes -> {t_bytes:.4g} ms at {HBM_BPS:.3g} B/s; "
              f"{nops} float ops ({cells_of(prep)} swept cells x "
-             f"{OPS_PER_CELL}) -> {t_ops:.4g} ms at {F32_FLOPS:.3g} FLOP/s")
+             f"{ops_cell}) -> {t_ops:.4g} ms at {F32_FLOPS:.3g} FLOP/s")
     if t_bytes >= t_ops:
         return t_bytes, "bytes", terms
     return t_ops, "operations", terms
@@ -275,16 +365,29 @@ def upload(packed):
                              for k in ("planes1", "planes2", "plan", "meta")])
 
 
-def compare(name, prep, stats):
-    """Kernel vs plain version on one packed batch, both on the card.
-    Returns (kernel ms, plain ms), each one run timed with CUDA events."""
+def compare(name, prep, stats, also_global=False):
+    """Kernel vs plain version on one packed batch, both on the card. With
+    ``also_global`` the kernel runs a second time with its storage forced
+    into global scratch, and must give the same outputs. Returns (kernel
+    ms, plain ms), each one run timed with CUDA events."""
     import torch
     from poreover_tpu_torch.ops import pair_beam_batch as pbb
     from poreover_tpu_torch.ops.beam2d_planned import planned_scan, tracebacks
 
-    k, t_k = timed(lambda: pbb.pair_beam_cuda(*prep["dev"], prep["meta"],
-                                              prep["W"], prep["A"]))
-    p, t_p = timed(lambda: planned_scan(*prep["dev"], prep["W"], prep["A"]))
+    mid = prep["model_id"]
+    k, t_k = timed(lambda: pbb.pair_beam_cuda(
+        *prep["dev"], prep["meta"], prep["W"], prep["A"], model_id=mid))
+    where = [pbb.storage_path(prep)]
+    if also_global:
+        kg = pbb._launch(*prep["dev"], prep["meta"], prep["W"], prep["A"],
+                         in_smem=False, model_id=mid)
+        if not all(torch.equal(a.view(torch.int8), b.view(torch.int8))
+                   for a, b in zip(k, kg)):
+            fail(f"{name}: the kernel with its storage in global scratch "
+                 "differs from its run in shared memory")
+        where.append("global")
+    p, t_p = timed(lambda: planned_scan(*prep["dev"], prep["W"], prep["A"],
+                                        model_id=mid))
     k = [x.cpu().numpy() for x in k]
     p = [x.cpu().numpy() for x in p]
     fin = np.isfinite(k[1]) & np.isfinite(p[1])
@@ -309,35 +412,40 @@ def compare(name, prep, stats):
     narrow, general = sweep_paths(prep["plan"])
     stats["narrow"] = stats.get("narrow", 0) + narrow
     stats["general"] = stats.get("general", 0) + general
+    stats.setdefault("paths", set()).update(where)
     log(f"  {name}: B={len(prep['meta'])} steps={len(prep['plan'])} (max "
         f"{int(prep['meta'][:, 7].max())} per pair; sweeps {narrow} narrow, "
-        f"{general} general) strings, provenance and validity equal, "
-        f"scores bit-equal; kernel {t_k:.1f} ms, plain {t_p:.1f} ms")
+        f"{general} general; storage in {' and '.join(where)} memory) "
+        f"strings, provenance and validity equal, scores bit-equal; kernel "
+        f"{t_k:.1f} ms, plain {t_p:.1f} ms")
     return t_k, t_p
 
 
-def compare_boxes(name, bxs, stats, few_ctas=None):
-    """Box kernel vs plain version on one launch of boxes, both on the
-    card: provenance, final picks and strings, tolerance 0. With
-    ``few_ctas`` the kernel also runs capped at that many CTAs, and both
-    launches must agree. Returns (the strings, kernel ms, plain ms, the
-    prepared launch)."""
+def compare_boxes(name, bxs, stats, few_ctas=None, model="ctc",
+                  prepared=None):
+    """Box kernel vs plain version on one launch of boxes of the kind
+    ``model``, both on the card: provenance, final picks and strings,
+    tolerance 0. With ``few_ctas`` the kernel also runs capped at that many
+    CTAs, and both launches must agree. ``prepared`` (``prepare_box`` of
+    each box) may hold plans cut short. Returns (the strings, kernel ms,
+    plain ms, the prepared launch)."""
     import torch
     from poreover_tpu_torch.ops import box_beam as bb
     from poreover_tpu_torch.ops.beam2d_planned import build_plan, plan_wst
 
-    prep = bb.prepare_boxes(bxs, device=DEVICE)
+    prep = bb.prepare_boxes(bxs, device=DEVICE, model=model,
+                            prepared=prepared)
     want_over = [i for i, (y1, y2, env) in enumerate(bxs)
                  if len(y1) and len(y2) and bb.storage_bytes(
-                     plan_wst(build_plan(env, len(y1), len(y2))), prep["W"])
-                 > bb.STORAGE_LIMIT_BYTES]
+                     plan_wst(build_plan(env, len(y1), len(y2))), prep["W"],
+                     model_id=prep["model_id"]) > bb.STORAGE_LIMIT_BYTES]
     if prep["overflow"] != want_over:
         fail(f"{name}: boxes over the limit {prep['overflow']}, predicted "
              f"{want_over}")
     k, t_k = timed(lambda: bb.launch_boxes(prep))
     info = dict(prep["info"])
     p, t_p = timed(lambda: bb.box_beam_plain(*prep["dev"], prep["W"],
-                                             prep["A"]))
+                                             prep["A"], prep["model_id"]))
     runs = [("default grid", k)]
     if few_ctas:
         kf, t_f = timed(lambda: bb.launch_boxes(prep, max_ctas=few_ctas))
@@ -365,21 +473,98 @@ def compare_boxes(name, bxs, stats, few_ctas=None):
     return sp, t_k, t_p, prep
 
 
-def anchored_boxes_of(d, r1, r2):
-    """Stages 1-3 of the port in anchored mode for one pair of .npy files:
-    (its boxes [(y1, y2, env)], the continuation that stitches box
-    consensi with the anchors into the pair's consensus, its summary)."""
+def pair_kinds_phase2(kstats, kstats_box):
+    """Phase 2 for the bonito and flip-flop kinds: the pair kernel against
+    its plain version on the five envelope cases (S = 5 / 8; their storage
+    is over the shared-memory limit, so it lives in global scratch) and on
+    two simulated pairs of ~200 bases (in shared memory, then forced into
+    global scratch); the box kernel on the anchored boxes of two ~600-base
+    pairs (plans of at most BOX_PLAIN_STEPS steps) at FEW_CTAS CTAs and at
+    the default grid. ``kstats`` / ``kstats_box``
+    hold a stats dict per kind; both sweep paths must be exercised."""
+    from poreover_tpu_torch.ops.beam2d_planned import pack_pairs
+    from poreover_tpu_torch.sim import write_pairs
+
+    for kind in ("bonito", "flipflop"):
+        model = KIND_MODEL[kind]
+        stats, stats_box = kstats[kind], kstats_box[kind]
+        cs = pallas_cases(8 if kind == "flipflop" else 5)
+        sims = sim_workloads(2, seed=3, lo=180, hi=220, kind=kind)
+        with tempfile.TemporaryDirectory() as d:
+            pairs_txt, _ = write_pairs(d, 2, seed=3, lo=550, hi=650,
+                                       kind=kind)
+            bxs = [b for r1, r2 in pair_files(pairs_txt)
+                   for b in anchored_boxes_of(d, r1, r2, kind)[0]
+                   if plan_steps(b) <= BOX_PLAIN_STEPS]
+        compare(f"{kind}: cases B=5", upload(pack_pairs(cs, model=model)),
+                stats)
+        compare(f"{kind}: sim pairs ~200 bases B=2",
+                upload(pack_pairs(sims, model=model)), stats,
+                also_global=True)
+        compare_boxes(
+            f"{kind}: box beam, the anchored boxes of two ~600-base pairs "
+            f"(plans of <= {BOX_PLAIN_STEPS} steps)", bxs, stats_box,
+            few_ctas=FEW_CTAS, model=model)
+        if not stats["narrow"] or not stats["general"]:
+            fail(f"phase 2 does not exercise both sweep paths of the pair "
+                 f"kernel for {kind}")
+        if stats["paths"] != {"shared", "global"}:
+            fail(f"phase 2 does not put {kind} storage in both shared "
+                 "memory and global scratch")
+
+
+def compare_viterbi():
+    """Phase 2: the Viterbi kernel against its plain version, both on the
+    card, on flip-flop reads of VITERBI_LENGTHS (a T = 1 read among them)
+    under both mask modes: every path equal. Returns (kernel ms, plain
+    ms) of the additive mode's run."""
+    import torch
+    from poreover_tpu_torch.models.transducer import flipflop_transition_mask
+    from poreover_tpu_torch.ops import viterbi as tv
+
+    rng = np.random.default_rng(17)
+    ys = [softmax_log(rng, T, 8) for T in VITERBI_LENGTHS]
+    lens = [len(y) for y in ys]
+    yb = np.zeros((len(ys), max(lens), 8), np.float32)
+    for i, y in enumerate(ys):
+        yb[i, :len(y)] = y
+    yb = torch.as_tensor(yb, device=DEVICE)
+    mask = flipflop_transition_mask()
+    out = None
+    for mode in ("additive", "hard"):
+        trans = tv._trans(mask, mode, torch.float32, yb.device)
+        got, t_k = timed(lambda: tv.viterbi_path_masked_batch(
+            ys, mask, mode, device=DEVICE))
+        want, t_p = timed(lambda: tv._viterbi_masked_padded(yb, lens, trans))
+        bad = [i for i, (a, b) in enumerate(zip(got, want))
+               if not np.array_equal(a, b[:lens[i]])]
+        if bad:
+            fail(f"viterbi ({mode} mask): kernel paths differ from the plain "
+                 f"version's at reads {bad}")
+        log(f"  viterbi, {mode} mask: {len(ys)} reads (lengths {lens}) paths "
+            f"equal to the plain version; kernel {t_k:.1f} ms, plain "
+            f"{t_p:.1f} ms")
+        out = out or (t_k, t_p)
+    return out
+
+
+def anchored_boxes_of(d, r1, r2, kind="poreover"):
+    """Stages 1-3 of the port in anchored mode for one pair of reads of
+    the kind ``kind``: (its boxes [(y1, y2, env)], the continuation that
+    stitches box consensi with the anchors into the pair's consensus, its
+    summary)."""
     from poreover_tpu_torch.cli import build_parser
     from poreover_tpu_torch.decoding.pair import pair_decode_helper
 
     args = build_parser().parse_args(
-        ["pair-decode", r1, r2, "--dir", d, "--basecaller", "poreover",
-         "--reverse_complement", "--skip_matches", "--skip_threshold", "10"])
+        ["pair-decode", r1, r2, "--dir", d, "--basecaller",
+         BASECALLER[kind], "--reverse_complement", "--skip_matches",
+         "--skip_threshold", "10"])
     got = []
     pair_decode_helper(args, _workload_sink=lambda *a: got.append(a))
     if not got:
         fail(f"pair {r1} {r2} was skipped before stage 4")
-    bxs, finish, summary = got[0]
+    bxs, finish, summary, _ = got[0]
 
     def stitch(seqs):
         return "".join(finish(seqs)[1].splitlines()[1:])
@@ -703,6 +888,421 @@ def decode_cli(d, inputs, basecaller, algorithm, out, device=None,
             dict(timers.seconds))
 
 
+def read_fasta(path):
+    """The sequences of a FASTA file, in order."""
+    return ["".join(r.splitlines()[1:])
+            for r in open(path).read().split(">")[1:]]
+
+
+def pair_decode_cli(d, pairs_txt, basecaller, out, extra=(), device=None,
+                    rc=True):
+    """One ``pair-decode --threads 8`` run through the CLI, with
+    ``--reverse_complement`` unless ``rc`` is false; returns (consensus
+    records, 1D records, log rows, wall seconds, the run's stage timers)."""
+    import torch
+    from poreover_tpu_torch.cli import main as cli_main
+    from poreover_tpu_torch.utils.timers import timers
+
+    out = os.path.join(d, out)
+    argv = ["pair-decode", pairs_txt, "--dir", d, "--basecaller", basecaller,
+            *(["--reverse_complement"] if rc else []), "--threads", "8",
+            "--out", out, *extra]
+    if device:
+        argv += ["--device", device]
+    t0 = time.perf_counter()
+    cli_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = [r.split("\t") for r in open(out + ".log").read().splitlines()
+            if not r.startswith("#")]
+    return (read_fasta(out + ".2d.fasta"), read_fasta(out + ".1d.fasta"),
+            rows, wall, dict(timers.seconds))
+
+
+def closer_than_1d(what, ids, ids1):
+    """The gate: every consensus at least as close to read 1's true
+    sequence as read 1's own Viterbi call."""
+    if not all(np.isfinite(ids)) or any(a < b for a, b in zip(ids, ids1)):
+        fail(f"{what}: a consensus is less close to the truth than read 1's "
+             f"Viterbi call: {ids} against {ids1}")
+
+
+def flipflop_template_control():
+    """Phase 10, flip-flop: phase 10's 8 pairs with read 2 rendered in
+    template orientation (its strand turned back before it is rendered, so
+    both traces keep the flip / flop order a basecaller gives them),
+    decoded without ``--reverse_complement``. The gate: the consensi are on
+    average at least as close to read 1's true sequence as read 1's
+    Viterbi calls. Per pair the margin is within the noise (read 2's
+    strand carries ~5% substitutions against read 1's truth; pairs of
+    ~1300 bases on the CPU: -0.011 to +0.024), so each pair is printed and
+    the mean is gated."""
+    from poreover_tpu_torch.sim import write_pairs
+
+    with tempfile.TemporaryDirectory() as d:
+        pairs_txt, truth = write_pairs(d, 8, seed=7, lo=5200, hi=8200,
+                                       kind="flipflop", complement=False)
+        cons, calls, rows, wall, _ = pair_decode_cli(d, pairs_txt, "flappie",
+                                                     "tmpl", rc=False)
+    if len(cons) != 8 or any(r[-1] != "0" for r in rows):
+        fail(f"flip-flop control: {len(cons)} records, log rows {rows}")
+    ids = [identity(c, t) for c, t in zip(cons, truth)]
+    ids1 = [identity(c, t) for c, t in zip(calls[0::2], truth)]
+    log(f"  flip-flop control, read 2 in template orientation ({wall:.2f} "
+        "s): identity to read 1's true sequence, consensus / read 1's "
+        "Viterbi call: " + " ".join(f"{a:.4f}/{b:.4f}"
+                                   for a, b in zip(ids, ids1))
+        + f"; mean {np.mean(ids):.4f}/{np.mean(ids1):.4f}")
+    if not all(np.isfinite(ids)) or np.mean(ids) < np.mean(ids1):
+        fail(f"flip-flop control: the consensi are on average less close to "
+             f"the truth than read 1's Viterbi calls: {ids} against {ids1}")
+
+
+def zero_counts():
+    """Every kernel wrapper's launch counts to 0."""
+    from poreover_tpu_torch.ops import box_beam as bb
+    from poreover_tpu_torch.ops import pair_beam_batch as pbb
+    from poreover_tpu_torch.ops import viterbi as tv
+
+    pbb.launch_count = pbb.single_launch_count = 0
+    bb.box_launch_count = 0
+    tv.launch_count = 0
+
+
+def viterbi_bound_ms(lengths, S=8) -> tuple[float, str]:
+    """Least time for the Viterbi DP of reads of ``lengths``: bytes (the
+    emissions read once, the back-pointers and the path written once) over
+    HBM bandwidth, vs T * S^2 float adds over f32 peak."""
+    T = int(sum(lengths))
+    t_bytes = (T * S * 4 + T * S + T * 4) / HBM_BPS * 1e3
+    t_ops = T * S * S / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def pair_kind_full(kind, gpu, stats, stats_box):
+    """Phase 10 for one kind (bonito or flip-flop): 8 full-size pairs
+    through ``pair-decode``, then with ``--skip_matches``; the kernels
+    timed on those waves and held to their plain versions (the box kernel
+    on pair 0's boxes in a launch with the wave's shared memory per CTA);
+    two ~300-base pairs on the card against ``--device cpu``. Returns the
+    kind's entries of the kernels line."""
+    from poreover_tpu_torch.ops import box_beam as bb
+    from poreover_tpu_torch.ops import pair_beam_batch as pbb
+    from poreover_tpu_torch.ops import viterbi as tv
+    from poreover_tpu_torch.ops.beam2d import beam_search_2d
+    from poreover_tpu_torch.ops.beam2d_planned import (
+        build_plan, pack_pairs, plan_wst,
+    )
+    from poreover_tpu_torch.sim import write_pairs
+
+    model, bc = KIND_MODEL[kind], BASECALLER[kind]
+    with tempfile.TemporaryDirectory() as d:
+        pairs_txt, truth = write_pairs(d, 8, seed=7, lo=5200, hi=8200,
+                                       kind=kind)
+        zero_counts()
+        cons, calls, rows, t_e2e, tm = pair_decode_cli(d, pairs_txt, bc,
+                                                       "full")
+        launches = pbb.launch_count
+        vit_launches = tv.launch_count
+        if len(cons) != 8 or any(r[-1] != "0" for r in rows):
+            fail(f"{kind}: expected 8 consensus records and no skips; got "
+                 f"{len(cons)} records, log rows {rows}")
+        if launches != 1:
+            fail(f"{kind}: {launches} pair-kernel launches for one wave of "
+                 "8 pairs (the CPU route counts none)")
+        want_vit = 8 if kind == "flipflop" else 0
+        if vit_launches != want_vit:
+            fail(f"{kind}: {vit_launches} Viterbi launches, expected "
+                 f"{want_vit} (one per pair)")
+        log(f"phase 10 {kind} pair-decode: 8 full-size pairs, {launches} "
+            f"pair-kernel launch, {vit_launches} Viterbi launches; "
+            f"end-to-end {t_e2e:.2f} s "
+            f"({8 / t_e2e:.2f} pairs/s); stages "
+            + " ".join(f"{k}={v:.3f}s" for k, v in tm.items()))
+        ids = [identity(c, t) for c, t in zip(cons, truth)]
+        ids1 = [identity(c, t) for c, t in zip(calls[0::2], truth)]
+        log("  identity to read 1's true sequence, consensus / read 1's "
+            "Viterbi call: " + " ".join(f"{a:.4f}/{b:.4f}"
+                                       for a, b in zip(ids, ids1)))
+        if kind == "bonito":
+            closer_than_1d(kind, ids, ids1)
+        else:
+            log("  (flip-flop: reverse-complementing a trace reverses each "
+                "homopolymer run's flip / flop order, so an even run of the "
+                "complement strand starts with a flop, which the pair "
+                "model allows only after the same base's flip: the "
+                "reference's consensus of such pairs is below read 1's "
+                f"call; the gate here is the floor {FLIPFLOP_RC_FLOOR}, "
+                "and read 1's call is held to the template-orientation "
+                "control below)")
+            if not all(np.isfinite(ids)) or min(ids) < FLIPFLOP_RC_FLOOR:
+                fail(f"{kind}: a consensus is below {FLIPFLOP_RC_FLOOR} "
+                     f"identity to read 1's true sequence: {ids}")
+        files = pair_files(pairs_txt)
+        wave = [workload_of(d, r1, r2, kind) for r1, r2 in files]
+        zero_counts()
+        anch, _, arows, t_anch, atm = pair_decode_cli(
+            d, pairs_txt, bc, "anch", ["--skip_matches", "--skip_threshold",
+                                       "10"])
+        box_launches, reroutes = bb.box_launch_count, pbb.launch_count
+        if box_launches != 1 or len(anch) != 8 or any(
+                r[-1] != "0" for r in arows):
+            fail(f"{kind} --skip_matches: {box_launches} box launches, "
+                 f"{len(anch)} records, log rows {arows}")
+        aids = [identity(a, c) for a, c in zip(anch, cons)]
+        log(f"  {kind} --skip_matches: 8 pairs, {box_launches} box launch, "
+            f"{reroutes} pair-kernel launches for boxes over the limit; "
+            f"end-to-end {t_anch:.2f} s; stages "
+            + " ".join(f"{k}={v:.3f}s" for k, v in atm.items())
+            + "; identity to the full consensus: "
+            + " ".join(f"{x:.4f}" for x in aids))
+        if not all(np.isfinite(aids)) or min(aids) < ANCHORED_FLOOR:
+            fail(f"{kind}: anchored consensus identity {min(aids)} < "
+                 f"{ANCHORED_FLOOR}")
+        anchored = [anchored_boxes_of(d, r1, r2, kind) for r1, r2 in files]
+        if kind == "flipflop":
+            from poreover_tpu_torch.io.trace import model_from_trace
+
+            reads = []
+            for r1, r2 in files:
+                m1 = model_from_trace(os.path.join(d, r1), bc)
+                m2 = model_from_trace(os.path.join(d, r2), bc)
+                m2.reverse_complement()
+                reads += [m1.log_prob.astype(np.float32),
+                          m2.log_prob.astype(np.float32)]
+
+    # ---- the pair kernel on the wave: time, bound, storage, plain version
+    prep = pbb.prepare_pairs(wave, device=DEVICE, model=model)
+    steps = prep["meta"][:, 7]
+    wave_ms = event_ms(lambda: pbb.launch_prepared(prep), reps=2)
+    wave_bound, wave_by, wave_terms = bound_ms(prep)
+    log(f"  [{gpu}] {kind} pair kernel: {wave_ms:.1f} ms per 8-pair wave, "
+        f"{wave_ms * 1e3 / steps.max():.2f} us per step of the longest plan "
+        f"(bound {wave_bound:.4f} ms, {wave_by}; "
+        f"{wave_bound * 1e3 / steps.max():.4f} us per step); storage in "
+        f"{pbb.storage_path(prep)} memory; plan steps per pair "
+        f"{steps.tolist()}")
+    log(f"  bound terms: {wave_terms}")
+    phase_breakdown(f"{kind} pair wave", pbb, lambda: pbb._launch(
+        *prep["dev"], prep["meta"], prep["W"], prep["A"],
+        model_id=prep["model_id"]))
+    plans = [build_plan(env, len(y1), len(y2)) for y1, y2, env in wave]
+
+    def truncated(pairs, pls, n):
+        return upload(pack_pairs(
+            pairs, plans=[{k: v[:n] for k, v in p.items()} for p in pls],
+            wst=[plan_wst(p) for p in pls], model=model))
+
+    short = truncated(wave, plans, PLAIN_STEPS_KINDS)
+    short_k, short_p = compare(
+        f"{kind} pair wave, first {PLAIN_STEPS_KINDS} steps", short, stats)
+    short_bound = bound_ms(short)[0]
+    # ---- the single-pair entry on pair 0
+    prep1 = pbb.prepare_pairs(wave[:1], device=DEVICE, model=model)
+    one_ms = event_ms(lambda: pbb.launch_prepared(prep1), reps=1)
+    one_bound, one_by, _ = bound_ms(prep1)
+    pbb.single_launch_count = 0
+    got = beam_search_2d(*wave[0], beam_width=5, model=model,
+                         method="row_col")
+    single_launches = pbb.single_launch_count
+    if single_launches != 1 or got != cons[0]:
+        fail(f"{kind}: the single-pair entry ({single_launches} launches) "
+             "differs from pair-decode's consensus of pair 0")
+    stats_single = {"max_abs_err": 0.0}
+    short1 = truncated(wave[:1], plans[:1], PLAIN_STEPS_SINGLE)
+    short1_k, short1_p = compare(
+        f"{kind} pair 0 alone, first {PLAIN_STEPS_SINGLE} steps", short1,
+        stats_single)
+    log(f"  {kind} single-pair entry: pair 0 equal to pair-decode's "
+        f"consensus, {single_launches} launch; kernel {one_ms:.1f} ms "
+        f"alone (bound {one_bound:.4f} ms, {one_by})")
+    # ---- the box kernel on the anchored wave
+    all_boxes = [b for bxs, _, _ in anchored for b in bxs]
+    bprep = bb.prepare_boxes(all_boxes, device=DEVICE, model=model)
+    box_ms = event_ms(lambda: bb.launch_boxes(bprep), reps=3)
+    box_bound, box_by, box_terms = bound_ms(bprep, out_bytes=4)
+    bsteps = bprep["meta"][:, 7]
+    log(f"  [{gpu}] {kind} box kernel: {box_ms:.1f} ms per 8-pair anchored "
+        f"wave: {len(all_boxes)} boxes ({len(bprep['overflow'])} over the "
+        f"storage limit), {int(bsteps.sum())} plan steps (longest box "
+        f"{int(bsteps.max())}), grid {bprep['info']['grid']} CTAs x "
+        f"{bprep['info']['smem_bytes']} B storage; "
+        f"{box_ms * 1e3 / bsteps.max():.2f} us per step of the longest box; "
+        f"bound {box_bound:.4f} ms ({box_by})")
+    phase_breakdown(f"{kind} anchored wave", bb, lambda: bb.box_beam_cuda(
+        *bprep["dev"], bprep["meta"], bprep["W"], bprep["A"],
+        model_id=bprep["model_id"]))
+    # pair 0's boxes through the kernels (the box kernel, the pair kernel
+    # for boxes over its limit), stitched: the consensus the CLI wrote
+    bxs0, stitch0, _ = anchored[0]
+    seqs0, over0 = bb.box_beam(bxs0, device=DEVICE, model=model)
+    for i, sq in zip(over0, pbb.pair_beam_batch(
+            [bxs0[i] for i in over0], device=DEVICE, model=model)):
+        seqs0[i] = sq
+    if stitch0(seqs0) != anch[0]:
+        fail(f"{kind} pair 0: the stitched box strings differ from the "
+             "consensus pair-decode --skip_matches wrote")
+    log(f"  {kind} pair 0: its {len(bxs0)} boxes through the kernels "
+        f"({len(over0)} over the box kernel's limit), stitched: the "
+        "consensus pair-decode --skip_matches wrote")
+    # the box kernel against its plain version on pair 0's boxes with plans
+    # of <= BOX_PLAIN_STEPS steps and the wave's widest box cut to its first
+    # BOX_PLAIN_STEPS steps (its storage width kept), so that the launch
+    # takes the wave's shared memory per CTA
+    need = bb.storage_bytes((bprep["meta"][:, bb.M_WST0],
+                             bprep["meta"][:, bb.M_WST1]), bprep["W"],
+                            bprep["A"], bprep["model_id"])
+    widest = all_boxes[bprep["order"][int(np.argmax(need))]]
+    cut = bb.prepare_box(*widest, model=model)
+    cut["plan"] = {k: v[:BOX_PLAIN_STEPS] for k, v in cut["plan"].items()}
+    cut["n"] = len(cut["plan"]["type"])
+    short0 = [b for b in bxs0 if plan_steps(b) <= BOX_PLAIN_STEPS]
+    _, box0_k, box0_p, prep0 = compare_boxes(
+        f"{kind}: box beam, pair 0's {len(short0)} boxes with plans of <= "
+        f"{BOX_PLAIN_STEPS} steps and the wave's widest box ({cut['n']} of "
+        f"its {plan_steps(widest)} steps)", short0 + [widest], stats_box,
+        model=model, prepared=[bb.prepare_box(*b, model=model)
+                               for b in short0] + [cut])
+    if prep0["info"]["smem_bytes"] != bprep["info"]["smem_bytes"]:
+        fail(f"{kind}: the compared launch takes {prep0['info']['smem_bytes']}"
+             f" B per CTA, the wave {bprep['info']['smem_bytes']} B")
+    box0_bound = bound_ms(prep0, out_bytes=4)[0]
+    del prep, prep1, short, short1, bprep, prep0
+    # ---- small pairs on the card against --device cpu
+    with tempfile.TemporaryDirectory() as d:
+        pairs_txt, _ = write_pairs(d, 2, seed=5, lo=280, hi=320, kind=kind)
+        on_card = pair_decode_cli(d, pairs_txt, bc, "card")
+        on_cpu = pair_decode_cli(d, pairs_txt, bc, "cpu", device="cpu")
+        for suf in (".1d.fasta", ".2d.fasta"):
+            a = open(os.path.join(d, "card" + suf), "rb").read()
+            b = open(os.path.join(d, "cpu" + suf), "rb").read()
+            if a != b or len(on_card[0]) != 2:
+                fail(f"{kind}: the card's {suf} differs from --device cpu")
+        log(f"  {kind}: 2 pairs of ~300 bases byte-identical to --device cpu "
+            f"(.1d.fasta, .2d.fasta); card {on_card[3]:.2f} s, cpu "
+            f"{on_cpu[3]:.2f} s")
+    tag = f" ({model})"
+    out = [{
+        "name": "pair_beam_batch" + tag, "kinds": [model], "route": "cuda",
+        "source": "poreover_tpu_torch/csrc/pair_beam_batch.cu",
+        "replaces": "poreover_tpu/ops/pallas_pair_beam_batch.py:1169",
+        "launches": launches, "max_abs_err": stats["max_abs_err"],
+        "ms": wave_ms, "plain_ms": short_p, "bound_ms": wave_bound,
+        "us_per_step": wave_ms * 1e3 / int(steps.max()),
+        "bound_by": wave_by, "library_ms": None,
+        "plain_input": f"pair wave, first {PLAIN_STEPS_KINDS} plan steps per "
+                       "pair",
+        "ms_on_plain_input": short_k, "bound_ms_on_plain_input": short_bound,
+    }, {
+        "name": "pair_beam_single" + tag, "kinds": [model], "route": "cuda",
+        "source": "poreover_tpu_torch/csrc/pair_beam_batch.cu",
+        "replaces": "poreover_tpu/ops/pallas_pair_beam.py:636",
+        "launches": single_launches,
+        "max_abs_err": stats_single["max_abs_err"],
+        "ms": one_ms, "plain_ms": short1_p, "bound_ms": one_bound,
+        "us_per_step": one_ms * 1e3 / int(steps[0]),
+        "bound_by": one_by, "library_ms": None,
+        "plain_input": f"pair 0, first {PLAIN_STEPS_SINGLE} plan steps",
+        "ms_on_plain_input": short1_k,
+    }, {
+        "name": "box_beam" + tag, "kinds": [model], "route": "cuda",
+        "source": "poreover_tpu_torch/csrc/box_beam.cu",
+        "replaces": "poreover_tpu/ops/pallas_box_beam.py:1007",
+        "launches": box_launches, "max_abs_err": stats_box["max_abs_err"],
+        "ms": box_ms, "plain_ms": box0_p, "bound_ms": box_bound,
+        "us_per_step": box_ms * 1e3 / int(bsteps.max()),
+        "bound_by": box_by, "library_ms": None,
+        "plain_input": f"pair 0's boxes of the anchored wave with plans of "
+                       f"<= {BOX_PLAIN_STEPS} steps, and the wave's widest "
+                       f"box cut to {BOX_PLAIN_STEPS} steps",
+        "ms_on_plain_input": box0_k, "bound_ms_on_plain_input": box0_bound,
+    }]
+    if kind == "flipflop":
+        flipflop_template_control()
+        out.append(flipflop_stage1(reads, vit_launches, gpu))
+    return out
+
+
+def flipflop_stage1(reads, launches, gpu):
+    """Flip-flop stage 1 at full size: the Viterbi kernel per pair (both
+    reads in one launch, as pair-decode calls it) and on all 16 reads of
+    the wave in one launch, then the kernel and the old loop (the plain
+    version, on the card) on read 1 of pair 0. Returns the kernels-line
+    entry."""
+    import torch
+    from poreover_tpu_torch.models.transducer import flipflop_transition_mask
+    from poreover_tpu_torch.ops import viterbi as tv
+
+    mask = flipflop_transition_mask()
+    per_pair = [event_ms(lambda: tv.viterbi_path_masked_batch(
+        reads[i:i + 2], mask, device=DEVICE), reps=1)
+        for i in range(0, len(reads), 2)]
+    all_ms = event_ms(lambda: tv.viterbi_path_masked_batch(
+        reads, mask, device=DEVICE), reps=1)
+    y0 = reads[0]
+    one_ms = event_ms(lambda: tv.viterbi_path_masked(y0, mask,
+                                                     device=DEVICE), reps=3)
+    y_d = torch.as_tensor(y0, device=DEVICE)[None]
+    trans = tv._trans(mask, "additive", torch.float32, y_d.device)
+    want, plain_ms = timed(lambda: tv._viterbi_masked_padded(
+        y_d, [len(y0)], trans))
+    got = tv.viterbi_path_masked(y0, mask, device=DEVICE)
+    if not np.array_equal(got, want[0]):
+        fail("flip-flop stage 1: the kernel's path of read 1 of pair 0 "
+             "differs from the old loop's")
+    bound, by = viterbi_bound_ms([len(y0)])
+    lens = [len(y) for y in reads]
+    log(f"  [{gpu}] flip-flop stage 1 (viterbi_dp): per pair launch (2 "
+        f"reads) " + " ".join(f"{x:.2f}" for x in per_pair) + " ms; all 16 "
+        f"reads in one launch {all_ms:.2f} ms; read 1 of pair 0 "
+        f"({len(y0)} steps): kernel {one_ms:.2f} ms "
+        f"({one_ms * 1e3 / len(y0):.3f} us per step, bound {bound:.4f} ms, "
+        f"{by}), the old loop {plain_ms:.1f} ms, path equal; reads "
+        f"{min(lens)}-{max(lens)} steps")
+    return {
+        "name": "viterbi", "kinds": ["ctc_flipflop"], "route": "cuda",
+        "source": "poreover_tpu_torch/csrc/viterbi.cu",
+        "replaces": "poreover_tpu/ops/viterbi.py:27 (a lax.scan, not a "
+                    "Pallas kernel)",
+        "launches": launches, "max_abs_err": 0.0, "ms": one_ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": None, "ms_per_pair": per_pair,
+        "plain_input": "read 1 of pair 0 of the flip-flop wave, as for ms",
+    }
+
+
+def mixed_pairs_file():
+    """Phase 11: a pairs file under ``--basecaller poreover`` holding one
+    CTC ``.npy`` pair and one 8-column CSV (flip-flop) pair, ~600 bases:
+    both decode, one pair-kernel launch per kind, and each pair's
+    consensus equals its own kind's run."""
+    from poreover_tpu_torch.ops import pair_beam_batch as pbb
+    from poreover_tpu_torch.sim import write_pairs
+
+    with tempfile.TemporaryDirectory() as d:
+        p, _ = write_pairs(d, 1, seed=21, lo=550, hi=650)
+        lines = open(p).read()
+        p, _ = write_pairs(d, 1, seed=22, lo=550, hi=650, kind="flipflop")
+        lines += open(p).read()
+        mixed = os.path.join(d, "mixed.txt")
+        with open(mixed, "w") as f:
+            f.write(lines)
+        zero_counts()
+        cons, _, rows, wall, _ = pair_decode_cli(d, mixed, "poreover", "mix")
+        launches = pbb.launch_count
+        alone = pair_decode_cli(d, p, "flappie", "ff")[0]
+    if len(cons) != 2 or any(r[-1] != "0" for r in rows) or launches != 2:
+        fail(f"mixed pairs file: {len(cons)} records, {launches} "
+             f"pair-kernel launches, log rows {rows}")
+    if cons[1] != alone[0]:
+        fail("mixed pairs file: the flip-flop pair's consensus differs from "
+             "its run under --basecaller flappie")
+    log(f"phase 11 mixed pairs file (--basecaller poreover): a CTC pair and "
+        f"a flip-flop CSV pair both decoded, {launches} pair-kernel "
+        f"launches (one per kind), {wall:.2f} s; the flip-flop pair's "
+        "consensus equals its own run's")
+
+
 def build_all():
     """Phase 1: the host runtime, the three kernels and the instrumented
     builds of all three, one compiler process each, in parallel; prints
@@ -711,6 +1311,7 @@ def build_all():
     from poreover_tpu_torch.ops import beam1d
     from poreover_tpu_torch.ops import box_beam as bb
     from poreover_tpu_torch.ops import pair_beam_batch as pbb
+    from poreover_tpu_torch.ops import viterbi as tv
 
     t0 = time.perf_counter()
     errs = []
@@ -723,7 +1324,8 @@ def build_all():
 
     ths = [threading.Thread(target=run, args=(f,))
            for f in (native.load, pbb.load_kernel, beam1d.load_kernel,
-                     bb.load_kernel, lambda: pbb.load_kernel(True),
+                     bb.load_kernel, tv.load_kernel,
+                     lambda: pbb.load_kernel(True),
                      lambda: bb.load_kernel(True),
                      lambda: beam1d.load_kernel(True))]
     for th in ths:
@@ -733,7 +1335,7 @@ def build_all():
     if errs:
         fail(f"build: {errs[0]}")
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s")
-    for kernel in ("pair_beam_batch", "beam1d", "box_beam"):
+    for kernel in ("pair_beam_batch", "beam1d", "box_beam", "viterbi"):
         for line in build.ptxas_report(kernel):
             log(f"  ptxas {kernel}: {line}")
 
@@ -767,10 +1369,12 @@ def main():
     stats = {"max_abs_err": 0.0}
     cs = pallas_cases()
     batches = [(f"case{i}", [c]) for i, c in enumerate(cs)]
+    real = boxes()
     batches += [("cases B=4", cs[:4]), ("cases B=8", (cs * 2)[:8]),
-                ("boxes B=24", boxes()),
-                ("sim pairs ~600 bases B=2",
-                 sim_workloads(2, seed=3, lo=550, hi=650))]
+                (f"boxes.npz, the {len(real)} with plans of <= "
+                 f"{REAL_BOX_STEPS} steps", real),
+                ("sim pairs ~300 bases B=2",
+                 sim_workloads(2, seed=3, lo=280, hi=320))]
     for name, batch in batches:
         compare(name, upload(pack_pairs(batch)), stats)
     log(f"  pair kernel sweeps in phase 2: {stats['narrow']} on the narrow "
@@ -786,14 +1390,18 @@ def main():
     if len(stats1d["hash_bits"]) < 2:
         fail("phase 2 does not exercise more than one 1D hash size")
     stats_box = {"max_abs_err": 0.0}
-    _, _, _, prep24 = compare_boxes("box beam, boxes.npz", boxes(),
+    _, _, _, prep24 = compare_boxes("box beam, boxes.npz", real,
                                     stats_box, few_ctas=FEW_CTAS)
     if not prep24["overflow"]:
         fail("no box of boxes.npz is over the storage limit: the reroute "
              "is not exercised")
     log(f"  the boxes over the limit {prep24['overflow']} went through the "
-        "pair kernel in 'boxes B=24' above, equal to their plain version")
+        "pair kernel in 'boxes.npz' above, equal to their plain version")
     del prep24
+    kstats = {k: {"max_abs_err": 0.0} for k in ("bonito", "flipflop")}
+    kstats_box = {k: {"max_abs_err": 0.0} for k in ("bonito", "flipflop")}
+    pair_kinds_phase2(kstats, kstats_box)
+    compare_viterbi()
     log(f"phase 2 done: {time.perf_counter() - t_start:.0f} s elapsed")
 
     # ---- phase 3: pair-decode at full size, through the CLI
@@ -804,7 +1412,7 @@ def main():
     from poreover_tpu_torch.utils.timers import timers
 
     with tempfile.TemporaryDirectory() as d:
-        pairs_txt = write_pairs(d, 8, seed=7, lo=5200, hi=8200)
+        pairs_txt, _ = write_pairs(d, 8, seed=7, lo=5200, hi=8200)
         out = os.path.join(d, "out")
         pbb.launch_count = 0
         t0 = time.perf_counter()
@@ -1004,16 +1612,24 @@ def main():
     # ---- phase 7: timing of the 1D kernel on phase 6's wave
     prep, b4_ms, b4_us, b4_bound, b4_by = beam1d_timing(wave1d, gpu)
     log(f"  decode end to end {32 / dec_wall:.2f} reads/s")
-    # the plain version on the whole wave, every step of every read: slow
-    # (hundreds of small launches per step), but nothing shorter holds the
-    # kernel to it at the main path's lengths
-    full1d, _, b4_plain_ms = compare_beam1d("decode wave, all steps", prep,
-                                            stats1d)
+    # the plain version is slow (hundreds of small launches per step, ~2
+    # ms per step of the wave): it holds the kernel on each read's first
+    # BEAM1D_PLAIN_STEPS steps, every step of each; the kernel's strings of
+    # the whole wave are the ones decode wrote
+    short1d = beam1d.prepare_beam1d([y[:BEAM1D_PLAIN_STEPS] for y in wave1d],
+                                    beam_width=25, device=DEVICE)
+    _, b4_short_k, b4_plain_ms = compare_beam1d(
+        f"decode wave, first {BEAM1D_PLAIN_STEPS} steps per read", short1d,
+        stats1d)
+    b4_short_bound = beam1d_bound_ms(short1d)[0]
+    del short1d
+    full1d = beam1d.fetch_beam1d(prep, beam1d.launch_beam1d(prep))
     for i, got in enumerate(full1d):
         if recs[f"r{i}"] != got:
-            fail(f"decode's FASTA record r{i} differs from the kernel's and "
-                 "the plain version's string")
-    log("  the 32 strings equal the records decode wrote")
+            fail(f"decode's FASTA record r{i} differs from the kernel's "
+                 "string")
+    log("  the kernel's 32 strings of the whole wave equal the records "
+        "decode wrote")
     b4_waves = beam1d_larger_waves(wave1d, prep)
 
     del wave1d, prep
@@ -1021,7 +1637,7 @@ def main():
 
     # ---- phase 8: anchored pair-decode at full size, through the CLI
     with tempfile.TemporaryDirectory() as d:
-        pairs_txt = write_pairs(d, 8, seed=7, lo=5200, hi=8200)
+        pairs_txt, _ = write_pairs(d, 8, seed=7, lo=5200, hi=8200)
         anch = [anchored_boxes_of(d, f"s{i}_1.npy", f"s{i}_2.npy")
                 for i in range(8)]
         log("phase 8 anchored pair-decode (--skip_matches --skip_threshold "
@@ -1078,11 +1694,16 @@ def main():
         f"{ident:.6f}")
     if not np.isfinite(ident) or ident < 0.999:
         fail(f"pair 0 anchored identity {ident} to the f64 oracle < 0.999")
-    seqs0, box0_k, box0_p, prep0 = compare_boxes(
-        "box beam, all boxes of pair 0", bxs0, stats_box)
-    if stitch0(seqs0) != cons_anch[0]:
+    short0 = [b for b in bxs0 if plan_steps(b) <= BOX_PLAIN_STEPS]
+    _, box0_k, box0_p, prep0 = compare_boxes(
+        f"box beam, pair 0's {len(short0)} boxes with plans of <= "
+        f"{BOX_PLAIN_STEPS} steps", short0, stats_box)
+    seqs0, over0 = bb.box_beam(bxs0, device=DEVICE)
+    if over0 or stitch0(seqs0) != cons_anch[0]:
         fail("pair 0: the stitched box strings differ from the consensus "
              "pair-decode --skip_matches wrote")
+    log(f"  pair 0: its {len(bxs0)} boxes through the box kernel, "
+        "stitched: the consensus pair-decode --skip_matches wrote")
     box0_bound = bound_ms(prep0, out_bytes=4)[0]
     del prep0
 
@@ -1121,9 +1742,21 @@ def main():
     else:
         log("  no box of this wave is over the storage limit")
     del prep, as_pairs, anch, all_boxes, in_kernel
+    log(f"phase 9 done: {time.perf_counter() - t_start:.0f} s elapsed")
+
+    # ---- phase 10: pair-decode for bonito and flip-flop at full size
+    kind_entries = []
+    for kind in ("bonito", "flipflop"):
+        kind_entries += pair_kind_full(kind, gpu, kstats[kind],
+                                       kstats_box[kind])
+        log(f"phase 10 {kind} done: {time.perf_counter() - t_start:.0f} s "
+            "elapsed")
+
+    # ---- phase 11: a pairs file of mixed kinds
+    mixed_pairs_file()
 
     kernels = [{
-        "name": "pair_beam_batch", "route": "cuda",
+        "name": "pair_beam_batch", "kinds": ["ctc"], "route": "cuda",
         "source": "poreover_tpu_torch/csrc/pair_beam_batch.cu",
         "replaces": "poreover_tpu/ops/pallas_pair_beam_batch.py:1169",
         "launches": launches, "max_abs_err": stats["max_abs_err"],
@@ -1133,7 +1766,7 @@ def main():
         "plain_input": f"pair wave, first {PLAIN_STEPS} plan steps per pair",
         "ms_on_plain_input": short_k, "bound_ms_on_plain_input": short_bound,
     }, {
-        "name": "pair_beam_single", "route": "cuda",
+        "name": "pair_beam_single", "kinds": ["ctc"], "route": "cuda",
         "source": "poreover_tpu_torch/csrc/pair_beam_batch.cu",
         "replaces": "poreover_tpu/ops/pallas_pair_beam.py:636",
         "launches": single_launches,
@@ -1145,7 +1778,8 @@ def main():
         "ms_on_plain_input": short1_k,
         "bound_ms_on_plain_input": short1_bound,
     }, {
-        "name": "beam1d", "route": "cuda",
+        "name": "beam1d",
+        "kinds": ["ctc", "ctc_merge_repeats", "ctc_flipflop"], "route": "cuda",
         "source": "poreover_tpu_torch/csrc/beam1d.cu",
         "replaces": "poreover_tpu/ops/pallas_beam1d.py:374",
         "launches": dec_launches, "max_abs_err": stats1d["max_abs_err"],
@@ -1154,18 +1788,22 @@ def main():
         "ms_by_wave": {str(B): v[0] for B, v in b4_waves.items()},
         "hash_bits_by_wave": {str(B): v[1] for B, v in b4_waves.items()},
         "bound_by": b4_by, "library_ms": None,
-        "plain_input": "the whole decode wave, as for ms",
+        "plain_input": f"the decode wave, first {BEAM1D_PLAIN_STEPS} steps "
+                       "per read",
+        "ms_on_plain_input": b4_short_k,
+        "bound_ms_on_plain_input": b4_short_bound,
     }, {
-        "name": "box_beam", "route": "cuda",
+        "name": "box_beam", "kinds": ["ctc"], "route": "cuda",
         "source": "poreover_tpu_torch/csrc/box_beam.cu",
         "replaces": "poreover_tpu/ops/pallas_box_beam.py:1007",
         "launches": box_launches, "max_abs_err": stats_box["max_abs_err"],
         "ms": box_ms, "plain_ms": box0_p, "bound_ms": box_bound,
         "us_per_step": box_ms * 1e3 / box_steps,
         "bound_by": box_by, "library_ms": None,
-        "plain_input": "all boxes of pair 0 of the anchored wave",
+        "plain_input": f"pair 0's boxes of the anchored wave with plans of "
+                       f"<= {BOX_PLAIN_STEPS} steps",
         "ms_on_plain_input": box0_k, "bound_ms_on_plain_input": box0_bound,
-    }]
+    }] + kind_entries
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"ok": True, "device": {

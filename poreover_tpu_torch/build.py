@@ -6,9 +6,9 @@ Two libraries, both loaded with ctypes through a plain C interface:
   ``g++`` (see ``native.py``);
 - the CUDA kernels, one library per ``poreover_tpu_torch/csrc/*.cu``, with
   ``nvcc`` for ``sm_90a`` (``build_kernel``; see ``ops/pair_beam_batch.py``,
-  ``ops/box_beam.py`` and ``ops/beam1d.py``). They share the headers
-  ``csrc/*.cuh`` (``common.cuh``; ``pair_search.cuh``, the search both pair
-  kernels run).
+  ``ops/box_beam.py``, ``ops/beam1d.py`` and ``ops/viterbi.py``). They
+  share the headers ``csrc/*.cuh`` (``common.cuh``; ``pair_search.cuh``,
+  the search both pair kernels run).
 
 Outputs go to ``poreover_tpu_torch/_build/`` (listed in ``.gitignore``),
 named by a hash of the sources and flags, so an edited source is rebuilt
@@ -93,12 +93,14 @@ def build_kernel(name: str, defines: tuple[str, ...] = ()) -> Path:
 
 
 def ptxas_report(name: str) -> list[str]:
-    """The register / shared memory / spill lines ptxas printed when
-    ``csrc/<name>.cu`` was built (the newest log of that kernel in
-    ``_build/``)."""
+    """The entry function / register / shared memory / spill lines ptxas
+    printed when ``csrc/<name>.cu`` was built (the newest log of that
+    kernel in ``_build/``); each kernel's (template instance's) lines
+    follow its mangled name."""
     logs = sorted(BUILD_DIR.glob(f"lib{name}-*.log"),
                   key=lambda p: p.stat().st_mtime)
     if not logs:
         return []
     return [ln.strip() for ln in logs[-1].read_text().splitlines()
-            if "registers" in ln or "spill" in ln]
+            if "registers" in ln or "spill" in ln
+            or "Compiling entry function" in ln]

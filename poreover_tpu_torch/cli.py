@@ -219,9 +219,6 @@ _PAIR_UNPORTED = [
     ("--f64", lambda a: a.f64, "A11"),
     ("--beam_search_method row|grid",
      lambda a: a.beam_search_method != "row_col", "A13"),
-    ("--basecaller bonito", lambda a: a.basecaller == "bonito", "A2b"),
-    ("--basecaller flappie|guppy",
-     lambda a: a.basecaller in ("flappie", "guppy"), "A2b"),
 ]
 
 

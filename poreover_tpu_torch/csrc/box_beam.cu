@@ -1,6 +1,7 @@
-// Segmented box-batch pair-consensus beam search (plain CTC), CUDA for
-// sm_90a: many small anchor boxes per launch, several back to back in each
-// CTA.
+// Segmented box-batch pair-consensus beam search, CUDA for sm_90a: many
+// small anchor boxes of one model kind per launch (one template instance
+// per kind: ctc, ctc_merge_repeats, ctc_flipflop), several back to back in
+// each CTA.
 //
 // Replaces the Pallas TPU kernel poreover_tpu/ops/pallas_box_beam.py
 // (_build_kernel / _step_body, launched by _run_kernel). It computes, per
@@ -17,7 +18,8 @@
 // reset between boxes), writes its provenance and final pick at the box's
 // own offsets, and takes the next. A box's result does not depend on which
 // CTA ran it or on what ran before. Each candidate's windowed storage and
-// frozen parent copies, 16*C*(Wst0+Wst1) bytes per box, live in dynamic
+// frozen parent copies, 16*K*C*(Wst0+Wst1) bytes per box (K state
+// components: 1 for ctc, 2 for the other kinds), live in dynamic
 // shared memory beside the search's 7.6 KB of static shared memory: that
 // is the static storage budget (STORAGE_LIMIT_BYTES, sized so that at
 // least two CTAs share an SM; __launch_bounds__ keeps the registers of
@@ -33,9 +35,9 @@
 // work.
 //
 // Interface (plain C, loaded with ctypes; see ops/box_beam.py): planes,
-// plan and meta as for pair_beam_batch.cu (meta's scratch column unused);
-// queue int32 [1], zero on entry; outputs prov int8 [sum N, W] and pick
-// int32 [nbox].
+// plan, meta and model as for pair_beam_batch.cu (meta's scratch column
+// unused); queue int32 [1], zero on entry; outputs prov int8 [sum N, W] and
+// pick int32 [nbox].
 
 #include "pair_search.cuh"
 
@@ -44,13 +46,14 @@ namespace {
 using namespace poreover::pair_search;
 
 // storage a box may need (dynamic shared memory beside the static
-// Shared, 7.6 KB): the most at which two CTAs, each with 1 KB the system
-// reserves, still share an SM's 228 KB
+// Shared, 7.6 KB, the same in every kind's instance): the most at which two
+// CTAs, each with 1 KB the system reserves, still share an SM's 228 KB
 constexpr int STORAGE_LIMIT_BYTES = 105 * 1024;
 static_assert(2 * (STORAGE_LIMIT_BYTES + sizeof(Shared) + 16 + 1024) <=
                   228 * 1024,
               "two CTAs per SM at the storage limit");
 
+template <int MODEL>
 __global__ void __launch_bounds__(NT, 2)
 box_beam_kernel(const float* __restrict__ planes1,
                 const float* __restrict__ planes2,
@@ -71,7 +74,7 @@ box_beam_kernel(const float* __restrict__ planes1,
     if (box >= nbox) break;
     const long long* m = meta + (long long)box * META_COLS;
     const Problem pr = load_problem(planes1, planes2, plan, m);
-    const Row r = run_search(sh, pr, W, store, prov + m[M_PLAN] * W);
+    const Row r = run_search<MODEL>(sh, pr, W, store, prov + m[M_PLAN] * W);
 
     // ---- final pick: arg-max of the deduplicated table, lowest slot
     if (warp == 0) {
@@ -86,44 +89,71 @@ box_beam_kernel(const float* __restrict__ planes1,
   }
 }
 
+template <int MODEL>
+cudaError_t launch(const float* planes1, const float* planes2,
+                   const int* plan, const long long* meta, int nbox, int W,
+                   int smem_bytes, int max_ctas, int* queue,
+                   signed char* prov, int* pick, int* grid_out,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      box_beam_kernel<MODEL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      STORAGE_LIMIT_BYTES);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, box_beam_kernel<MODEL>, NT, (size_t)smem_bytes)) !=
+      cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  int grid = min(nbox, sms * per_sm);
+  if (max_ctas > 0) grid = min(grid, max_ctas);
+  box_beam_kernel<MODEL><<<grid, NT, (size_t)smem_bytes, stream>>>(
+      planes1, planes2, plan, meta, nbox, W, queue, prov, pick);
+  *grid_out = grid;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int box_beam_storage_limit() { return STORAGE_LIMIT_BYTES; }
 
-// Launches the kernel on `stream` with `smem_bytes` of storage per CTA (the
-// largest box's need) and at most `max_ctas` CTAs (0: as many as the card
-// holds at once); writes the grid it used to *grid_out. Returns a
-// cudaError_t (cudaErrorInvalidValue for storage over the limit).
+// Launches the instance of kind `model` on `stream` with `smem_bytes` of
+// storage per CTA (the largest box's need) and at most `max_ctas` CTAs (0:
+// as many as the card holds at once); writes the grid it used to
+// *grid_out. Returns a cudaError_t (cudaErrorInvalidValue for an unknown
+// kind or storage over the limit).
 int box_beam_launch(const float* planes1, const float* planes2,
                     const int* plan, const long long* meta, int nbox, int W,
-                    int smem_bytes, int max_ctas, int* queue,
+                    int model, int smem_bytes, int max_ctas, int* queue,
                     signed char* prov, int* pick, int* grid_out,
                     void* stream) {
   *grid_out = 0;
   if (nbox <= 0) return 0;
   if (smem_bytes < 0 || smem_bytes > STORAGE_LIMIT_BYTES)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      box_beam_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      STORAGE_LIMIT_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, box_beam_kernel, NT, (size_t)smem_bytes)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  int grid = min(nbox, sms * per_sm);
-  if (max_ctas > 0) grid = min(grid, max_ctas);
-  box_beam_kernel<<<grid, NT, (size_t)smem_bytes, (cudaStream_t)stream>>>(
-      planes1, planes2, plan, meta, nbox, W, queue, prov, pick);
-  *grid_out = grid;
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (model) {
+    case 0:
+      return (int)launch<0>(planes1, planes2, plan, meta, nbox, W,
+                            smem_bytes, max_ctas, queue, prov, pick,
+                            grid_out, st);
+    case 1:
+      return (int)launch<1>(planes1, planes2, plan, meta, nbox, W,
+                            smem_bytes, max_ctas, queue, prov, pick,
+                            grid_out, st);
+    case 2:
+      return (int)launch<2>(planes1, planes2, plan, meta, nbox, W,
+                            smem_bytes, max_ctas, queue, prov, pick,
+                            grid_out, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

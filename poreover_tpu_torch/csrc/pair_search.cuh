@@ -4,10 +4,19 @@
 // boxes per CTA, storage in shared memory). Header only; part of both kernels' build hash.
 //
 // Computes what the plan-driven engine
-// poreover_tpu/ops/beam2d_planned.py:_planned_scan computes for model "ctc"
-// in float32 -- and what the port's plain PyTorch version
+// poreover_tpu/ops/beam2d_planned.py:_planned_scan computes in float32 for
+// its three model kinds -- and what the port's plain PyTorch version
 // ops/beam2d_planned.py:planned_scan computes, op for op, so kernel and
-// plain version agree bit for bit on the card.
+// plain version agree bit for bit on the card. run_search is a template
+// over the kind (MODEL: 0 ctc, 1 ctc_merge_repeats for bonito, 2
+// ctc_flipflop); each kernel instantiates all three. The ctc instance keeps
+// one state value per storage column; the other two keep two (bonito: gap
+// and no gap; flip-flop: flip and flop) and run two stay chains per row:
+// bonito's no-gap chain feeds its total chain, flip-flop's two are
+// independent. Their chains' weights are the emission of the row's own
+// character, so the float64 prefix sums of the weights are taken per
+// character: once per column for a narrow sweep (all A or 2A of them),
+// once per row for a general one.
 //
 // What bounds a step: latency. It is a chain of small dependent phases, so
 // the design cuts the chain's barriers and its serial and wasted work:
@@ -41,9 +50,10 @@
 //   CPL columns per lane in flight.
 //
 // Each candidate's windowed per-read storage ("sweep") and its frozen
-// parent copy ("psweep"), [C, Wst] float32 per read, live in the caller's
-// `store` (4*C*(Wst0+Wst1) floats, double-buffered, so a MAIN step's
-// permutation is one gather pass). No fast math: expf / log1pf stay IEEE;
+// parent copy ("psweep"), [K, C, Wst] float32 per read (K state components,
+// component k of row i at k*C*Wst + i*Wst), live in the caller's `store`
+// (4*K*C*(Wst0+Wst1) floats, double-buffered, so a MAIN step's permutation
+// is one gather pass). No fast math: expf / log1pf stay IEEE;
 // no TF32 or bf16 touches a log-prob. log(0) is -inf and lse(-inf, -inf)
 // is -inf.
 //
@@ -138,9 +148,10 @@ struct Shared {
   WarpScratch ws[NWARP];
 };
 
-// One search problem: two reads' planes ([A+2, T+1] float32: rows 0..3
-// emissions, 4 gap, 5 the root's value at t-1), its plan ([N, 5] int32:
-// type, a_lo, a_hi, b_lo, b_hi) and its storage widths.
+// One search problem: two reads' planes ([R, T+1] float32; ctc: rows 0..3
+// emissions, 4 gap, 5 the root's value at t-1; bonito: rows 0..3
+// emissions, 4 gap; flip-flop: rows 0..3 flips, 4..7 flops), its plan
+// ([N, 5] int32: type, a_lo, a_hi, b_lo, b_hi) and its storage widths.
 struct Problem {
   int T[2], Lp[2], Wst[2];
   const float* y[2];
@@ -302,6 +313,34 @@ struct Narrow {
   float em[A], root_t, cw;
 };
 
+// Inclusive lse scans of N values per lane over each segment of Sg lanes
+// (position p), interleaved level by level so that their latencies
+// overlap: the odd/even tree of jax.lax.associative_scan for a segment of
+// length Sg (up-sweep: position 2js+2s-1 takes 2js+s-1; down-sweep:
+// (2i+1)st-1 takes 2i*st-1, i >= 1). By prefix consistency its first n
+// values are those of the same tree over any n or more elements.
+template <int N>
+__device__ __forceinline__ void seg_scan(float (&v)[N], int p, int Sg) {
+  for (int s = 1; s < Sg; s <<= 1) {
+    float w[N];
+#pragma unroll
+    for (int u = 0; u < N; ++u) w[u] = __shfl_up_sync(FULL, v[u], s);
+    if (((p + 1) & (2 * s - 1)) == 0) {
+#pragma unroll
+      for (int u = 0; u < N; ++u) v[u] = lse(w[u], v[u]);
+    }
+  }
+  for (int st = Sg >> 2; st >= 1; st >>= 1) {
+    float w[N];
+#pragma unroll
+    for (int u = 0; u < N; ++u) w[u] = __shfl_up_sync(FULL, v[u], st);
+    if (((p + 1) & (2 * st - 1)) == st && p + 1 >= 3 * st) {
+#pragma unroll
+      for (int u = 0; u < N; ++u) v[u] = lse(w[u], v[u]);
+    }
+  }
+}
+
 // One round of the narrow path: each lane segment sweeps R of the layer's
 // nr ready rows, `rows[q]` for q = q0 + u*nslots + slot, u < R ((row,
 // pslot, chr + 4 if a root, poff) in slot order), the R rows' trees
@@ -339,30 +378,8 @@ __device__ __forceinline__ void narrow_round(
     }
   }
   CLK(CK_LAYERS);
-  // inclusive lse scan over each segment of Sg lanes: the odd/even tree
-  // of jax.lax.associative_scan for a segment of length Sg, level by
-  // level (up-sweep: position 2js+2s-1 takes 2js+s-1; down-sweep:
-  // (2i+1)st-1 takes 2i*st-1, i >= 1). By prefix consistency its first n
-  // values are those of the same tree over any n or more elements.
   const int p = nw.p;
-  for (int s = 1; s < nw.Sg; s <<= 1) {
-    float w[R];
-#pragma unroll
-    for (int u = 0; u < R; ++u) w[u] = __shfl_up_sync(FULL, v[u], s);
-    if (((p + 1) & (2 * s - 1)) == 0) {
-#pragma unroll
-      for (int u = 0; u < R; ++u) v[u] = lse(w[u], v[u]);
-    }
-  }
-  for (int st = nw.Sg >> 2; st >= 1; st >>= 1) {
-    float w[R];
-#pragma unroll
-    for (int u = 0; u < R; ++u) w[u] = __shfl_up_sync(FULL, v[u], st);
-    if (((p + 1) & (2 * st - 1)) == st && p + 1 >= 3 * st) {
-#pragma unroll
-      for (int u = 0; u < R; ++u) v[u] = lse(w[u], v[u]);
-    }
-  }
+  seg_scan<R>(v, p, nw.Sg);
   CLK(CK_SCAN);
   float m[R];
 #pragma unroll
@@ -383,15 +400,462 @@ __device__ __forceinline__ void narrow_round(
     if (act[u] && p == 0) mxo[row[u]] = m[u];
 }
 
-// Runs problem `pr` from the t = 0 state through its whole plan; all NT
-// threads of the CTA call it together. `store` holds 4*C*(Wst0+Wst1)
-// floats (global or shared memory; its contents on entry do not matter),
-// `pv` receives the winners' provenance, W int8 per plan step (0 on run
-// steps). Returns the lane's slot of the final table, in every warp; the
-// CTA is synchronised on return.
+// ---- the two-component kinds (bonito, flip-flop) ----
+
+// State components per storage column, emission rows, and stay chains
+// (prefix sums of weights) of a kind: bonito's chains are the A emissions
+// and the gap, flip-flop's the A flips and the A flops.
+template <int MODEL> struct Kind {
+  static constexpr int K = MODEL == 0 ? 1 : 2;
+  static constexpr int NE = MODEL == 2 ? 2 * A : A;
+  static constexpr int NCW = MODEL == 2 ? 2 * A : A + 1;
+};
+
+// (float)log(0.5): a flip-flop root's flip and flop at t = -1
+constexpr float LOG_HALF = (float)-0.69314718055994530942;
+
+// arr[i] for a run-time i < N without local memory
+template <int N>
+__device__ __forceinline__ float pick(const float (&arr)[N], int i) {
+  float r = arr[0];
+#pragma unroll
+  for (int c = 1; c < N; ++c)
+    if (i == c) r = arr[c];
+  return r;
+}
+
+// The root's two components at column t: bonito (0, -inf) and flip-flop
+// (log 1/2, log 1/2) at t = -1, i.e. as a parent value at t = 0.
+template <int MODEL>
+__device__ __forceinline__ void root_at(int t, float& r0, float& r1) {
+  r0 = t == 0 ? (MODEL == 1 ? 0.f : LOG_HALF) : -INFINITY;
+  r1 = (MODEL == 2 && t == 0) ? LOG_HALF : -INFINITY;
+}
+
+// A row's two parent components at column t (storage column c of a swept
+// parent): the swept parent's fresh values, the root's, or the frozen
+// parent copy; cs is the component stride C*Wa.
+__device__ __forceinline__ void parent_at2(const RowIn& ri, const float* St,
+                                           const float* Pt, int Wa, int cs,
+                                           int row, int c, int t, float r0,
+                                           float r1, float& p0, float& p1) {
+  if (ri.ps >= 0) {
+    p0 = St[ri.ps * Wa + c];
+    p1 = St[cs + ri.ps * Wa + c];
+  } else if (ri.root) {
+    p0 = r0;
+    p1 = r1;
+  } else {
+    const int fi = t - 1 - ri.po;
+    const bool ok = fi >= 0 && fi < Wa;
+    p0 = ok ? Pt[row * Wa + fi] : -INFINITY;
+    p1 = ok ? Pt[cs + row * Wa + fi] : -INFINITY;
+  }
+}
+
+// A narrow sweep's columns for a two-component kind, one per lane (as
+// Narrow): the column's emissions (and bonito's gap) and the cw of every
+// chain of the kind, float64 prefix sums over the segment rounded once.
+template <int MODEL> struct NarrowK {
+  int p, Sg, t, pos, sp;
+  bool inr;
+  float em[Kind<MODEL>::NE], gap, cw[Kind<MODEL>::NCW];
+};
+
+// One round of the narrow path for a two-component kind (narrow_round's
+// counterpart): R rows per lane segment, `rows[q]` = (row, pslot, chr + 4
+// if a root + 8 if chr == pchar, poff).
+template <int MODEL, int R>
+__device__ __forceinline__ void narrow_round_k(
+    const NarrowK<MODEL>& nw, const int4* rows, int nr, int q0, int nslots,
+    int slot, float* St, const float* Pt, int Wa, int cs,
+    float* mxo CLK_PARAM) {
+  int row[R];
+  bool act[R];
+  float a[R], b[R];  // bonito: no-gap chain, seed of the total chain;
+                     // flip-flop: flip chain, flop chain
+  float cwa[R], cwb[R];
+  float r0, r1;
+  root_at<MODEL>(nw.t, r0, r1);
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    const int q = q0 + u * nslots + slot;
+    act[u] = q < nr;
+    const int4 rr = rows[min(q, nr - 1)];
+    row[u] = rr.x;
+    RowIn ri;
+    ri.ps = rr.y;
+    ri.ch = rr.z & 3;
+    ri.root = (rr.z & 4) != 0;
+    ri.po = rr.w;
+    const bool same = (rr.z & 8) != 0;
+    cwa[u] = pick(nw.cw, ri.ch);
+    cwb[u] = pick(nw.cw, MODEL == 1 ? A : A + ri.ch);
+    a[u] = b[u] = -INFINITY;
+    if (act[u]) {
+      if (nw.p == 0) {
+        if (nw.sp >= 0) {
+          const float s0 = St[row[u] * Wa + nw.sp];
+          const float s1 = St[cs + row[u] * Wa + nw.sp];
+          a[u] = MODEL == 1 ? s1 : s0;
+          b[u] = MODEL == 1 ? lse(s0, s1) : s1;
+        }
+      } else if (nw.inr) {
+        float p0, p1;
+        parent_at2(ri, St, Pt, Wa, cs, row[u], nw.pos + nw.p - 2, nw.t, r0,
+                   r1, p0, p1);
+        const float e = pick(nw.em, ri.ch);
+        const float pt = lse(p0, p1);
+        if (MODEL == 1) {
+          a[u] = ((same ? p0 : pt) + e) - cwa[u];
+        } else {
+          const float f = pick(nw.em, A + ri.ch);
+          a[u] = ((same ? p1 : pt) + e) - cwa[u];
+          const float eo = (ri.root && nw.t == 0) ? f
+                           : same ? p0 + f : -INFINITY;
+          b[u] = eo - cwb[u];
+        }
+      }
+    }
+  }
+  CLK(CK_LAYERS);
+  const int p = nw.p;
+  float o0[R], o1[R];
+  if (MODEL == 1) {
+    seg_scan<R>(a, p, nw.Sg);
+    // the no-gap chain's values feed the total chain
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      o1[u] = a[u] + cwa[u];
+      if (p > 0) b[u] = nw.inr ? o1[u] - cwb[u] : -INFINITY;
+    }
+    seg_scan<R>(b, p, nw.Sg);
+    // gap(w) = total(w-1) + gap weight(w); the seed's position holds the
+    // seed's total
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      const float tot = p == 0 ? b[u] : b[u] + cwb[u];
+      o0[u] = __shfl_up_sync(FULL, tot, 1) + nw.gap;
+    }
+  } else {
+    float v[2 * R];
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      v[u] = a[u];
+      v[R + u] = b[u];
+    }
+    seg_scan<2 * R>(v, p, nw.Sg);
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      o0[u] = v[u] + cwa[u];
+      o1[u] = v[R + u] + cwb[u];
+    }
+  }
+  CLK(CK_SCAN);
+  float m[R];
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    m[u] = -INFINITY;
+    if (act[u] && nw.inr) {
+      St[row[u] * Wa + nw.pos + p - 1] = o0[u];
+      St[cs + row[u] * Wa + nw.pos + p - 1] = o1[u];
+      m[u] = lse(o0[u], o1[u]);
+    }
+  }
+  for (int o = 1; o < nw.Sg; o <<= 1) {
+#pragma unroll
+    for (int u = 0; u < R; ++u)
+      m[u] = fmaxf(m[u], __shfl_xor_sync(FULL, m[u], o));
+  }
+#pragma unroll
+  for (int u = 0; u < R; ++u)
+    if (act[u] && p == 0) mxo[row[u]] = m[u];
+}
+
+// cw of one chunk of a plane row (row[c_lo .. c_lo + cl)), float64
+// inclusive prefix sums rounded once; the lane holds columns 4*lane ..
+// 4*lane+3 (general path).
+__device__ __forceinline__ void chunk_cw(const float* row, int cl, int lane,
+                                         float (&cw4)[4]) {
+  double v4[4], run = 0.0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int w = 4 * lane + q;
+    run += w < cl ? (double)row[w] : 0.0;
+    v4[q] = run;
+  }
+  double incl = run;
+  for (int o = 1; o < 32; o <<= 1) {
+    const double y = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += y;
+  }
+  double excl = __shfl_up_sync(FULL, incl, 1);
+  if (lane == 0) excl = 0.0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) cw4[q] = (float)(excl + v4[q]);
+}
+
+// A sweep of the rows in smask over window [lo, hi) (anchor no) for a
+// two-component kind (bonito, flip-flop): run_search's narrow and general
+// paths with two state values per column and two stay chains per row.
+// All lanes of the read's group call it; returns the layers it ran.
+template <int MODEL>
+__device__ __forceinline__ int sweep_two(
+    WarpScratch& ws, const Row& nt, unsigned smask, int pslot, bool root,
+    int poff, int lo, int hi, int no, const float* ya, int La, int Ta,
+    int Wa, int C, float* St, const float* Pt, float* mxo CLK_PARAM) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = warp / GWARP, gw = warp % GWARP;
+  const int cs = C * Wa, width = hi - lo;
+  int nlayers = 0;
+  if (width <= NARROW_MAX) {
+    // ---- narrow path, two-component kinds (as above)
+    NarrowK<MODEL> nw;
+    nw.Sg = 2;
+    while (nw.Sg < width + 1) nw.Sg <<= 1;
+    const int p = nw.p = lane & (nw.Sg - 1), rpw = 32 / nw.Sg;
+    const int nslots = GWARP * rpw, slot = gw * rpw + lane / nw.Sg;
+    const int t = nw.t = lo + p - 1, pos = nw.pos = lo - no;
+    const bool inr = nw.inr = p >= 1 && p <= width;
+    constexpr int NE = Kind<MODEL>::NE, NCW = Kind<MODEL>::NCW;
+    nw.gap = 0.f;
+#pragma unroll
+    for (int c = 0; c < NE; ++c) nw.em[c] = -INFINITY;
+    if (inr) {
+#pragma unroll
+      for (int c = 0; c < NE; ++c)
+        if (t < Ta) nw.em[c] = ya[c * La + t];
+      if (MODEL == 1) nw.gap = ya[A * La + t];
+    }
+    // cw of every chain of the kind: float64 inclusive prefix sums of
+    // its weights (an emission row; bonito's last chain the gap),
+    // rounded once
+    double x[NCW];
+#pragma unroll
+    for (int c = 0; c < NCW; ++c)
+      x[c] = inr ? (double)(c < NE ? nw.em[min(c, NE - 1)] : nw.gap)
+                 : 0.0;
+    for (int o = 1; o < nw.Sg; o <<= 1) {
+#pragma unroll
+      for (int c = 0; c < NCW; ++c) {
+        const double y = __shfl_up_sync(FULL, x[c], o);
+        if (p >= o) x[c] += y;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < NCW; ++c) nw.cw[c] = (float)x[c];
+    nw.sp = min(pos - 1, Wa - 1);  // the seed's column
+    CLK(CK_LOADS);
+
+    unsigned done = 0;
+    for (int layer = 0; layer <= C; ++layer) {
+      const bool r = (((smask & ~done) >> lane) & 1u) &&
+                     (pslot < 0 || ((done >> pslot) & 1u));
+      const unsigned rdy = __ballot_sync(FULL, r);
+      if (!rdy) break;
+      ++nlayers;
+      const int nr = __popc(rdy);
+      __syncwarp();
+      if (r)
+        ws.rows[__popc(rdy & ((1u << lane) - 1u))] = make_int4(
+            lane, pslot,
+            max(nt.chr, 0) + (root ? 4 : 0) + (nt.chr == nt.pch ? 8 : 0),
+            poff);
+      __syncwarp();
+      const int R = nr <= nslots ? 1 : 3;
+      for (int q0 = 0; q0 < nr; q0 += R * nslots) {
+        if (R == 1)
+          narrow_round_k<MODEL, 1>(nw, ws.rows, nr, q0, nslots, slot, St,
+                                   Pt, Wa, cs, mxo CLK_ARG);
+        else
+          narrow_round_k<MODEL, 3>(nw, ws.rows, nr, q0, nslots, slot, St,
+                                   Pt, Wa, cs, mxo CLK_ARG);
+      }
+      CLK(CK_LAYERS);
+      group_sync(g);
+      CLK(CK_WAIT);
+      done |= rdy;
+    }
+    const unsigned stuck = smask & ~done;
+    if (stuck) {
+      if (gw == 0)
+        for (unsigned m = stuck; m; m &= m - 1) {
+          const int row = __ffs(m) - 1;
+          if (inr) {
+            St[row * Wa + pos + p - 1] = -INFINITY;
+            St[cs + row * Wa + pos + p - 1] = -INFINITY;
+          }
+          if (lane == 0) mxo[row] = -INFINITY;
+        }
+      group_sync(g);
+    }
+    CLK_COUNT(CK_NARROW, 1);
+  } else {
+    // ---- general path, two-component kinds (as above): two scans per
+    // row in the warp's buffer, the row's chains' cw taken per row
+    float* buf = ws.scan;
+    const int nch = (width + CHUNK - 1) / CHUNK;
+    for (int kc = 0; kc < nch; ++kc) {
+      const int c_lo = lo + kc * CHUNK, pos = c_lo - no;
+      const int cl = min(CHUNK, hi - c_lo);
+      const int sp = kc == 0 ? min(pos - 1, Wa - 1) : pos - 1;
+      float cwg4[4];  // bonito's total chain: the gap's cw
+      if (MODEL == 1) chunk_cw(ya + A * La + c_lo, cl, lane, cwg4);
+      CLK(CK_LOADS);
+
+      unsigned done = 0;
+      for (int layer = 0; layer <= C; ++layer) {
+        const bool r = (((smask & ~done) >> lane) & 1u) &&
+                       (pslot < 0 || ((done >> pslot) & 1u));
+        const unsigned rdy = __ballot_sync(FULL, r);
+        if (!rdy) break;
+        ++nlayers;
+        const int nr = __popc(rdy);
+        for (int q0 = 0; q0 < nr; q0 += GWARP) {
+          const int q = q0 + gw;
+          const int row = nth_set_bit(rdy, min(q, nr - 1));
+          const RowIn ri = row_in(pslot, nt.chr, poff, root, row);
+          const bool same =
+              __shfl_sync(FULL, (int)(nt.chr == nt.pch), row) != 0;
+          if (q >= nr) continue;  // warp-uniform
+          float cwa4[4], cwb4[4];
+          chunk_cw(ya + ri.ch * La + c_lo, cl, lane, cwa4);
+          if (MODEL == 2) {
+            chunk_cw(ya + (A + ri.ch) * La + c_lo, cl, lane, cwb4);
+          } else {
+#pragma unroll
+            for (int q4 = 0; q4 < 4; ++q4) cwb4[q4] = cwg4[q4];
+          }
+          const float s0 = sp >= 0 ? St[row * Wa + sp] : -INFINITY;
+          const float s1 = sp >= 0 ? St[cs + row * Wa + sp] : -INFINITY;
+          // the first chain's terms (bonito no gap, flip-flop flip)
+          // and flip-flop's flop chain's
+          float va[4], vb[4];
+#pragma unroll
+          for (int q4 = 0; q4 < 4; ++q4) {
+            const int w = 4 * lane + q4, t = c_lo + w;
+            va[q4] = vb[q4] = -INFINITY;
+            if (w < cl) {
+              float r0, r1, p0, p1;
+              root_at<MODEL>(t, r0, r1);
+              parent_at2(ri, St, Pt, Wa, cs, row, pos + w - 1, t, r0, r1,
+                         p0, p1);
+              const float e = t < Ta ? ya[ri.ch * La + t] : -INFINITY;
+              const float pt = lse(p0, p1);
+              if (MODEL == 1) {
+                va[q4] = ((same ? p0 : pt) + e) - cwa4[q4];
+              } else {
+                const float f =
+                    t < Ta ? ya[(A + ri.ch) * La + t] : -INFINITY;
+                va[q4] = ((same ? p1 : pt) + e) - cwa4[q4];
+                const float eo = (ri.root && t == 0) ? f
+                                 : same ? p0 + f : -INFINITY;
+                vb[q4] = eo - cwb4[q4];
+              }
+            }
+          }
+          if (lane == 0) buf[0] = MODEL == 1 ? s1 : s0;
+#pragma unroll
+          for (int q4 = 0; q4 < 4; ++q4)
+            if (4 * lane + q4 < cl) buf[4 * lane + q4 + 1] = va[q4];
+          __syncwarp();
+          CLK(CK_LAYERS);
+          warp_tree_scan(buf, lane, cl + 1);
+          float o0[4], o1[4];
+#pragma unroll
+          for (int q4 = 0; q4 < 4; ++q4) {
+            const int w = 4 * lane + q4;
+            const float o = w < cl ? buf[w + 1] + cwa4[q4] : -INFINITY;
+            if (MODEL == 1) o1[q4] = o;
+            else o0[q4] = o;
+          }
+          __syncwarp();
+          // the second chain: bonito's total (on the no-gap values),
+          // flip-flop's flop
+          if (lane == 0) buf[0] = MODEL == 1 ? lse(s0, s1) : s1;
+#pragma unroll
+          for (int q4 = 0; q4 < 4; ++q4)
+            if (4 * lane + q4 < cl)
+              buf[4 * lane + q4 + 1] =
+                  MODEL == 1 ? o1[q4] - cwb4[q4] : vb[q4];
+          __syncwarp();
+          warp_tree_scan(buf, lane, cl + 1);
+          if (MODEL == 1) {
+            // gap(w) = total(w-1) + gap weight(w); buf[0] holds the
+            // seed's total
+            float tot[4];
+#pragma unroll
+            for (int q4 = 0; q4 < 4; ++q4) {
+              const int w = 4 * lane + q4;
+              tot[q4] = w < cl ? buf[w + 1] + cwb4[q4] : 0.f;
+            }
+            __syncwarp();
+#pragma unroll
+            for (int q4 = 0; q4 < 4; ++q4)
+              if (4 * lane + q4 < cl) buf[4 * lane + q4 + 1] = tot[q4];
+            __syncwarp();
+#pragma unroll
+            for (int q4 = 0; q4 < 4; ++q4) {
+              const int w = 4 * lane + q4;
+              o0[q4] = w < cl ? buf[w] + ya[A * La + c_lo + w]
+                              : -INFINITY;
+            }
+          } else {
+#pragma unroll
+            for (int q4 = 0; q4 < 4; ++q4) {
+              const int w = 4 * lane + q4;
+              o1[q4] = w < cl ? buf[w + 1] + cwb4[q4] : -INFINITY;
+            }
+          }
+          CLK(CK_SCAN);
+          float m = -INFINITY;
+#pragma unroll
+          for (int q4 = 0; q4 < 4; ++q4) {
+            const int w = 4 * lane + q4;
+            if (w < cl) {
+              St[row * Wa + pos + w] = o0[q4];
+              St[cs + row * Wa + pos + w] = o1[q4];
+              m = fmaxf(m, lse(o0[q4], o1[q4]));
+            }
+          }
+          m = warp_max(m);
+          if (lane == 0) mxo[row] = kc == 0 ? m : fmaxf(mxo[row], m);
+          __syncwarp();
+        }
+        CLK(CK_LAYERS);
+        group_sync(g);
+        CLK(CK_WAIT);
+        done |= rdy;
+      }
+      const unsigned stuck = smask & ~done;
+      if (stuck) {
+        if (gw == 0)
+          for (unsigned m = stuck; m; m &= m - 1) {
+            const int row = __ffs(m) - 1;
+            for (int w = lane; w < cl; w += 32) {
+              St[row * Wa + pos + w] = -INFINITY;
+              St[cs + row * Wa + pos + w] = -INFINITY;
+            }
+            if (lane == 0 && kc == 0) mxo[row] = -INFINITY;
+          }
+        group_sync(g);
+      }
+    }
+  }
+  return nlayers;
+}
+
+// Runs problem `pr` of the kind MODEL from the t = 0 state through its
+// whole plan; all NT threads of the CTA call it together. `store` holds
+// 4*K*C*(Wst0+Wst1) floats (global or shared memory; its contents on
+// entry do not matter), `pv` receives the winners' provenance, W int8 per
+// plan step (0 on run steps). Returns the lane's slot of the final table,
+// in every warp; the CTA is synchronised on return.
+template <int MODEL>
 __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
                                           int W, float* store,
                                           signed char* pv) {
+  constexpr int K = Kind<MODEL>::K;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = warp / GWARP, gw = warp % GWARP, gt = tid % GT;
   const int C = W * (A + 1);
@@ -400,11 +864,12 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
   // this group's read and its storage
   const int Wa = pr.Wst[g], Ta = pr.T[g], La = pr.Lp[g];
   const float* ya = pr.y[g];
-  const int n_st = C * Wa;
+  const int cs = C * Wa;  // component stride
+  const int n_st = K * cs;
   // storage buffers b = 0, 1 at base + b*n_st, frozen copies at
   // base + (2+b)*n_st (offsets, not an array of pointers, keep the
   // pointers' address space known to the compiler)
-  float* const base = store + (g == 0 ? 0 : 4 * C * pr.Wst[0]);
+  float* const base = store + (g == 0 ? 0 : 4 * K * C * pr.Wst[0]);
 
   // ---- initial table: the A root children in beam row 0's child slots
   Row cur;
@@ -420,10 +885,27 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
     cur.valid = child && lane < C;
     cur.score = cur.valid ? 0.f : -INFINITY;
   }
-  for (int k = gt; k < n_st; k += GT) {
-    const int i = k / Wa, j = k - i * Wa;
-    base[k] = (j == 0 && i >= W && i < W + A) ? ya[(i - W) * La] : -INFINITY;
-    base[2 * n_st + k] = -INFINITY;
+  if constexpr (MODEL == 0) {
+    for (int k = gt; k < n_st; k += GT) {
+      const int i = k / Wa, j = k - i * Wa;
+      base[k] = (j == 0 && i >= W && i < W + A) ? ya[(i - W) * La]
+                                                 : -INFINITY;
+      base[2 * n_st + k] = -INFINITY;
+    }
+  } else {
+    // the root children's state at t = 0: bonito (-inf, y0[c]), flip-flop
+    // (y0[c], y0[c+A])
+    for (int k = gt; k < n_st; k += GT) {
+      const int comp = k >= cs, kk = k - comp * cs;
+      const int i = kk / Wa, j = kk - i * Wa;
+      float v = -INFINITY;
+      if (j == 0 && i >= W && i < W + A) {
+        if (MODEL == 2) v = ya[(i - W + comp * A) * La];
+        else if (comp == 1) v = ya[(i - W) * La];
+      }
+      base[k] = v;
+      base[2 * n_st + k] = -INFINITY;
+    }
   }
   // the group's state of its read: storage anchor, which buffers hold the
   // storage and the frozen copies, and (lane = slot) frozen-copy offsets;
@@ -564,6 +1046,8 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
                                   : i;
             sr[r] = i < C ? q : -2;  // -2: no such row
           }
+#pragma unroll
+          for (int kc = 0; kc < K; ++kc)
           for (int j0 = 0; j0 < Wa; j0 += 32 * CPL) {
             float sv[RB][CPL];
 #pragma unroll
@@ -572,7 +1056,7 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
               for (int c = 0; c < CPL; ++c) {
                 const int j = j0 + 32 * c + lane, jj = j + d;
                 sv[r][c] = (sr[r] >= 0 && j < Wa && jj >= 0 && jj < Wa)
-                               ? Sold[sr[r] * Wa + jj] : -INFINITY;
+                               ? Sold[kc * cs + sr[r] * Wa + jj] : -INFINITY;
               }
 #pragma unroll
             for (int r = 0; r < RB; ++r)
@@ -580,7 +1064,7 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
               for (int c = 0; c < CPL; ++c) {
                 const int j = j0 + 32 * c + lane;
                 if (sr[r] != -2 && j < Wa)
-                  Snew[(i0 + r * GWARP) * Wa + j] = sv[r][c];
+                  Snew[kc * cs + (i0 + r * GWARP) * Wa + j] = sv[r][c];
               }
           }
         }
@@ -601,6 +1085,8 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
               const int fs = __shfl_sync(FULL, src, max(i[r], 0));
               fsrc[r] = (i[r] < W ? Pold : Sold) + fs * Wa;
             }
+#pragma unroll
+            for (int kc = 0; kc < K; ++kc)
             for (int j0 = 0; j0 < Wa; j0 += 32 * CPL) {
               float fv[RB][CPL];
 #pragma unroll
@@ -608,14 +1094,16 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
 #pragma unroll
                 for (int c = 0; c < CPL; ++c) {
                   const int j = j0 + 32 * c + lane;
-                  fv[r][c] = (i[r] >= 0 && j < Wa) ? fsrc[r][j] : 0.f;
+                  fv[r][c] = (i[r] >= 0 && j < Wa) ? fsrc[r][kc * cs + j]
+                                                   : 0.f;
                 }
 #pragma unroll
               for (int r = 0; r < RB; ++r)
 #pragma unroll
                 for (int c = 0; c < CPL; ++c) {
                   const int j = j0 + 32 * c + lane;
-                  if (i[r] >= 0 && j < Wa) Pnew[i[r] * Wa + j] = fv[r][c];
+                  if (i[r] >= 0 && j < Wa)
+                    Pnew[kc * cs + i[r] * Wa + j] = fv[r][c];
                 }
             }
           }
@@ -638,6 +1126,9 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
       int nlayers = 0;
       if (width <= 0) {
         if (is_main && gw == 0) mxo[lane] = -INFINITY;
+      } else if constexpr (MODEL != 0) {
+        nlayers = sweep_two<MODEL>(ws, nt, smask, pslot, root, poff, lo, hi,
+                                   no, ya, La, Ta, Wa, C, St, Pt, mxo CLK_ARG);
       } else if (width <= NARROW_MAX) {
         // ---- narrow path: seed and columns in a segment of Sg lanes
         Narrow nw;
@@ -720,25 +1211,9 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
           const int c_lo = lo + kc * CHUNK, pos = c_lo - no;
           const int cl = min(CHUNK, hi - c_lo);
           const int sp = kc == 0 ? min(pos - 1, Wa - 1) : pos - 1;
-          // cw: float64 inclusive prefix sum of the gap weights, rounded
-          // once; the lane holds columns 4*lane .. 4*lane+3
-          double v4[4], run = 0.0;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int w = 4 * lane + q;
-            run += w < cl ? (double)ya[A * La + c_lo + w] : 0.0;
-            v4[q] = run;
-          }
-          double incl = run;
-          for (int o = 1; o < 32; o <<= 1) {
-            const double y = __shfl_up_sync(FULL, incl, o);
-            if (lane >= o) incl += y;
-          }
-          double excl = __shfl_up_sync(FULL, incl, 1);
-          if (lane == 0) excl = 0.0;
+          // cw: the gap weights' prefix sums
           float cw4[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) cw4[q] = (float)(excl + v4[q]);
+          chunk_cw(ya + A * La + c_lo, cl, lane, cw4);
           CLK(CK_LOADS);
 
           unsigned done = 0;
@@ -823,6 +1298,8 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
           i[r] = q < nf ? nth_set_bit(fmask, q) : -1;
           rf[r] = __shfl_sync(FULL, refresh, max(i[r], 0));
         }
+#pragma unroll
+        for (int kc = 0; kc < K; ++kc)
         for (int j0 = 0; j0 < Wa; j0 += 32 * CPL) {
           float fv[RB][CPL];
 #pragma unroll
@@ -831,14 +1308,14 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
             for (int c = 0; c < CPL; ++c) {
               const int j = j0 + 32 * c + lane;
               fv[r][c] = (i[r] >= 0 && j < Wa)
-                             ? St[rf[r] * Wa + j] : 0.f;
+                             ? St[kc * cs + rf[r] * Wa + j] : 0.f;
             }
 #pragma unroll
           for (int r = 0; r < RB; ++r)
 #pragma unroll
             for (int c = 0; c < CPL; ++c) {
               const int j = j0 + 32 * c + lane;
-              if (i[r] >= 0 && j < Wa) Pw[i[r] * Wa + j] = fv[r][c];
+              if (i[r] >= 0 && j < Wa) Pw[kc * cs + i[r] * Wa + j] = fv[r][c];
             }
         }
       }

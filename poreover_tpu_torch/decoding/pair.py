@@ -1,16 +1,22 @@
 """1D^2 pair consensus decoding pipeline (PyTorch/CUDA port).
 
-Port of ``poreover_tpu/decoding/pair.py`` for the main path: poreover CTC
-traces, ``--method envelope``, ``--algorithm beam``, ``row_col``,
-``--single viterbi``, and its anchored mode ``--skip_matches``. Stages per
-pair (reference pair_decode.py:305-529):
-  1. 1D basecall of both reads (per-step argmax, numpy)
+Port of ``poreover_tpu/decoding/pair.py`` for the main path: poreover,
+bonito and flip-flop traces, ``--method envelope``, ``--algorithm beam``,
+``row_col``, ``--single viterbi``, and its anchored mode
+``--skip_matches``. Stages per pair (reference pair_decode.py:305-529):
+  1. 1D basecall of both reads (per-step argmax, numpy; a flip-flop
+     pair's two Viterbi DPs in one batched call on the device)
   2. Global alignment of the two basecalls (banded NW, C++ via ctypes)
   3. Banded alignment envelope over the U x V lattice (numpy)
   4. Consensus: the row_col pair beam search over the envelope, in waves
-     of ``--threads`` pairs through one launch of the CUDA kernel
-     (ops/pair_beam_batch.py); on ``--device cpu`` its plain PyTorch
-     version runs instead.
+     of ``--threads`` pairs of one model kind through one launch of the
+     CUDA kernel (ops/pair_beam_batch.py); on ``--device cpu`` its plain
+     PyTorch version runs instead.
+
+Unlike the JAX package, which decodes bonito and flip-flop pairs one by
+one through its XLA engine, the port batches every kind: a pairs file
+keeps one queue of pending pairs per kind, each flushed as its own waves,
+and the results are written in input order. The strings are the same.
 
 Anchored mode (reference pair_decode.py:412-452): stretches where the two
 1D basecalls agree for ``--skip_threshold`` bases are taken verbatim as
@@ -37,6 +43,7 @@ import numpy as np
 
 from .. import native
 from ..io.trace import model_from_trace
+from ..models.transducer import MODEL_STRING, viterbi_decode_batch
 from ..utils.fasta import fasta_format
 from ..utils.timers import timers
 from . import envelope as envelope_mod
@@ -182,12 +189,13 @@ def pair_decode_helper(args, _workload_sink=None):
     """Decode one pair.
 
     ``_workload_sink``: optional callable. When the pair reaches stage 4,
-    the prepared (y1, y2, envelope) workload plus a ``finish(consensus)``
-    continuation are handed to the sink and this function returns None;
-    pair_decode batches the sunk workloads into kernel waves. Without a
-    sink the pair's consensus runs here, as a wave of one. In anchored
-    mode the workload is the list of the pair's (y1, y2, envelope) boxes
-    and ``finish`` takes their consensi.
+    the prepared (y1, y2, envelope) workload, a ``finish(consensus)``
+    continuation, the pair's summary and its model kind are handed to the
+    sink and this function returns None; pair_decode batches the sunk
+    workloads of each kind into kernel waves. Without a sink the pair's
+    consensus runs here, as a wave of one. In anchored mode the workload
+    is the list of the pair's (y1, y2, envelope) boxes and ``finish``
+    takes their consensi.
     """
     in_path = list(getattr(args, "in"))
     assert len(in_path) == 2, "exactly two reads are required"
@@ -207,10 +215,7 @@ def pair_decode_helper(args, _workload_sink=None):
     if args.reverse_complement:
         model2.reverse_complement()
     assert model1.kind == model2.kind
-    if model1.kind != "poreover":
-        raise NotImplementedError(
-            f"{model1.kind} pair consensus is not ported to PyTorch yet "
-            "(ROADMAP item A2b)")
+    kind = model1.kind
 
     summary = {"read1": in_path[0], "read2": in_path[1]}
     y1 = model1.log_prob
@@ -219,8 +224,8 @@ def pair_decode_helper(args, _workload_sink=None):
     if not args.diagonal_envelope:
         # ---- stage 1: 1D basecalls ----
         _t0 = time.perf_counter()
-        basecall1, viterbi_path1 = model1.viterbi_decode(return_path=True)
-        basecall2, viterbi_path2 = model2.viterbi_decode(return_path=True)
+        (basecall1, viterbi_path1), (basecall2, viterbi_path2) = \
+            viterbi_decode_batch([model1, model2], device=args.device)
 
         if abs(len(basecall1) - len(basecall2)) > 1000:
             log.warning("skipping pair due to length mismatch")
@@ -362,24 +367,24 @@ def pair_decode_helper(args, _workload_sink=None):
             return _format_result(joined)
 
         if _workload_sink is not None:
-            _workload_sink(boxes, _finish_boxes, summary)
+            _workload_sink(boxes, _finish_boxes, summary, kind)
             return None
-        return _finish_boxes(_batched_box_consensus([boxes], args)[0])
+        return _finish_boxes(_batched_box_consensus([boxes], args, kind)[0])
     workload = (y1, y2, alignment_envelope)
     if _workload_sink is not None:
-        _workload_sink(workload, _format_result, summary)
+        _workload_sink(workload, _format_result, summary, kind)
         return None
-    return _format_result(_batched_consensus([workload], args)[0])
+    return _format_result(_batched_consensus([workload], args, kind)[0])
 
 
-def _batched_consensus(workloads, args):
-    """Decode prepared (y1, y2, envelope) workloads in waves of
-    ``args.threads`` pairs, one kernel launch per wave. Wave i+1's host
-    prep and upload are enqueued before wave i's results are fetched, so
-    they overlap wave i's kernel on the card. A failed build or launch
-    raises: there is no per-pair or CPU fallback."""
+def _batched_consensus(workloads, args, kind: str = "poreover"):
+    """Decode prepared (y1, y2, envelope) workloads of the model ``kind``
+    in waves of ``args.threads`` pairs, one kernel launch per wave. Wave
+    i+1's host prep and upload are enqueued before wave i's results are
+    fetched, so they overlap wave i's kernel on the card. A failed build
+    or launch raises: there is no per-pair or CPU fallback."""
     from ..ops.pair_beam_batch import (
-        fetch_prepared, launch_prepared, prepare_pairs,
+        fetch_prepared, launch_prepared, prepare_pairs, storage_path,
     )
 
     wave = max(int(args.threads), 1)
@@ -388,10 +393,10 @@ def _batched_consensus(workloads, args):
     _t0 = time.perf_counter()
     pending = None
     for i, chunk in enumerate(chunks):
-        log.info("consensus wave %d/%d (one kernel launch)", i + 1,
-                 len(chunks))
         prep = prepare_pairs(chunk, beam_width=args.beam_width,
-                             device=args.device)
+                             device=args.device, model=MODEL_STRING[kind])
+        log.info("%s consensus wave %d/%d (one kernel launch; storage in %s "
+                 "memory)", kind, i + 1, len(chunks), storage_path(prep))
         outs = launch_prepared(prep)
         if pending is not None:
             out.extend(fetch_prepared(*pending))
@@ -406,17 +411,19 @@ def _batched_consensus(workloads, args):
     return out
 
 
-def batched_box_decode(flat_workloads, beam_width: int = 5, device=None):
-    """Decode a flat list of (y1, y2, env) anchor boxes: one launch of the
-    box kernel (ops/box_beam.py), then the boxes over its storage limit
-    through the pair kernel in waves of 32 sorted by length. On the CPU
-    both run their plain versions, with the same limit and the same
-    rerouting. Returns one sequence per box, in order."""
+def batched_box_decode(flat_workloads, beam_width: int = 5, device=None,
+                       model: str = "ctc"):
+    """Decode a flat list of (y1, y2, env) anchor boxes of the kind
+    ``model``: one launch of the box kernel (ops/box_beam.py), then the
+    boxes over its storage limit through the pair kernel of the same kind
+    in waves of 32 sorted by length. On the CPU both run their plain
+    versions, with the same limit and the same rerouting. Returns one
+    sequence per box, in order."""
     from ..ops.box_beam import box_beam
     from ..ops.pair_beam_batch import pair_beam_batch
 
     seqs, overflow = box_beam(flat_workloads, beam_width=beam_width,
-                              device=device)
+                              device=device, model=model)
     if overflow:
         log.info("box kernel: %d/%d boxes over the storage limit; rerouting "
                  "through the pair kernel", len(overflow),
@@ -427,24 +434,26 @@ def batched_box_decode(flat_workloads, beam_width: int = 5, device=None):
     for i in range(0, len(order), wave):
         sel = order[i:i + wave]
         out = pair_beam_batch([flat_workloads[j] for j in sel],
-                              beam_width=beam_width, device=device)
+                              beam_width=beam_width, device=device,
+                              model=model)
         for j, s in zip(sel, out):
             seqs[j] = s
     return seqs
 
 
-def _batched_box_consensus(box_lists, args):
-    """Anchored mode (--skip_matches): pool every pair's anchor boxes into
-    one box-batch decode. The boxes between anchors are small independent
+def _batched_box_consensus(box_lists, args, kind: str = "poreover"):
+    """Anchored mode (--skip_matches): pool the anchor boxes of every pair
+    of the model ``kind`` into one box-batch decode. The boxes between anchors are small independent
     consensus problems, so a wave's hundreds of them ride one launch.
     Returns one list of box sequences per input pair, in order. A failed
     build or launch raises: there is no per-pair or CPU fallback."""
     wls = [wl for boxes in box_lists for wl in boxes]
-    log.info("anchored consensus: %d boxes across %d pairs (box kernel)",
-             len(wls), len(box_lists))
+    log.info("anchored %s consensus: %d boxes across %d pairs (box kernel)",
+             kind, len(wls), len(box_lists))
     _t0 = time.perf_counter()
     seqs = iter(batched_box_decode(wls, beam_width=args.beam_width,
-                                   device=args.device))
+                                   device=args.device,
+                                   model=MODEL_STRING[kind]))
     timers.seconds["consensus_2d"] += time.perf_counter() - _t0
     timers.add_work(
         "consensus_2d",
@@ -490,11 +499,13 @@ def pair_decode(args) -> None:
                 )
 
         # Results are buffered per pair index and emitted strictly in input
-        # order. Stage-4 workloads flush in waves of `wave` pairs, so host
-        # memory holds at most one wave of log-prob planes.
+        # order. Stage-4 workloads wait in one queue per model kind and
+        # flush in waves of `wave` pairs of that kind, so host memory holds
+        # at most one wave of log-prob planes per kind.
         wave = max(int(args.threads), 1)
         results: dict[int, tuple] = {}
-        pending: list[tuple] = []  # (pair idx, workload, finish, summary)
+        # kind -> [(pair idx, workload, finish, summary)]
+        pending: dict[str, list] = {}
         emit_cursor = 0
 
         def emit_ready():
@@ -503,25 +514,28 @@ def pair_decode(args) -> None:
                 emit(results[emit_cursor])
                 emit_cursor += 1
 
-        def flush_pending():
-            if not pending:
+        def flush_pending(kind):
+            queue = pending.pop(kind, [])
+            if not queue:
                 return
             consensus = (_batched_box_consensus if args.skip_matches
                          else _batched_consensus)
-            seqs = consensus([wl for _, wl, _, _ in pending], args)
-            for (idx, _, finish, _), seq in zip(pending, seqs):
+            seqs = consensus([wl for _, wl, _, _ in queue], args, kind)
+            for (idx, _, finish, _), seq in zip(queue, seqs):
                 results[idx] = finish(seq)
-            pending.clear()
             emit_ready()
 
         for idx, pair in enumerate(pairs):
             args_copy = copy.copy(args)
             setattr(args_copy, "in", pair)
-            sink = (lambda wl, finish, summ, idx=idx:
-                    pending.append((idx, wl, finish, summ)))
+            sink = (lambda wl, finish, summ, kind, idx=idx:
+                    pending.setdefault(kind, []).append(
+                        (idx, wl, finish, summ)))
             try:
                 r = pair_decode_helper(args_copy, _workload_sink=sink)
-            except NotImplementedError:
+            except (NotImplementedError, RuntimeError):
+                # an unported branch, or a kernel (or device) that does not
+                # build or launch: never one pair's fault
                 raise
             except Exception as exc:
                 # one corrupt trace must not abort the whole pairs file (the
@@ -531,9 +545,10 @@ def pair_decode(args) -> None:
             if r is not None:
                 results[idx] = r
             emit_ready()
-            if len(pending) >= wave:
-                flush_pending()
-        flush_pending()
+            for kind in [k for k, q in pending.items() if len(q) >= wave]:
+                flush_pending(kind)
+        for kind in list(pending):
+            flush_pending(kind)
         emit_ready()
 
         out_1d.close()

@@ -146,12 +146,29 @@ class flipflop(Transducer):
 
     def viterbi_decode(self, return_path: bool = False, device=None):
         """Masked Viterbi DP on ``device`` (default cuda), in float32."""
-        from ..ops.viterbi import viterbi_path_masked
-
-        path = viterbi_path_masked(self.log_prob.astype(np.float32),
-                                   self.transition, device=device)
-        s = remove_repeated(self.path_to_string(path)).upper()
+        s, path = viterbi_decode_batch([self], device)[0]
         return (s, path) if return_path else s
+
+
+def viterbi_decode_batch(models, device=None) -> list[tuple]:
+    """(string, path) of each model's Viterbi decode. The flip-flop
+    models' DPs run together in one batched call on ``device`` (default
+    cuda); each result equals the model's own ``viterbi_decode``."""
+    out = [None] * len(models)
+    ff = [i for i, m in enumerate(models) if m.kind == "flipflop"]
+    if ff:
+        from ..ops.viterbi import viterbi_path_masked_batch
+
+        paths = viterbi_path_masked_batch(
+            [models[i].log_prob.astype(np.float32) for i in ff],
+            models[ff[0]].transition, device=device)
+        for i, path in zip(ff, paths):
+            s = remove_repeated(models[i].path_to_string(path)).upper()
+            out[i] = (s, path)
+    for i, m in enumerate(models):
+        if out[i] is None:
+            out[i] = m.viterbi_decode(return_path=True, device=device)
+    return out
 
 
 def from_kind(kind: str, log_prob) -> Transducer:

@@ -99,11 +99,13 @@ def beam_search_2d(y1, y2, envelope=None, beam_width: int = 25,
     beam_search_2d``; the reference's cpp_beam_search_2d).
 
     envelope: optional [U, 2] int array of per-u [row_start, row_end);
-    None is the full lattice. Ported so far: ``method="row_col"`` for plain
-    CTC, which on a CUDA device runs in the pair-beam kernel launched with
-    one CTA (``pair_beam_batch.pair_beam_single``, the port of the
-    single-pair Pallas kernel) and on the CPU in the kernel's plain
-    version. Other methods and model kinds raise NotImplementedError."""
+    None is the full lattice. Ported so far: ``method="row_col"`` for all
+    three model kinds, which on a CUDA device runs in the pair-beam kernel
+    launched with one CTA (``pair_beam_batch.pair_beam_single``, the port
+    of the single-pair Pallas kernel; the JAX package runs bonito and
+    flip-flop pairs through its XLA planned engine, whose semantics the
+    kernel keeps) and on the CPU in the kernel's plain version. Other
+    methods raise NotImplementedError."""
     import numpy as np
 
     if method not in ("row", "row_col", "row_col_steps", "grid"):
@@ -121,4 +123,5 @@ def beam_search_2d(y1, y2, envelope=None, beam_width: int = 25,
     if envelope is None:
         envelope = np.tile(np.array([0, len(y2)], dtype=np.int64),
                            (len(y1), 1))
-    return pair_beam_single(y1, y2, envelope, beam_width, alphabet, device)
+    return pair_beam_single(y1, y2, envelope, beam_width, alphabet, device,
+                            model)

@@ -1,27 +1,30 @@
 """Plan-driven row_col 2D beam search: the plain PyTorch version.
 
-Port of ``poreover_tpu/ops/beam2d_planned.py`` for plain CTC
-(``model="ctc"``), float32, windowed-memo semantics (``exact=False``). It
-is the plain version of the CUDA kernel ``csrc/pair_beam_batch.cu``: both
+Port of ``poreover_tpu/ops/beam2d_planned.py`` for all three model kinds
+(``ctc``, ``ctc_merge_repeats`` for bonito, ``ctc_flipflop``), float32,
+windowed-memo semantics (``exact=False``). It is the plain version of the
+CUDA kernels ``csrc/pair_beam_batch.cu`` and ``csrc/box_beam.cu``: they
 take the same packed inputs (``pack_pairs``) and return the same outputs
-(per-step winner provenance, final scores and validity), and
-``ops/pair_beam_batch.py`` runs this version only for tensors on the CPU.
+(per-step winner provenance, final scores and validity), and the wrappers
+run this version only for tensors on the CPU.
 
 The (u, v) walk of the reference (BeamSearch.h:262-397) depends only on
 the envelope, so the host precomputes it as a plan (``build_plan``):
-MAIN steps (prune + expand + one windowed CTC sweep per read) and merged
+MAIN steps (prune + expand + one windowed sweep per read) and merged
 catch-up runs (C0RUN / C1RUN: one sweep of the current beam on one read).
-Each candidate keeps a windowed history of its per-read sweep values
-([C, Wst] per read; plain CTC uses only the first of the JAX engine's two
-state components, the second is -inf throughout). A sweep runs in
-CHUNK-column pieces; inside a chunk the candidates are layered over their
-parent forest, and each layer's stay chain has a closed form (cumulative
-log-add-exp, ``beam2d._lse_scan``).
+Each candidate keeps a windowed history of its per-read sweep values,
+[C, K, Wst] per read: K = 1 for plain CTC (the JAX engine's second state
+component is -inf throughout there), K = 2 for bonito (gap, no gap) and
+flip-flop (flip, flop). A sweep runs in CHUNK-column pieces; inside a
+chunk the candidates are layered over their parent forest, and each
+layer's stay chains have a closed form (cumulative log-add-exp,
+``beam2d._lse_scan``): one chain for CTC, two chained ones for bonito
+(the no-gap chain feeds the total), two independent ones for flip-flop.
 
 The engine is batched over B pairs in lockstep: each pair keeps its own
 storage width Wst and its own plan length (steps past the end of a plan
 leave that pair untouched), so a pair decodes the same alone as in any
-batch, as in the kernel.
+batch, as in the kernel. A batch holds pairs of one model kind.
 """
 from __future__ import annotations
 
@@ -122,36 +125,60 @@ def plan_wst(plan) -> tuple[int, int]:
 # packing: the inputs shared by this version and the CUDA kernel
 # --------------------------------------------------------------------------
 
-def _pack_plane(y: np.ndarray, A: int) -> np.ndarray:
-    """[T, A+1] log-probs -> [A+2, T+1] float32 plane: rows 0..A-1
-    emissions, row A gap, row A+1 the root's value at t-1 (0 at t=0, the
-    cumulative gap mass through t-1 after). Column T holds -inf emissions."""
+def components(model_id: int) -> int:
+    """State components a candidate keeps per read column: 1 for plain
+    CTC, 2 for bonito (gap, no gap) and flip-flop (flip, flop)."""
+    return 1 if model_id == 0 else 2
+
+
+def plane_rows(model_id: int, A: int) -> int:
+    """Rows of a packed plane (``_pack_plane``)."""
+    return {0: A + 2, 1: A + 1, 2: 2 * A}[model_id]
+
+
+def _pack_plane(y: np.ndarray, A: int, model_id: int = 0) -> np.ndarray:
+    """[T, S] log-probs -> [plane_rows, T+1] float32 plane; column T holds
+    -inf emissions.
+
+    - ctc: rows 0..A-1 emissions, row A gap, row A+1 the root's value at
+      t-1 (0 at t=0, the cumulative gap mass through t-1 after);
+    - bonito: rows 0..A-1 emissions, row A gap (its root holds a value at
+      t = -1 only, which needs no row);
+    - flip-flop: rows 0..A-1 flip emissions, rows A..2A-1 flop emissions
+      (no gap, and the root as for bonito)."""
     T = len(y)
+    R = plane_rows(model_id, A)
     y32 = np.asarray(y, dtype=np.float32)
-    plane = np.full((A + 2, T + 1), _NEG_INF, np.float32)
+    plane = np.full((R, T + 1), _NEG_INF, np.float32)
+    if model_id == 2:
+        plane[:, :T] = y32[:, :2 * A].T
+        return plane
     plane[:A + 1, :T] = y32[:, :A + 1].T
-    plane[A + 1, 0] = 0.0
-    plane[A + 1, 1:] = np.cumsum(y32[:, A].astype(np.float64)).astype(
-        np.float32)
+    if model_id == 0:
+        plane[A + 1, 0] = 0.0
+        plane[A + 1, 1:] = np.cumsum(y32[:, A].astype(np.float64)).astype(
+            np.float32)
     return plane
 
 
 def pack_pairs(pairs, beam_width: int = 5, alphabet: str = "ACGT",
-               plans=None, wst=None):
-    """Host-side packing of B (y1, y2, envelope) pairs.
+               plans=None, wst=None, model: str = "ctc"):
+    """Host-side packing of B (y1, y2, envelope) pairs of one model kind.
 
     Returns a dict of numpy arrays: ``planes1`` / ``planes2`` (each pair's
     ``_pack_plane`` flattened back to back), ``plan`` int32 [sum N, 5]
     (type, a_lo, a_hi, b_lo, b_hi), ``meta`` int64 [B, META_COLS] (lengths,
-    offsets, storage widths, scratch offsets), and the bookkeeping the
-    traceback needs. Pairs whose plan is empty (an empty read) take no
-    part in the batch and decode to "". ``plans`` / ``wst`` (lists, one
-    entry per pair) override the plans and storage widths, for runs of
-    truncated plans at the full plans' widths.
+    offsets, storage widths, scratch offsets), the kind's ``model_id``,
+    and the bookkeeping the traceback needs. Pairs whose plan is empty (an
+    empty read) take no part in the batch and decode to "". ``plans`` /
+    ``wst`` (lists, one entry per pair) override the plans and storage
+    widths, for runs of truncated plans at the full plans' widths.
     """
     A = len(alphabet)
     W = beam_width
     C = W * (A + 1)
+    model_id = _MODEL_IDS[model]
+    K = components(model_id)
     if plans is None:
         plans = []
         for y1, y2, envelope in pairs:
@@ -172,7 +199,7 @@ def pack_pairs(pairs, beam_width: int = 5, alphabet: str = "ACGT",
         y1, y2, _ = pairs[i]
         p = plans[i]
         w0, w1 = plan_wst(p) if wst is None else wst[i]
-        q1, q2 = _pack_plane(y1, A), _pack_plane(y2, A)
+        q1, q2 = _pack_plane(y1, A, model_id), _pack_plane(y2, A, model_id)
         n = len(p["type"])
         meta[r] = (len(y1), len(y1) + 1, o1, len(y2), len(y2) + 1, o2, op, n,
                    w0, w1, osc, 0)
@@ -185,14 +212,14 @@ def pack_pairs(pairs, beam_width: int = 5, alphabet: str = "ACGT",
         o1 += q1.size
         o2 += q2.size
         op += n
-        osc += 4 * C * (w0 + w1)
+        osc += 4 * K * C * (w0 + w1)
     cat = (lambda xs, dt: np.concatenate(xs) if xs else np.zeros(0, dt))
     return dict(
         planes1=cat(planes1, np.float32), planes2=cat(planes2, np.float32),
         plan=(np.concatenate(plan_rows) if plan_rows
               else np.zeros((0, 5), np.int32)),
         meta=meta, live=live, n_pairs=len(pairs), types=types,
-        scratch_floats=osc, W=W, A=A, alphabet=alphabet,
+        scratch_floats=osc, W=W, A=A, alphabet=alphabet, model_id=model_id,
     )
 
 
@@ -252,20 +279,33 @@ def _jax_shift(d, Wst):
     return torch.minimum(start.clamp(min=0), 2 * Wst + 2) - (Wst + 1)
 
 
+def _rows(x, idx):
+    """x[b, idx[b, j]] for x [B, C, ...] and idx [B, n] -> [B, n, ...]."""
+    return x.gather(1, idx.reshape(idx.shape + (1,) * (x.dim() - 2)).expand(
+        idx.shape + x.shape[2:]))
+
+
+_LOG_HALF = float(np.float32(np.log(0.5)))
+
+
 def _chunked_sweep(plane, A, lo, hi, active, n_chunks, k1, k2, pk1, pk2,
-                   char, mask, storage, st_off, psweep, poff, Wst):
+                   char, pchar, mask, storage, st_off, psweep, poff, Wst,
+                   model_id=0):
     """Sweep the candidates in ``mask`` across window [lo, hi) of one read
     in CHUNK-column pieces, merging the values into ``storage`` (min-shift
     anchored). Pairs not ``active`` keep storage and offset.
 
-    plane [B, A+2, Lm]; lo/hi/active/st_off/Wst [B]; table fields, mask,
-    poff [B, C]; storage/psweep [B, C, Wm]; n_chunks is the host-side
+    plane [B, R, Lm]; lo/hi/active/st_off/Wst [B]; table fields, mask,
+    poff [B, C]; storage/psweep [B, C, K, Wm]; n_chunks is the host-side
     number of chunks of the widest active window.
-    Returns (storage, st_off, window max [B, C]).
+    Returns (storage, st_off, window max [B, C]): the window maximum of a
+    candidate's score, its value (ctc) or the log-add-exp of its two
+    components (bonito, flip-flop).
     """
-    B, C, Wm = storage.shape
+    B, C, K, Wm = storage.shape
     dev, dtype = storage.device, storage.dtype
     Lm = plane.shape[-1]
+    R = plane.shape[1]
 
     # storage anchor: keep if the window fits, else minimal right shift;
     # must cover the seed column lo-1 AND the full window [lo, hi)
@@ -274,22 +314,23 @@ def _chunked_sweep(plane, A, lo, hi, active, n_chunks, k1, k2, pk1, pk2,
     new_off = torch.where(hi > new_off + Wst, hi - Wst, new_off)
     new_off = torch.where(active, new_off, st_off)
     storage = _shift_window(storage, 0, _jax_shift(new_off - st_off, Wst)[
-        :, None], Wm, extra=0, width=Wst[:, None])
+        :, None, None], Wm, extra=0, width=Wst[:, None, None])
 
     is_root = (pk1 == 0) & (pk2 == 0)
+    same = char == pchar
     parent_slot = _lookup_idx(pk1, pk2, k1, k2, mask)
     parent_slot = torch.where(is_root, -1, parent_slot)
     parent_swept = parent_slot >= 0
     pslot = parent_slot.clamp(min=0)
-    pslot_w = pslot[:, :, None].expand(B, C, CHUNK)
 
     n_ch = torch.where(active, (hi - lo).clamp(min=0) + CHUNK - 1,
                        0) // CHUNK
     # own value at lo-1 from the re-anchored storage (-inf before it)
     seed_pos = torch.minimum(lo - 1 - new_off, Wst - 1)
     seeds = storage.gather(
-        2, seed_pos.clamp(0, Wm - 1)[:, None, None].expand(B, C, 1))[..., 0]
-    seeds = torch.where((seed_pos >= 0)[:, None], seeds, _NEG_INF)
+        3, seed_pos.clamp(0, Wm - 1)[:, None, None, None].expand(
+            B, C, K, 1))[..., 0]
+    seeds = torch.where((seed_pos >= 0)[:, None, None], seeds, _NEG_INF)
 
     w_idx = torch.arange(CHUNK, device=dev)
     j_idx = torch.arange(Wm, device=dev)
@@ -304,33 +345,52 @@ def _chunked_sweep(plane, A, lo, hi, active, n_chunks, k1, k2, pk1, pk2,
         in_range = in_rng[:, None, :] & swept[:, :, None]
 
         cols = plane.gather(
-            2, t_abs.clamp(max=Lm - 1)[:, None, :].expand(B, A + 2, CHUNK))
-        gap_w = torch.where(in_rng, cols[:, A], 0.0)
+            2, t_abs.clamp(max=Lm - 1)[:, None, :].expand(B, R, CHUNK))
+        gap_w = torch.where(in_rng, cols[:, A], 0.0) if model_id < 2 \
+            else None
         c_emit = cols[:, :A].gather(1, char_w)
         # parent values at t-1: the root's, or the frozen parent copy
         # (psweep window [poff, poff+Wst), -inf outside)
         fi = t_abs[:, None, :] - 1 - poff[:, :, None]
-        pfro = psweep.gather(2, fi.clamp(0, Wm - 1))
-        pfro = torch.where((fi >= 0) & (fi < Wst[:, None, None]), pfro,
-                           _NEG_INF)
-        parent_ext = torch.where(is_root[:, :, None],
-                                 cols[:, None, A + 1], pfro)
+        pfro = psweep.gather(
+            3, fi.clamp(0, Wm - 1)[:, :, None, :].expand(B, C, K, CHUNK))
+        pfro = torch.where(((fi >= 0) & (fi < Wst[:, None, None]))[
+            :, :, None, :], pfro, _NEG_INF)
+        if model_id == 0:
+            # the cumulative gap mass at t-1
+            root_ext = cols[:, None, None, A + 1]
+        else:
+            # bonito (gap = 0, no gap = -inf) and flip-flop (log 1/2 each)
+            # at t = -1 only
+            at0 = t_abs == 0
+            r0 = torch.where(at0, 0.0 if model_id == 1 else _LOG_HALF,
+                             _NEG_INF).to(dtype)
+            r1 = r0 if model_id == 2 else torch.full_like(r0, _NEG_INF)
+            root_ext = torch.stack([r0, r1], 1)[:, None]
+        parent_ext = torch.where(is_root[:, :, None, None], root_ext, pfro)
 
         # layers over the parent forest: a candidate sweeps once its
         # parent's chunk values are final (chain depth <= W+1; C+1 bounds
         # the loop even if a hash collision ever formed a cycle). Each
         # layer computes only its ready rows (flattened pair*C+slot).
         done = torch.zeros(B * C, dtype=torch.bool, device=dev)
-        cur = torch.full((B * C, CHUNK), _NEG_INF, dtype=dtype, device=dev)
+        cur = torch.full((B * C, K, CHUNK), _NEG_INF, dtype=dtype, device=dev)
         f_swept = swept.reshape(-1)
         f_pswept = parent_swept.reshape(-1)
         f_par = (torch.arange(B, device=dev)[:, None] * C
                  + pslot).reshape(-1)
-        f_seeds = seeds.reshape(-1)
-        f_ext = parent_ext.reshape(B * C, CHUNK)
+        f_seeds = seeds.reshape(B * C, K)
+        f_ext = parent_ext.reshape(B * C, K, CHUNK)
         f_emit = c_emit.reshape(B * C, CHUNK)
         f_inr = in_range.reshape(B * C, CHUNK)
-        f_gap = gap_w[:, None, :].expand(B, C, CHUNK).reshape(B * C, CHUNK)
+        if model_id < 2:
+            f_gap = gap_w[:, None, :].expand(B, C, CHUNK).reshape(B * C,
+                                                                  CHUNK)
+        if model_id == 2:
+            f_emit2 = cols[:, A:].gather(1, char_w).reshape(B * C, CHUNK)
+            f_rs = (is_root[:, :, None] & (t_abs == 0)[:, None, :]).reshape(
+                B * C, CHUNK)
+        f_same = same.reshape(-1)
         for _ in range(C + 1):
             pending = ~done & f_swept
             ready = pending & torch.where(f_pswept, done[f_par], True)
@@ -338,31 +398,67 @@ def _chunked_sweep(plane, A, lo, hi, active, n_chunks, k1, k2, pk1, pk2,
             if rows.numel() == 0:
                 break
             par = f_par[rows]
-            par_shift = torch.cat([f_seeds[par][:, None], cur[par, :-1]], 1)
-            par_vals = torch.where(f_pswept[rows][:, None], par_shift,
+            par_shift = torch.cat([f_seeds[par][:, :, None],
+                                   cur[par, :, :-1]], 2)
+            par_vals = torch.where(f_pswept[rows][:, None, None], par_shift,
                                    f_ext[rows])
             inr = f_inr[rows]
-            E = torch.where(inr, par_vals + f_emit[rows], _NEG_INF)
-            out = _cumlse_chain(E, f_gap[rows], f_seeds[rows])
-            cur[rows] = torch.where(inr, out, _NEG_INF)
+            s_own = f_seeds[rows]
+            if model_id == 0:
+                E = torch.where(inr, par_vals[:, 0] + f_emit[rows], _NEG_INF)
+                out = _cumlse_chain(E, f_gap[rows], s_own[:, 0])[:, None]
+            else:
+                p0, p1 = par_vals[:, 0], par_vals[:, 1]
+                p_tot = torch.logaddexp(p0, p1)
+                sm = f_same[rows][:, None]
+                ce = torch.where(inr, f_emit[rows], 0.0)
+                if model_id == 1:
+                    # no gap: entered from the parent (its no-gap part on
+                    # a repeat), stays weighted by the emission; the total
+                    # chains on it with the gap as stay weight
+                    src = torch.where(sm, p0, p_tot)
+                    ong = _cumlse_chain(torch.where(inr, src + ce, _NEG_INF),
+                                        ce, s_own[:, 1])
+                    seed_tot = torch.logaddexp(s_own[:, 0], s_own[:, 1])
+                    gap = f_gap[rows]
+                    tot = _cumlse_chain(torch.where(inr, ong, _NEG_INF), gap,
+                                        seed_tot)
+                    tot_prev = torch.cat([seed_tot[:, None], tot[:, :-1]], 1)
+                    o0 = torch.where(inr, tot_prev + gap, _NEG_INF)
+                    o1 = ong
+                else:
+                    # flip from the parent's flop part on a repeat (else
+                    # its total), flop from its flip part on a repeat; a
+                    # root child may start on a flop at t = 0
+                    cf = torch.where(inr, f_emit2[rows], 0.0)
+                    ef = torch.where(sm, p1, p_tot) + ce
+                    eo = torch.where(sm, p0 + cf, _NEG_INF)
+                    eo = torch.where(f_rs[rows], cf, eo)
+                    o0 = _cumlse_chain(torch.where(inr, ef, _NEG_INF), ce,
+                                       s_own[:, 0])
+                    o1 = _cumlse_chain(torch.where(inr, eo, _NEG_INF), cf,
+                                       s_own[:, 1])
+                out = torch.stack([o0, o1], 1)
+            cur[rows] = torch.where(inr[:, None], out, _NEG_INF)
             done[rows] = True
-        cur = cur.view(B, C, CHUNK)
+        cur = cur.view(B, C, K, CHUNK)
 
         # merge the chunk into storage (swept candidates, in-range columns)
         wpos = j_idx[None, :] - (c_lo - new_off)[:, None]  # [B, Wm]
         wcl = wpos.clamp(0, CHUNK - 1)
         take = ((wpos >= 0) & (wpos < CHUNK) & in_rng.gather(1, wcl)
                 & (j_idx[None, :] < Wst[:, None]))
-        vals = cur.gather(2, wcl[:, None, :].expand(B, C, Wm))
-        storage = torch.where(take[:, None, :] & swept[:, :, None], vals,
-                              storage)
+        vals = cur.gather(3, wcl[:, None, None, :].expand(B, C, K, Wm))
+        storage = torch.where(take[:, None, None, :]
+                              & swept[:, :, None, None], vals, storage)
         # the window's columns are exactly the merged ones, so its max
         # over storage is the max over the chunks' in-range values
+        tot = cur[:, :, 0] if K == 1 else torch.logaddexp(cur[:, :, 0],
+                                                          cur[:, :, 1])
         window_max = torch.maximum(
-            window_max,
-            torch.where(in_range, cur, _NEG_INF).amax(dim=2))
+            window_max, torch.where(in_range, tot, _NEG_INF).amax(dim=2))
         # next chunk seeds: value at (chunk end - 1)
-        seeds = torch.where(swept, cur[:, :, -1], seeds)
+        seeds = torch.where(swept[:, :, None], cur[..., -1], seeds)
     return storage, new_off, window_max
 
 
@@ -384,21 +480,24 @@ def _unpack_planes(flat: torch.Tensor, meta_h: np.ndarray, col_l: int,
 
 
 def planned_scan(planes1, planes2, plan, meta, W: int, A: int,
-                 return_state: bool = False):
+                 return_state: bool = False, model_id: int = 0):
     """The plain version of the pair-beam kernel.
 
     Inputs as packed by ``pack_pairs`` (torch tensors on one device):
     planes1/planes2 float32 flat, plan int32 [sum N, 5], meta int64
-    [B, META_COLS]. Returns (prov int8 [sum N, W] winner provenance of MAIN
+    [B, META_COLS]; ``model_id`` the batch's kind (0 ctc, 1 bonito, 2
+    flip-flop). Returns (prov int8 [sum N, W] winner provenance of MAIN
     steps (0 on run steps), score float32 [B, C] and valid bool [B, C] of
     the final deduplicated table). With ``return_state`` returns the final
-    candidate table instead (dict of tensors, [B, ...]).
+    candidate table instead (dict of tensors, [B, ...]; storage
+    [B, C, K, Wst]).
     """
     dev = planes1.device
     meta_h = meta.cpu().numpy()
     B = len(meta_h)
     C = W * (A + 1)
-    R = A + 2
+    R = plane_rows(model_id, A)
+    K = components(model_id)
     P = [_unpack_planes(planes1, meta_h, M_L1, M_Y1, R),
          _unpack_planes(planes2, meta_h, M_L2, M_Y2, R)]
     Wst = [torch.as_tensor(meta_h[:, M_WST0], device=dev),
@@ -431,9 +530,18 @@ def planned_scan(planes1, planes2, plan, meta, W: int, A: int,
         planes1.dtype)
     S, PS, poff, off = [], [], [], []
     for axis in range(2):
-        st = torch.full((B, C, Wm[axis]), _NEG_INF, dtype=planes1.dtype,
+        st = torch.full((B, C, K, Wm[axis]), _NEG_INF, dtype=planes1.dtype,
                         device=dev)
-        st[:, W:W + A, 0] = P[axis][:, :A, 0]
+        # the root children's state at t = 0: ctc (y0[c]), bonito (-inf,
+        # y0[c]), flip-flop (y0[c], y0[c+A])
+        y0 = P[axis][:, :, 0]
+        if model_id == 0:
+            st[:, W:W + A, 0, 0] = y0[:, :A]
+        elif model_id == 1:
+            st[:, W:W + A, 1, 0] = y0[:, :A]
+        else:
+            st[:, W:W + A, 0, 0] = y0[:, :A]
+            st[:, W:W + A, 1, 0] = y0[:, A:2 * A]
         S.append(st)
         PS.append(torch.full_like(st, _NEG_INF))
         poff.append(torch.zeros(B, C, dtype=torch.int64, device=dev))
@@ -477,26 +585,24 @@ def planned_scan(planes1, planes2, plan, meta, W: int, A: int,
                                   use["k2"], use["valid"])
 
         maxes = []
+        mi4 = mi[:, :, None, None]
         for axis in range(2):
             run = C0RUN if axis == 0 else C1RUN
             active = is_main | (ty == run)
             mask = torch.where(mi, use["valid"],
                                (ty == run)[:, None] & sel)
             st_old, ps_old = S[axis], PS[axis]
-            Wa = Wm[axis]
             # MAIN: stale storage of winners and re-discovered children,
             # frozen parent copies for the children
-            bsweep = st_old.gather(1, beam_src[:, :, None].expand(B, W, Wa))
-            cst = st_old.gather(
-                1, child_idx.clamp(min=0)[:, :, None].expand(B, W * A, Wa))
-            cst = torch.where((child_idx >= 0)[:, :, None], cst, _NEG_INF)
-            stale = torch.where(mi[:, :, None], torch.cat([bsweep, cst], 1),
-                                st_old)
+            bsweep = _rows(st_old, beam_src)
+            cst = _rows(st_old, child_idx.clamp(min=0))
+            cst = torch.where((child_idx >= 0)[:, :, None, None], cst,
+                              _NEG_INF)
+            stale = torch.where(mi4, torch.cat([bsweep, cst], 1), st_old)
             psw = torch.where(
-                mi[:, :, None],
-                torch.cat([ps_old.gather(
-                    1, beam_src[:, :, None].expand(B, W, Wa)),
-                    bsweep.repeat_interleave(A, dim=1)], 1),
+                mi4,
+                torch.cat([_rows(ps_old, beam_src),
+                           bsweep.repeat_interleave(A, dim=1)], 1),
                 ps_old)
             pof = torch.where(
                 mi,
@@ -508,15 +614,13 @@ def planned_scan(planes1, planes2, plan, meta, W: int, A: int,
             st, new_off, mx = _chunked_sweep(
                 P[axis], A, lo, hi, active, int(nch_h[axis][i]),
                 use["k1"], use["k2"], use["pk1"], use["pk2"], use["char"],
-                mask, stale, off[axis], psw, pof, Wst[axis])
+                use["pchar"], mask, stale, off[axis], psw, pof, Wst[axis],
+                model_id)
             # frozen parent copies := parent's current storage where the
             # parent is in the table (last-known-values semantics)
             present = (refresh_idx >= 0) & active[:, None]
-            psw = torch.where(
-                present[:, :, None],
-                st.gather(1, refresh_idx.clamp(min=0)[:, :, None].expand(
-                    B, C, Wa)),
-                psw)
+            psw = torch.where(present[:, :, None, None],
+                              _rows(st, refresh_idx.clamp(min=0)), psw)
             pof = torch.where(present, new_off[:, None], pof)
             S[axis], PS[axis], poff[axis], off[axis] = st, psw, pof, new_off
             maxes.append(mx)
@@ -540,10 +644,8 @@ def planned_scan(planes1, planes2, plan, meta, W: int, A: int,
 # --------------------------------------------------------------------------
 
 def _check_model(model: str, exact: bool) -> None:
-    if _MODEL_IDS[model] != 0:
-        raise NotImplementedError(
-            f"model {model!r} is not ported to PyTorch yet (ROADMAP item "
-            "A2b: bonito and flip-flop branches of the planned engine)")
+    if model not in _MODEL_IDS:
+        raise ValueError(f"unknown model {model!r}")
     if exact:
         raise NotImplementedError(
             "exact (graveyard) mode is not ported to PyTorch yet (ROADMAP "
@@ -565,14 +667,16 @@ def beam_search_2d_planned_batch(pairs, beam_width=5, alphabet="ACGT",
                                  device=None) -> list[str]:
     """Batched plan-driven row_col pair beam search, plain PyTorch.
 
-    pairs: list of (y1, y2, envelope). Runs on ``device`` (default
-    ``cuda``); this is the kernel's plain version, not the main path."""
+    pairs: list of (y1, y2, envelope) of the kind ``model``. Runs on
+    ``device`` (default ``cuda``); this is the kernel's plain version, not
+    the main path."""
     _check_model(model, exact)
-    packed = pack_pairs(pairs, beam_width, alphabet)
+    packed = pack_pairs(pairs, beam_width, alphabet, model=model)
     if not packed["live"]:
         return [""] * len(pairs)
     prov, score, valid = planned_scan(*_to_device(packed, device),
-                                      beam_width, len(alphabet))
+                                      beam_width, len(alphabet),
+                                      model_id=packed["model_id"])
     return tracebacks(packed, prov.cpu().numpy(), score.cpu().numpy(),
                       valid.cpu().numpy())
 
@@ -593,8 +697,9 @@ def debug_state_after(y1, y2, envelope, n_steps=None, beam_width=5,
     As in the JAX engine, the storage widths come from the full plan and
     the truncated plan is padded back to full length with zero-width C0RUN
     steps, so the table matches ``poreover_tpu``'s ``debug_state_after``
-    key for key. Sweep storage is [C, Wst] (the JAX table's first state
-    component; ``state_from_jax`` maps a JAX table to this layout)."""
+    key for key. Sweep storage is [C, Wst] for plain CTC (the JAX table's
+    first state component) and [C, 2, Wst] for bonito and flip-flop, as in
+    the JAX table (``state_from_jax`` maps a JAX table to this layout)."""
     _check_model(model, False)
     y1 = np.asarray(y1)
     y2 = np.asarray(y2)
@@ -612,21 +717,27 @@ def debug_state_after(y1, y2, envelope, n_steps=None, beam_width=5,
             for k, v in plan.items()
         }
     packed = pack_pairs([(y1, y2, env)], beam_width, alphabet, plans=[plan],
-                        wst=[wst])
+                        wst=[wst], model=model)
     state = planned_scan(*_to_device(packed, device), beam_width,
-                         len(alphabet), return_state=True)
-    return {k: v[0].cpu().numpy() for k, v in state.items()}
+                         len(alphabet), return_state=True,
+                         model_id=packed["model_id"])
+    out = {k: v[0].cpu().numpy() for k, v in state.items()}
+    if packed["model_id"] == 0:
+        for k in ("sweep0", "sweep1", "psweep0", "psweep1"):
+            out[k] = out[k][:, 0]
+    return out
 
 
-def state_from_jax(d) -> dict[str, torch.Tensor]:
+def state_from_jax(d, model: str = "ctc") -> dict[str, torch.Tensor]:
     """Map a ``poreover_tpu`` candidate table (numpy dict from its
     ``debug_state_after``) into this engine's layout: uint32 keys as
-    int64, sweep storage [C, 2, Wst] -> [C, Wst] (plain CTC keeps its
-    second state component at -inf, which is checked)."""
+    int64; for plain CTC sweep storage [C, 2, Wst] -> [C, Wst] (the second
+    state component is -inf there, which is checked)."""
     out = {}
     for k, v in d.items():
         v = np.array(v)
-        if k in ("sweep0", "sweep1", "psweep0", "psweep1"):
+        if model == "ctc" and k in ("sweep0", "sweep1", "psweep0",
+                                    "psweep1"):
             if not np.all(np.isneginf(v[:, 1])):
                 raise ValueError(f"{k}: second state component is not -inf")
             v = v[:, 0]

@@ -13,8 +13,10 @@ a queue, longest plan first, and each persistent CTA runs one box after
 another, every box from the t = 0 state. The kernel picks the best final
 candidate itself, so only provenance and one slot index per box come back.
 
-A box's candidate storage lives in the CTA's shared memory,
-``16 * C * (Wst0 + Wst1)`` bytes. ``STORAGE_LIMIT_BYTES`` is the static
+The boxes of a launch are of one model kind (one template instance of
+the kernel per kind). A box's candidate storage lives in the CTA's shared
+memory, ``16 * K * C * (Wst0 + Wst1)`` bytes (K state components: 1 for
+plain CTC, 2 for bonito and flip-flop). ``STORAGE_LIMIT_BYTES`` is the static
 budget: ``prepare_box`` returns ``None`` for a box over it, ``box_beam``
 lists such boxes as overflow for the caller to decode with the pair kernel
 (``ops/pair_beam_batch.py``), and the launcher checks the limit again.
@@ -44,20 +46,22 @@ import torch
 from ..build import build_kernel
 from ..device import resolve_device
 from .beam2d_planned import (
-    M_N, M_PLAN, M_WST0, M_WST1, META_COLS, build_plan, pack_pairs,
-    plan_wst, planned_scan, walk_provenance,
+    M_N, M_PLAN, M_WST0, M_WST1, META_COLS, _MODEL_IDS, build_plan,
+    pack_pairs, plan_wst, planned_scan, walk_provenance,
 )
 from .pair_beam_batch import (
     CMAX, KERNEL_A, PHASE_CLOCKS, _check, bind_phase_clocks, fetch_prepared,
-    launch_prepared, prepare_pairs,
+    launch_prepared, prepare_pairs, storage_bytes,
 )
 
 box_launch_count = 0  # launches of the box kernel
 
 # storage a box may need in the kernel: the most at which two CTAs (each
-# with the search's 7.6 KB of static shared memory beside it) still share
-# an SM's 228 KB of shared memory, so that one large box never halves a
-# launch's CTAs (csrc/box_beam.cu checks the same sum at compile time)
+# with the search's 7.6 KB of static shared memory beside it, the same in
+# every kind's instance) still share an SM's 228 KB of shared memory, so
+# that one large box never halves a launch's CTAs (csrc/box_beam.cu checks
+# the same sum at compile time). A bonito or flip-flop box needs twice a
+# CTC box's bytes per column, so its widest storage is half as wide.
 STORAGE_LIMIT_BYTES = 105 * 1024
 
 _libs = {}
@@ -74,21 +78,14 @@ def load_kernel(phase_clocks: bool = False):
     lib.box_beam_storage_limit.restype = i
     lib.box_beam_storage_limit.argtypes = []
     lib.box_beam_launch.restype = i
-    lib.box_beam_launch.argtypes = [vp, vp, vp, vp, i, i, i, i, vp, vp, vp,
-                                    ctypes.POINTER(i), vp]
+    lib.box_beam_launch.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp, vp,
+                                    vp, ctypes.POINTER(i), vp]
     _libs[phase_clocks] = bind_phase_clocks(lib) if phase_clocks else lib
     return lib
 
 
-def storage_bytes(wst, beam_width: int, A: int = KERNEL_A):
-    """Bytes of candidate storage a box with storage widths ``wst`` (a
-    pair of ints, or of arrays over boxes) needs: sweep and frozen parent
-    copy, double-buffered, per read."""
-    return 16 * beam_width * (A + 1) * (wst[0] + wst[1])
-
-
 def prepare_box(y1, y2, envelope, beam_width: int = 5,
-                alphabet: str = "ACGT"):
+                alphabet: str = "ACGT", model: str = "ctc"):
     """Per-box host prep: the plan and its storage widths.
 
     Returns ``None`` when the box needs more storage than
@@ -104,7 +101,7 @@ def prepare_box(y1, y2, envelope, beam_width: int = 5,
     env = np.asarray(envelope, dtype=np.int64)[:U]
     plan = build_plan(env, U, V)
     wst = plan_wst(plan)
-    need = storage_bytes(wst, beam_width, len(alphabet))
+    need = storage_bytes(wst, beam_width, len(alphabet), _MODEL_IDS[model])
     if need > STORAGE_LIMIT_BYTES:
         return None
     return dict(y1=y1, y2=y2, plan=plan, wst=wst, n=len(plan["type"]),
@@ -113,9 +110,10 @@ def prepare_box(y1, y2, envelope, beam_width: int = 5,
 
 def box_beam_cuda(planes1, planes2, plan, meta, meta_h, W: int,
                   A: int = KERNEL_A, max_ctas: int | None = None,
-                  info: dict | None = None):
-    """Launch the kernel on the current stream over the boxes of ``meta``
-    (packed as by ``beam2d_planned.pack_pairs``, in queue order); returns
+                  info: dict | None = None, model_id: int = 0):
+    """Launch the kernel's instance for ``model_id`` on the current stream
+    over the boxes of ``meta`` (packed as by ``beam2d_planned.pack_pairs``,
+    in queue order); returns
     (prov int8 [sum N, W], pick int32 [n boxes]) without synchronising.
     ``meta_h`` is the host copy of ``meta``. ``max_ctas`` caps the grid (a
     box's result does not depend on it). ``info``, if given, receives the
@@ -130,6 +128,8 @@ def box_beam_cuda(planes1, planes2, plan, meta, meta_h, W: int,
     if A != KERNEL_A or C > CMAX or W < 1:
         raise ValueError(f"kernel supports A={KERNEL_A} and W*(A+1) <= "
                          f"{CMAX}; got A={A}, W={W}")
+    if model_id not in (0, 1, 2):
+        raise ValueError(f"no kernel instance for model_id {model_id}")
     if dev.type != "cuda":
         raise ValueError(f"box_beam_cuda: tensors on {dev}, expected cuda")
     nbox = meta.shape[0]
@@ -143,7 +143,7 @@ def box_beam_cuda(planes1, planes2, plan, meta, meta_h, W: int,
     if plan.shape[0] != n_total:
         raise ValueError(f"plan has {plan.shape[0]} steps, meta {n_total}")
     need = int(storage_bytes((meta_h[:, M_WST0], meta_h[:, M_WST1]), W,
-                             A).max(initial=0))
+                             A, model_id).max(initial=0))
     if need > STORAGE_LIMIT_BYTES:
         raise ValueError(f"a box needs {need} bytes of storage, over the "
                          f"kernel's {STORAGE_LIMIT_BYTES}")
@@ -159,7 +159,7 @@ def box_beam_cuda(planes1, planes2, plan, meta, meta_h, W: int,
     with torch.cuda.device(dev):
         err = lib.box_beam_launch(
             planes1.data_ptr(), planes2.data_ptr(), plan.data_ptr(),
-            meta.data_ptr(), nbox, W, need, int(max_ctas or 0),
+            meta.data_ptr(), nbox, W, model_id, need, int(max_ctas or 0),
             queue.data_ptr(), prov.data_ptr(), pick.data_ptr(),
             ctypes.byref(grid), stream)
     if err != 0:
@@ -179,33 +179,36 @@ def final_pick(score: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
                       stable=True).indices[:, 0].to(torch.int32)
 
 
-def box_beam_plain(planes1, planes2, plan, meta, W: int, A: int = KERNEL_A):
+def box_beam_plain(planes1, planes2, plan, meta, W: int, A: int = KERNEL_A,
+                   model_id: int = 0):
     """The plain version of the box kernel: same inputs, same outputs
     (prov int8 [sum N, W], pick int32 [n boxes])."""
     if meta.shape[0] == 0:
         return (torch.zeros(0, W, dtype=torch.int8, device=planes1.device),
                 torch.zeros(0, dtype=torch.int32, device=planes1.device))
-    prov, score, valid = planned_scan(planes1, planes2, plan, meta, W, A)
+    prov, score, valid = planned_scan(planes1, planes2, plan, meta, W, A,
+                                      model_id=model_id)
     return prov, final_pick(score, valid)
 
 
 def prepare_boxes(boxes, beam_width: int = 5, alphabet: str = "ACGT",
-                  device=None, prepared=None):
-    """Host stage of a launch: ``prepare_box`` per box (or ``prepared``),
+                  device=None, prepared=None, model: str = "ctc"):
+    """Host stage of a launch over boxes of the kind ``model``:
+    ``prepare_box`` per box (or ``prepared``),
     the fitting boxes packed in queue order (longest plan first), and the
     upload enqueued from pinned memory. ``overflow`` lists the boxes over
     the storage limit."""
     dev = resolve_device(device)
     preps = (prepared if prepared is not None else
-             [prepare_box(*b, beam_width=beam_width, alphabet=alphabet)
-              for b in boxes])
+             [prepare_box(*b, beam_width=beam_width, alphabet=alphabet,
+                          model=model) for b in boxes])
     overflow = [i for i, p in enumerate(preps) if p is None]
     live = [i for i, p in enumerate(preps) if p is not None and p["n"] > 0]
     order = sorted(live, key=lambda i: -preps[i]["n"])
     packed = pack_pairs(
         [(preps[i]["y1"], preps[i]["y2"], None) for i in order], beam_width,
         alphabet, plans=[preps[i]["plan"] for i in order],
-        wst=[preps[i]["wst"] for i in order])
+        wst=[preps[i]["wst"] for i in order], model=model)
     host = [torch.from_numpy(packed[k]) for k in
             ("planes1", "planes2", "plan", "meta")]
     if dev.type == "cuda":
@@ -222,8 +225,10 @@ def launch_boxes(prep, max_ctas: int | None = None):
         return None
     if prep["device"].type == "cuda":
         return box_beam_cuda(*prep["dev"], prep["meta"], prep["W"],
-                             prep["A"], max_ctas=max_ctas, info=prep["info"])
-    return box_beam_plain(*prep["dev"], prep["W"], prep["A"])
+                             prep["A"], max_ctas=max_ctas, info=prep["info"],
+                             model_id=prep["model_id"])
+    return box_beam_plain(*prep["dev"], prep["W"], prep["A"],
+                          prep["model_id"])
 
 
 def fetch_boxes(prep, outs) -> list:
@@ -245,12 +250,13 @@ def fetch_boxes(prep, outs) -> list:
 
 
 def box_beam(boxes, beam_width: int = 5, alphabet: str = "ACGT",
-             device=None, max_ctas: int | None = None):
-    """Decode many (y1, y2, envelope) anchor boxes in one launch on
-    ``device`` (default cuda). Returns (seqs, overflow_idx): seqs[i] is box
-    i's consensus, or None when its storage is over the limit; those boxes
-    are listed in overflow_idx for the caller to reroute."""
-    prep = prepare_boxes(boxes, beam_width, alphabet, device)
+             device=None, max_ctas: int | None = None, model: str = "ctc"):
+    """Decode many (y1, y2, envelope) anchor boxes of the kind ``model`` in
+    one launch on ``device`` (default cuda). Returns (seqs, overflow_idx):
+    seqs[i] is box i's consensus, or None when its storage is over the
+    limit; those boxes are listed in overflow_idx for the caller to
+    reroute."""
+    prep = prepare_boxes(boxes, beam_width, alphabet, device, model=model)
     return fetch_boxes(prep, launch_boxes(prep, max_ctas)), prep["overflow"]
 
 

@@ -4,9 +4,13 @@ kernel ``csrc/pair_beam_batch.cu``.
 Replaces ``poreover_tpu/ops/pallas_pair_beam_batch.py`` (the Pallas TPU
 kernel ``_build_kernel`` / ``_step_body`` launched by ``_run_kernel``),
 with the same host API: ``prepare_pairs`` / ``launch_prepared`` /
-``fetch_prepared`` / ``pair_beam_batch``. B read pairs (one wave of
-``pair-decode --threads B``) decode in one launch, one CTA per pair, each
-walking its own host plan.
+``fetch_prepared`` / ``pair_beam_batch``. B read pairs of one model kind
+(one wave of ``pair-decode --threads B``) decode in one launch, one CTA
+per pair, each walking its own host plan. The kernel holds one template
+instance per kind (ctc, bonito's ctc_merge_repeats, ctc_flipflop); the
+TPU kernel took plain CTC only, and the JAX package runs the other two
+kinds pair by pair through its XLA engine, whose semantics these
+instances keep.
 
 For tensors on a CUDA device the wrapper launches the kernel, and raises
 if it does not build or launch; there is no fallback. For tensors on the
@@ -29,8 +33,8 @@ import torch
 from ..build import build_kernel
 from ..device import resolve_device
 from .beam2d_planned import (
-    C0RUN, C1RUN, M_N, M_WST0, M_WST1, META_COLS, pack_pairs, planned_scan,
-    tracebacks,
+    C0RUN, C1RUN, M_N, M_WST0, M_WST1, META_COLS, components, pack_pairs,
+    planned_scan, tracebacks,
 )
 
 launch_count = 0  # launches for a batch of pairs (``pair_beam_batch``)
@@ -42,6 +46,10 @@ KERNEL_A = 4  # alphabet size the kernel is compiled for
 # columns in one warp's lanes (csrc/pair_search.cuh: NARROW_MAX; checked
 # against the built library when it loads)
 NARROW_MAX = 31
+# bytes of candidate storage a pair may keep in the kernel's shared memory
+# (csrc/pair_beam_batch.cu: SMEM_STORAGE_LIMIT_BYTES; checked likewise); a
+# wave whose largest pair needs more keeps its storage in global scratch
+SMEM_STORAGE_LIMIT = 216 * 1024
 
 PHASE_CLOCKS = "POREOVER_PHASE_CLOCKS"  # macro of the instrumented build
 
@@ -73,9 +81,13 @@ def load_kernel(phase_clocks: bool = False):
         raise RuntimeError(f"the kernel's narrow path is "
                            f"{lib.pair_beam_narrow_max()} columns wide, "
                            f"NARROW_MAX says {NARROW_MAX}")
+    if lib.pair_beam_storage_limit() != SMEM_STORAGE_LIMIT:
+        raise RuntimeError(f"the kernel's shared-memory storage limit is "
+                           f"{lib.pair_beam_storage_limit()} bytes, "
+                           f"SMEM_STORAGE_LIMIT says {SMEM_STORAGE_LIMIT}")
     lib.pair_beam_batch_launch.restype = i
-    lib.pair_beam_batch_launch.argtypes = [vp, vp, vp, vp, i, i, i, vp, vp,
-                                           vp, vp, vp]
+    lib.pair_beam_batch_launch.argtypes = [vp, vp, vp, vp, i, i, i, i, vp,
+                                           vp, vp, vp, vp]
     _libs[phase_clocks] = bind_phase_clocks(lib) if phase_clocks else lib
     return lib
 
@@ -93,12 +105,38 @@ def _check(name, t, dtype, dim, device):
         raise ValueError(f"{name}: not contiguous")
 
 
+def storage_bytes(wst, beam_width: int, A: int = KERNEL_A,
+                  model_id: int = 0):
+    """Bytes of candidate storage a search with storage widths ``wst`` (a
+    pair of ints, or of arrays over pairs) needs in the pair and box
+    kernels: sweep and frozen parent copy, double-buffered, per read and
+    state component."""
+    return 16 * components(model_id) * beam_width * (A + 1) * (wst[0]
+                                                              + wst[1])
+
+
+def _meta_storage(meta_h, W: int, A: int, model_id: int) -> np.ndarray:
+    meta_h = np.asarray(meta_h)
+    return storage_bytes((meta_h[:, M_WST0], meta_h[:, M_WST1]), W, A,
+                         model_id)
+
+
+def storage_path(prep) -> str:
+    """Where the kernel keeps a prepared wave's storage: ``shared`` when
+    its largest pair fits SMEM_STORAGE_LIMIT, else ``global``."""
+    need = _meta_storage(prep["meta"], prep["W"], prep["A"],
+                         prep["model_id"])
+    return "shared" if need.max(initial=0) <= SMEM_STORAGE_LIMIT \
+        else "global"
+
+
 def _launch(planes1, planes2, plan, meta, meta_h, W: int, A: int,
-            in_smem: bool = True):
-    """Check the tensors and launch the kernel on the current stream, one
-    CTA per row of ``meta``; counts nothing. The storage lives in shared
-    memory when the largest pair's fits; ``in_smem=False`` puts it in
-    global scratch all the same (``chip_smoke.py`` times both)."""
+            in_smem: bool = True, model_id: int = 0):
+    """Check the tensors and launch the kernel's instance for ``model_id``
+    on the current stream, one CTA per row of ``meta``; counts nothing.
+    The storage lives in shared memory when the largest pair's fits
+    (``storage_path``); ``in_smem=False`` puts it in global scratch all the
+    same (``chip_smoke.py`` times both)."""
     dev = planes1.device
     _check("planes1", planes1, torch.float32, 1, dev)
     _check("planes2", planes2, torch.float32, 1, dev)
@@ -108,6 +146,8 @@ def _launch(planes1, planes2, plan, meta, meta_h, W: int, A: int,
     if A != KERNEL_A or C > CMAX or W < 1:
         raise ValueError(f"kernel supports A={KERNEL_A} and W*(A+1) <= "
                          f"{CMAX}; got A={A}, W={W}")
+    if model_id not in (0, 1, 2):
+        raise ValueError(f"no kernel instance for model_id {model_id}")
     if dev.type != "cuda":
         raise ValueError(f"pair_beam_cuda: tensors on {dev}, expected cuda")
     B = meta.shape[0]
@@ -121,12 +161,12 @@ def _launch(planes1, planes2, plan, meta, meta_h, W: int, A: int,
     if plan.shape[0] != n_total:
         raise ValueError(f"plan has {plan.shape[0]} steps, meta {n_total}")
     lib = load_kernel()
-    need = 4 * C * (meta_h[:, M_WST0] + meta_h[:, M_WST1])  # floats
+    need = _meta_storage(meta_h, W, A, model_id)
     # the storage in shared memory when the largest pair's fits
-    smem = 4 * int(need.max(initial=0))
-    if not in_smem or smem > lib.pair_beam_storage_limit():
+    smem = int(need.max(initial=0))
+    if not in_smem or smem > SMEM_STORAGE_LIMIT:
         smem = 0
-    scratch = torch.empty(1 if smem else max(int(need.sum()), 1),
+    scratch = torch.empty(1 if smem else max(int(need.sum()) // 4, 1),
                           dtype=torch.float32, device=dev)
     prov = torch.empty(max(n_total, 1), W, dtype=torch.int8, device=dev)
     score = torch.empty(B, C, dtype=torch.float32, device=dev)
@@ -135,8 +175,8 @@ def _launch(planes1, planes2, plan, meta, meta_h, W: int, A: int,
     with torch.cuda.device(dev):
         err = lib.pair_beam_batch_launch(
             planes1.data_ptr(), planes2.data_ptr(), plan.data_ptr(),
-            meta.data_ptr(), B, W, smem, scratch.data_ptr(), prov.data_ptr(),
-            score.data_ptr(), valid.data_ptr(), stream)
+            meta.data_ptr(), B, W, model_id, smem, scratch.data_ptr(),
+            prov.data_ptr(), score.data_ptr(), valid.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"pair_beam_batch kernel launch failed: CUDA "
                            f"error {err}")
@@ -144,13 +184,14 @@ def _launch(planes1, planes2, plan, meta, meta_h, W: int, A: int,
 
 
 def pair_beam_cuda(planes1, planes2, plan, meta, meta_h, W: int,
-                   A: int = KERNEL_A):
+                   A: int = KERNEL_A, model_id: int = 0):
     """Launch the kernel on the current stream; returns (prov int8
     [sum N, W], score float32 [B, C], valid bool [B, C]) without
     synchronising. ``meta_h`` is the host copy of ``meta`` (sizes the
     scratch without a device round trip)."""
     global launch_count
-    outs = _launch(planes1, planes2, plan, meta, meta_h, W, A)
+    outs = _launch(planes1, planes2, plan, meta, meta_h, W, A,
+                   model_id=model_id)
     launch_count += 1
     return outs
 
@@ -169,16 +210,16 @@ def sweep_paths(plan: np.ndarray) -> tuple[int, int]:
 
 def prepare_pairs(pairs, beam_width: int = 5, alphabet: str = "ACGT",
                   steps_per_grid: int | None = None,
-                  device_put: bool = True, device=None):
+                  device_put: bool = True, device=None, model: str = "ctc"):
     """Host-side stage: plans, storage widths and packed planes
-    (``beam2d_planned.pack_pairs``). With ``device_put`` the tensors are
+    (``beam2d_planned.pack_pairs``) of pairs of the kind ``model``. With ``device_put`` the tensors are
     enqueued for upload now (from pinned memory, without blocking), so a
     caller overlaps wave i+1's upload with wave i's kernel; otherwise at
     launch. ``steps_per_grid`` is accepted for the JAX package's signature
     and unused: each CTA walks its whole plan inside one launch."""
     del steps_per_grid
     dev = resolve_device(device)
-    packed = pack_pairs(pairs, beam_width, alphabet)
+    packed = pack_pairs(pairs, beam_width, alphabet, model=model)
     host = [torch.from_numpy(packed[k]) for k in
             ("planes1", "planes2", "plan", "meta")]
     if dev.type == "cuda":
@@ -197,8 +238,10 @@ def launch_prepared(prep):
     tensors = prep["dev"] or [h.to(prep["device"], non_blocking=True)
                               for h in prep["host"]]
     if prep["device"].type == "cuda":
-        return pair_beam_cuda(*tensors, prep["meta"], prep["W"], prep["A"])
-    return planned_scan(*tensors, prep["W"], prep["A"])
+        return pair_beam_cuda(*tensors, prep["meta"], prep["W"], prep["A"],
+                              prep["model_id"])
+    return planned_scan(*tensors, prep["W"], prep["A"],
+                        model_id=prep["model_id"])
 
 
 def fetch_prepared(prep, outs) -> list[str]:
@@ -211,17 +254,19 @@ def fetch_prepared(prep, outs) -> list[str]:
 
 
 def pair_beam_batch(pairs, beam_width: int = 5, alphabet: str = "ACGT",
-                    steps_per_grid: int | None = None,
-                    device=None) -> list[str]:
-    """Batched row_col pair beam search (plain CTC) over (y1, y2,
-    envelope) pairs; one kernel launch on ``device`` (default cuda)."""
+                    steps_per_grid: int | None = None, device=None,
+                    model: str = "ctc") -> list[str]:
+    """Batched row_col pair beam search over (y1, y2, envelope) pairs of
+    the kind ``model``; one kernel launch on ``device`` (default cuda)."""
     prep = prepare_pairs(pairs, beam_width=beam_width, alphabet=alphabet,
-                         steps_per_grid=steps_per_grid, device=device)
+                         steps_per_grid=steps_per_grid, device=device,
+                         model=model)
     return fetch_prepared(prep, launch_prepared(prep))
 
 
 def pair_beam_single(y1, y2, envelope, beam_width: int = 5,
-                     alphabet: str = "ACGT", device=None) -> str:
+                     alphabet: str = "ACGT", device=None,
+                     model: str = "ctc") -> str:
     """The same search for one pair: the kernel launched with one CTA.
 
     Replaces ``poreover_tpu/ops/pallas_pair_beam.py`` (``pair_beam_pallas``,
@@ -231,12 +276,14 @@ def pair_beam_single(y1, y2, envelope, beam_width: int = 5,
     in ``single_launch_count``, not in ``launch_count``."""
     global single_launch_count
     prep = prepare_pairs([(y1, y2, envelope)], beam_width=beam_width,
-                         alphabet=alphabet, device=device)
+                         alphabet=alphabet, device=device, model=model)
     if not prep["live"]:
         return ""
     if prep["device"].type == "cuda":
-        outs = _launch(*prep["dev"], prep["meta"], prep["W"], prep["A"])
+        outs = _launch(*prep["dev"], prep["meta"], prep["W"], prep["A"],
+                       model_id=prep["model_id"])
         single_launch_count += 1
     else:
-        outs = planned_scan(*prep["dev"], prep["W"], prep["A"])
+        outs = planned_scan(*prep["dev"], prep["W"], prep["A"],
+                            model_id=prep["model_id"])
     return fetch_prepared(prep, outs)[0]

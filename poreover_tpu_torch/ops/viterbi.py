@@ -1,10 +1,15 @@
-"""Viterbi path search (PyTorch).
+"""Viterbi path search: the wrapper of the CUDA kernel ``csrc/viterbi.cu``
+and its plain PyTorch version.
 
 Port of ``poreover_tpu/ops/viterbi.py``, whose DP is a ``lax.scan`` over
-time, not a Pallas kernel: here a Python loop over time on a dense [B, S]
-value matrix (S = 5 or 8 states), batched over reads on the given device.
-The back-pointers are kept as [T-1, B, S] uint8 on the device and fetched
-once; the traceback runs in numpy.
+time, not a Pallas kernel. For tables on a CUDA device the masked DP and
+its traceback run in the port's own kernel (one warp per read, many reads
+per launch, S <= 8 states), which raises if it does not build or launch;
+there is no fallback. For tables on the CPU they run in the plain version
+``_viterbi_masked_padded``: a Python loop over time on a dense [B, S] value
+matrix, batched over padded reads, back-pointers kept as [T-1, B, S] uint8
+and walked in numpy. Both compute in the same float32 order, so their
+paths are equal. ``launch_count`` counts kernel launches.
 
 Note on masking: the reference computes ``prev = transition.T + v[t-1]``
 where ``transition`` is a 0/1 matrix, i.e. it ADDS the binary mask to the
@@ -15,11 +20,88 @@ is ``mask_mode="hard"``.
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from ..build import build_kernel
 from ..device import resolve_device
 from ..utils.logspace import LOG_0
+
+launch_count = 0
+
+_lib = None
+
+
+def load_kernel():
+    """Build (once) and load the kernel library; returns the ctypes lib."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build_kernel("viterbi")))
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.viterbi_launch.restype = i
+        lib.viterbi_launch.argtypes = [vp, vp, vp, i, i, vp, vp, vp]
+        lib.viterbi_max_states.restype = i
+        lib.viterbi_max_states.argtypes = []
+        _lib = lib
+    return _lib
+
+
+def viterbi_cuda(y, meta, trans):
+    """Launch the kernel on the current stream: ``y`` float32 [sum T, S]
+    (reads back to back), ``meta`` int64 [B, 2] (first row, T >= 1),
+    ``trans`` float32 [S, S] (``_trans``), all on one CUDA device. Returns
+    the paths, int32 [sum T], without synchronising."""
+    global launch_count
+    dev = y.device
+    if dev.type != "cuda":
+        raise ValueError(f"viterbi_cuda: tensors on {dev}, expected cuda")
+    for name, t, dt, dim in (("y", y, torch.float32, 2),
+                             ("meta", meta, torch.int64, 2),
+                             ("trans", trans, torch.float32, 2)):
+        if t.dtype != dt or t.dim() != dim or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous {dt} tensor of "
+                             f"{dim} dims on {dev}")
+    n, S = y.shape
+    lib = load_kernel()
+    if not 1 <= S <= lib.viterbi_max_states() or trans.shape != (S, S):
+        raise ValueError(f"kernel takes 1..{lib.viterbi_max_states()} "
+                         f"states; got y [*, {S}], trans "
+                         f"{tuple(trans.shape)}")
+    ptrs = torch.empty(max(n * S, 1), dtype=torch.uint8, device=dev)
+    path = torch.empty(max(n, 1), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.viterbi_launch(y.data_ptr(), meta.data_ptr(),
+                                 trans.data_ptr(), meta.shape[0], S,
+                                 ptrs.data_ptr(), path.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"viterbi kernel launch failed: CUDA error {err}")
+    launch_count += 1
+    return path[:n]
+
+
+def _viterbi_kernel_batch(ys, transition, mask_mode: str, dev):
+    """The reads through one kernel launch; a list of [T_i] int32 paths.
+    The kernel is built (or loaded) after the checks, before the upload."""
+    lengths = [int(y.shape[0]) for y in ys]
+    if min(lengths) < 1:
+        raise ValueError("viterbi: a read of length 0")
+    for y in ys:
+        if y.dtype != np.float32:
+            raise TypeError(f"viterbi on {dev}: float32 tables only, got "
+                            f"{y.dtype}")
+    load_kernel()
+    offs = np.cumsum([0] + lengths[:-1])
+    meta = torch.as_tensor(np.stack([offs, lengths], 1).astype(np.int64),
+                           device=dev)
+    y_d = torch.as_tensor(np.concatenate(ys), device=dev)
+    path = viterbi_cuda(y_d, meta, _trans(transition, mask_mode,
+                                          torch.float32, dev).contiguous())
+    path = path.cpu().numpy()
+    return [path[o:o + n] for o, n in zip(offs, lengths)]
 
 
 def _trans(transition, mask_mode: str, dtype, dev):
@@ -71,17 +153,19 @@ def viterbi_path_masked_batch(ys, transition, mask_mode: str = "additive",
                               device=None):
     """Batched masked Viterbi over variable-length reads.
 
-    ``ys`` is a list of [T_i, S] tables; they are padded to a shared
-    length and decoded together on ``device`` (default cuda). Returns a
-    list of [T_i] paths equal to per-read ``viterbi_path_masked``
-    output."""
+    ``ys`` is a list of [T_i, S] tables, decoded together on ``device``
+    (default cuda): in one kernel launch on a CUDA device (float32 tables),
+    padded to a shared length in the plain version on the CPU, in the
+    tables' own dtype. A read's path does not depend on the others."""
     if len(ys) == 0:
         return []
     dev = resolve_device(device)
     ys = [np.asarray(y) for y in ys]
+    if dev.type == "cuda":
+        return _viterbi_kernel_batch(ys, transition, mask_mode, dev)
     lengths = [int(y.shape[0]) for y in ys]
     B, Tpad, S = len(ys), max(lengths), int(ys[0].shape[1])
-    yb = np.zeros((B, Tpad, S), np.float32)
+    yb = np.zeros((B, Tpad, S), np.result_type(*ys))
     for i, y in enumerate(ys):
         yb[i, :lengths[i]] = y
     y_d = torch.as_tensor(yb, device=dev)
@@ -93,12 +177,8 @@ def viterbi_path_masked_batch(ys, transition, mask_mode: str = "additive",
 def viterbi_path_masked(y, transition, mask_mode: str = "additive",
                         device=None):
     """Best state path for a [T, S] table under a transition mask, in the
-    table's own dtype."""
-    dev = resolve_device(device)
-    y_d = torch.as_tensor(np.asarray(y), device=dev)[None]
-    return _viterbi_masked_padded(
-        y_d, [y_d.shape[1]],
-        _trans(transition, mask_mode, y_d.dtype, dev))[0]
+    table's own dtype (float32 on a CUDA device, where the kernel runs)."""
+    return viterbi_path_masked_batch([y], transition, mask_mode, device)[0]
 
 
 def argmax_path(y, device=None) -> torch.Tensor:

@@ -1,11 +1,12 @@
-"""Seeded read simulator (numpy): CTC read pairs for ``pair-decode`` and
-single reads of all three model kinds for ``decode``.
+"""Seeded read simulator (numpy): read pairs of all three model kinds for
+``pair-decode`` and single reads of all three kinds for ``decode``.
 
 The pair recipe is a copy of ``bench.py:_synth_read_pair``: a random
 template strand and its reverse-complement strand (with ~5%
 substitutions), each rendered as CTC emissions with geometric dwell (~7
 steps/base) and Gaussian logit noise. At 5200-8200 bases a read has
-~36k-58k time steps. Single reads use the same rendering.
+~36k-58k time steps. Flip-flop reads render the same strands as flip-flop
+emissions; single reads use the same rendering.
 """
 from __future__ import annotations
 
@@ -60,33 +61,72 @@ def synth_flipflop_read(rng: np.random.Generator, seq: np.ndarray,
     return _log_softmax(logits)
 
 
-def synth_read_pair(rng: np.random.Generator, n_bases: int):
-    """Returns (y1, y2): float32 [T, 5] log-probs (A, C, G, T, blank); y2
-    is the complementary strand as sequenced (reverse-complemented)."""
+def _pair_strands(rng: np.random.Generator, n_bases: int):
+    """A template strand and its complement strand as sequenced: the
+    template with ~5% substitutions, reverse-complemented."""
     comp = 3  # ACGT: complement = 3 - code
     seq = rng.integers(0, 4, n_bases)
     seq2 = seq.copy()
     m = rng.random(n_bases) < 0.05
     seq2[m] = (seq2[m] + rng.integers(1, 4, int(m.sum()))) % 4
-    seq2 = (comp - seq2)[::-1]
+    return seq, (comp - seq2)[::-1]
+
+
+def synth_read_pair(rng: np.random.Generator, n_bases: int):
+    """Returns (y1, y2): float32 [T, 5] log-probs (A, C, G, T, blank); y2
+    is the complementary strand as sequenced (reverse-complemented)."""
+    seq, seq2 = _pair_strands(rng, n_bases)
     return synth_ctc_read(rng, seq), synth_ctc_read(rng, seq2)
 
 
-def write_pairs(directory, n: int, seed: int, lo: int, hi: int):
-    """Write n simulated pairs as ``s{i}_1.npy`` / ``s{i}_2.npy`` plus a
-    tab-separated ``pairs.txt`` into ``directory``; returns the pairs
-    file's path. Base counts are drawn from [lo, hi)."""
+def _write_trace(stem: str, y: np.ndarray, kind: str) -> str:
+    """One read's log-probs in the format ``--basecaller`` loads for
+    ``kind``; returns the file's name."""
+    if kind == "poreover":
+        np.save(stem + ".npy", y)
+        return os.path.basename(stem) + ".npy"
+    if kind == "bonito":
+        np.save(stem + ".npy", y[:, [4, 0, 1, 2, 3]])
+        return os.path.basename(stem) + ".npy"
+    if kind == "flipflop":
+        np.savetxt(stem + ".csv", np.exp(y), delimiter=",", fmt="%.8e",
+                   header="A,C,G,T,a,c,g,t", comments="")
+        return os.path.basename(stem) + ".csv"
+    raise ValueError(f"unknown kind {kind!r}")
+
+
+def write_pairs(directory, n: int, seed: int, lo: int, hi: int,
+                kind: str = "poreover", complement: bool = True):
+    """Write n simulated pairs as ``s{i}_1`` / ``s{i}_2`` plus a
+    tab-separated ``pairs.txt`` into ``directory``. Base counts are drawn
+    from [lo, hi). Returns (the pairs file's path, each pair's template
+    strand: read 1's true sequence, which the consensus also spells).
+
+    Read 2 is the complement strand as sequenced, which
+    ``--reverse_complement`` turns back; with ``complement=False`` it is
+    that strand turned back before it is rendered (a second template-
+    orientation read of the same strand, decoded without
+    ``--reverse_complement``). ``kind`` is the format of the traces, as in
+    ``write_reads``: ``poreover`` / ``bonito`` ``.npy`` CTC emissions
+    (bonito with the blank in column 0), or ``flipflop`` ``.csv``
+    probabilities [T, 8] under a header row."""
     rng = np.random.default_rng(seed)
-    lines = []
+    render = synth_flipflop_read if kind == "flipflop" else synth_ctc_read
+    lines, truth = [], []
     for i in range(n):
-        y1, y2 = synth_read_pair(rng, int(rng.integers(lo, hi)))
-        np.save(os.path.join(directory, f"s{i}_1.npy"), y1)
-        np.save(os.path.join(directory, f"s{i}_2.npy"), y2)
-        lines.append(f"s{i}_1.npy\ts{i}_2.npy\n")
+        seq, seq2 = _pair_strands(rng, int(rng.integers(lo, hi)))
+        if not complement:
+            seq2 = (3 - seq2)[::-1]
+        truth.append("".join(DNA[c] for c in seq))
+        f1 = _write_trace(os.path.join(directory, f"s{i}_1"),
+                          render(rng, seq), kind)
+        f2 = _write_trace(os.path.join(directory, f"s{i}_2"),
+                          render(rng, seq2), kind)
+        lines.append(f"{f1}\t{f2}\n")
     path = os.path.join(directory, "pairs.txt")
     with open(path, "w") as f:
         f.writelines(lines)
-    return path
+    return path, truth
 
 
 def write_reads(directory, n: int, seed: int, lo: int, hi: int,
@@ -108,17 +148,12 @@ def write_reads(directory, n: int, seed: int, lo: int, hi: int,
     for i in range(n):
         seq = rng.integers(0, 4, int(rng.integers(lo, hi)))
         truth.append("".join(DNA[c] for c in seq))
-        stem = os.path.join(directory, f"r{i}")
-        if kind == "poreover":
-            np.save(stem + ".npy", synth_ctc_read(rng, seq, noise))
-        elif kind == "bonito":
-            np.save(stem + ".npy", synth_ctc_read(rng, seq, noise)[:, [4, 0, 1, 2, 3]])
-        elif kind == "flipflop":
-            np.savetxt(stem + ".csv", np.exp(synth_flipflop_read(rng, seq, noise)),
-                       delimiter=",", fmt="%.8e", header="A,C,G,T,a,c,g,t",
-                       comments="")
-        else:
+        if kind not in ("poreover", "bonito", "flipflop"):
             raise ValueError(f"unknown kind {kind!r}")
+        render = synth_flipflop_read if kind == "flipflop" else \
+            synth_ctc_read
+        _write_trace(os.path.join(directory, f"r{i}"),
+                     render(rng, seq, noise), kind)
     return truth
 
 

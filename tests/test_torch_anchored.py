@@ -148,7 +148,7 @@ def runs(tmp_path_factory):
     one simulated and one agreeing pair."""
     d = tmp_path_factory.mktemp("pairs")
     make_agreeing_pairs(str(d))
-    pairs = write_pairs(str(d), 3, seed=13, lo=110, hi=150)
+    pairs, _ = write_pairs(str(d), 3, seed=13, lo=110, hi=150)
     rng = np.random.default_rng(99)
     a, _ = synth_read_pair(rng, 130)
     b, _ = synth_read_pair(rng, 130)

@@ -1,5 +1,5 @@
 """The CUDA kernels' wrappers (ops/pair_beam_batch.py, ops/box_beam.py,
-ops/beam1d.py).
+ops/beam1d.py, ops/viterbi.py).
 
 On the CPU: argument checks, the packed layout both the pair-beam kernel
 and its plain version read, and the plain route (the 1D kernel's CPU side
@@ -187,6 +187,136 @@ def test_kernels_bit_equal_on_each_sweep_path(cuda_device, make):
     torch.cuda.synchronize()
     for a, b in zip(kb, pb):
         assert torch.equal(a.cpu(), b.cpu())
+
+
+def _kind_pair(shape, S):
+    """A pair with S columns per row (5 for bonito, 8 for flip-flop):
+    narrow_pair's envelope, or a band of 57 columns, whose windows the
+    kernel sweeps on its general path and whose two-component storage
+    (100 KB) still fits the box kernel's limit."""
+    rng = np.random.default_rng(13 + S)
+
+    def lp(T):
+        x = rng.normal(size=(T, S)) * 2
+        return (x - np.log(np.exp(x).sum(1, keepdims=True))).astype(
+            np.float32)
+
+    if shape == "narrow":
+        env = narrow_pair()[2]
+    else:
+        c = np.arange(120)
+        env = np.stack([np.clip(c - 28, 0, 119), np.clip(c + 29, 1, 120)],
+                       1).astype(np.int64)
+    return lp(len(env)), lp(int(env[:, 1].max())), env
+
+
+@pytest.mark.parametrize("model,S,rows", [("ctc_merge_repeats", 5, 5),
+                                          ("ctc_flipflop", 8, 8)])
+def test_packed_layout_of_the_two_component_kinds(model, S, rows):
+    """A bonito plane is the emissions and the gap, a flip-flop plane the
+    flips and the flops (no root row: their root holds a value at t = -1
+    only); each candidate's storage has two components, so the scratch and
+    a box's storage double."""
+    pair = _kind_pair("narrow", S)
+    packed = tp.pack_pairs([pair], model=model)
+    T1 = len(pair[0])
+    plane = packed["planes1"].reshape(rows, T1 + 1)
+    np.testing.assert_array_equal(plane[:, :T1], pair[0].T)
+    assert np.all(np.isneginf(plane[:, T1]))
+    w0, w1 = (int(x) for x in packed["meta"][0, tp.M_WST0:tp.M_WST1 + 1])
+    assert packed["scratch_floats"] == 8 * 25 * (w0 + w1)
+    assert bb.storage_bytes((w0, w1), 5, model_id=packed["model_id"]) == \
+        2 * bb.storage_bytes((w0, w1), 5)
+
+
+@pytest.mark.parametrize("model,S", [("ctc_merge_repeats", 5),
+                                     ("ctc_flipflop", 8)])
+def test_kind_boxes_over_the_limit_take_the_pair_route(model, S,
+                                                       monkeypatch):
+    """Anchored mode's boxes of a kind over the box kernel's storage limit
+    go through the pair kernel of the same kind (here both plain)."""
+    from poreover_tpu_torch.decoding.pair import batched_box_decode
+
+    boxes = [_kind_pair("narrow", S), _kind_pair("wide", S)]
+    want = [tp.beam_search_2d_planned(*b, model=model, device="cpu")
+            for b in boxes]
+    need = [bb.prepare_box(*b, model=model)["storage"] for b in boxes]
+    assert max(need) <= bb.STORAGE_LIMIT_BYTES
+    monkeypatch.setattr(bb, "STORAGE_LIMIT_BYTES", min(need))
+    _, over = bb.box_beam(boxes, device="cpu", model=model)
+    assert over == [int(np.argmax(need))]
+    assert batched_box_decode(boxes, device="cpu", model=model) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,S", [("ctc_merge_repeats", 5),
+                                     ("ctc_flipflop", 8)])
+@pytest.mark.parametrize("shape", ["narrow", "wide"])
+def test_kind_kernels_bit_equal_on_each_sweep_path(cuda_device, model, S,
+                                                   shape):
+    """The bonito and flip-flop instances of both pair kernels hold
+    provenance, final scores (bits) and picks equal to their plain
+    versions, with the storage in shared memory and in global scratch."""
+    pair = _kind_pair(shape, S)
+    prep = pbb.prepare_pairs([pair], device=cuda_device, model=model)
+    mid = prep["model_id"]
+    k = pbb.pair_beam_cuda(*prep["dev"], prep["meta"], 5, model_id=mid)
+    kg = pbb._launch(*prep["dev"], prep["meta"], 5, 4, in_smem=False,
+                     model_id=mid)
+    p = tp.planned_scan(*prep["dev"], 5, 4, model_id=mid)
+    torch.cuda.synchronize()
+    for got in (k, kg):
+        assert torch.equal(got[0].cpu(), p[0].cpu())
+        assert torch.equal(got[1].cpu().view(torch.int32),
+                           p[1].cpu().view(torch.int32))
+        assert torch.equal(got[2].cpu(), p[2].cpu())
+    bprep = bb.prepare_boxes([pair, pair], device=cuda_device, model=model)
+    kb = bb.launch_boxes(bprep)
+    pb = bb.box_beam_plain(*bprep["dev"], 5, 4, mid)
+    torch.cuda.synchronize()
+    for a, b in zip(kb, pb):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,S", [("ctc_merge_repeats", 5),
+                                     ("ctc_flipflop", 8)])
+def test_kind_entries_count_their_launches(cuda_device, model, S):
+    pair = _kind_pair("narrow", S)
+    before = (pbb.launch_count, pbb.single_launch_count)
+    got = pbb.pair_beam_batch([pair], device=cuda_device, model=model)
+    one = beam2d.beam_search_2d(*pair, beam_width=5, model=model,
+                                method="row_col", device=cuda_device)
+    assert (pbb.launch_count, pbb.single_launch_count) == \
+        (before[0] + 1, before[1] + 1)
+    assert got == [one] == tp.beam_search_2d_planned_batch(
+        [pair], model=model, device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_mode", ["additive", "hard"])
+def test_viterbi_kernel_matches_plain_on_card(cuda_device, mask_mode):
+    """The Viterbi kernel's paths equal its plain version's, on the card
+    and on the CPU, for reads of mixed lengths (T = 1 among them) in one
+    launch."""
+    from poreover_tpu_torch.models.transducer import flipflop_transition_mask
+    from poreover_tpu_torch.ops import viterbi as tv
+
+    rng = np.random.default_rng(4)
+    ys = [np.log(rng.dirichlet(np.ones(8), size=T)).astype(np.float32)
+          for T in (1, 2, 63, 64, 65, 300)]
+    mask = flipflop_transition_mask()
+    before = tv.launch_count
+    got = tv.viterbi_path_masked_batch(ys, mask, mask_mode,
+                                       device=cuda_device)
+    assert tv.launch_count == before + 1
+    want = tv.viterbi_path_masked_batch(ys, mask, mask_mode, device="cpu")
+    for y, g, w in zip(ys, got, want):
+        np.testing.assert_array_equal(g, w)
+        yd = torch.as_tensor(y, device=cuda_device)[None]
+        trans = tv._trans(mask, mask_mode, torch.float32, yd.device)
+        np.testing.assert_array_equal(
+            g, tv._viterbi_masked_padded(yd, [len(y)], trans)[0])
 
 
 def _small_boxes():

@@ -35,7 +35,7 @@ def jax_f32():
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     d = tmp_path_factory.mktemp("pairs")
-    pairs = write_pairs(str(d), 3, seed=13, lo=110, hi=150)
+    pairs, _ = write_pairs(str(d), 3, seed=13, lo=110, hi=150)
     rng = np.random.default_rng(99)
     a, _ = synth_read_pair(rng, 130)
     b, _ = synth_read_pair(rng, 130)
@@ -98,13 +98,29 @@ def test_two_read_form(runs):
     (["--exact"], "A11"),
     (["--f64"], "A11"),
     (["--beam_search_method", "grid"], "A13"),
-    (["--basecaller", "bonito"], "A2b"),
-    (["--basecaller", "flappie"], "A2b"),
 ])
 def test_unported_flags_exit(tmp_path, capsys, flags, item):
     with pytest.raises(SystemExit, match=item):
         torch_main(["pair-decode", "x.npy", "y.npy", "--device", "cpu",
                     "--out", str(tmp_path / "o")] + flags)
+
+
+@pytest.mark.parametrize("basecaller,kind", [("bonito", "bonito"),
+                                             ("flappie", "flipflop")])
+def test_bonito_and_flipflop_pairs_decode(tmp_path, basecaller, kind):
+    """The two kinds that exited before (ROADMAP A2b) now decode: the
+    two-read form writes a consensus record (tests/test_torch_pair_kinds.py
+    holds the files to the JAX package's)."""
+    _, truth = write_pairs(str(tmp_path), 1, seed=3, lo=40, hi=50,
+                           kind=kind)
+    ext = ".csv" if kind == "flipflop" else ".npy"
+    torch_main(["pair-decode", str(tmp_path / f"s0_1{ext}"),
+                str(tmp_path / f"s0_2{ext}"), "--basecaller", basecaller,
+                "--reverse_complement", "--out", str(tmp_path / "o"),
+                "--device", "cpu"])
+    rec = (tmp_path / "o.fasta").read_text().splitlines()
+    assert rec[0] == ">consensus;s0_1;s0_2"
+    assert 20 < len(rec[1]) < 2 * len(truth[0])
 
 
 @pytest.mark.parametrize("cmd", [

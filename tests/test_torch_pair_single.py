@@ -43,11 +43,24 @@ def test_unported_methods_and_kinds_name_their_item(monkeypatch):
     for method in ("row", "grid", "row_col_steps"):
         with pytest.raises(NotImplementedError, match="A13"):
             tb2.beam_search_2d(y1, y2, env, 5, method=method, device="cpu")
-    with pytest.raises(NotImplementedError, match="A2b"):
-        tb2.beam_search_2d(y1, y2, env, 5, model="ctc_flipflop",
-                           method="row_col", device="cpu")
     with pytest.raises(ValueError, match="unsupported"):
         tb2.beam_search_2d(y1, y2, env, 5, method="diag", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tb2.beam_search_2d(y1, y2, env, 5, method="row_col")
+
+
+@pytest.mark.parametrize("model,S", [("ctc_merge_repeats", 5),
+                                     ("ctc_flipflop", 8)])
+def test_bonito_and_flipflop_through_the_entry(model, S):
+    """The kinds that raised before (ROADMAP A2b) go through the entry's
+    plain version on the CPU, to the JAX planned engine's string."""
+    y1, y2, env = pallas_cases(S)[3]
+    with jax_f32():
+        want = jp.beam_search_2d_planned(y1, y2, env, beam_width=5,
+                                         model=model)
+    before = (pbb.launch_count, pbb.single_launch_count)
+    got = tb2.beam_search_2d(y1, y2, env, beam_width=5, model=model,
+                             method="row_col", device="cpu")
+    assert got == want and len(got) > 0
+    assert (pbb.launch_count, pbb.single_launch_count) == before

@@ -38,11 +38,12 @@ def jax_f32():
         jax.config.update("jax_enable_x64", old)
 
 
-def pallas_cases():
-    """tests/test_pallas.py:cases(), from the same seeded generator."""
+def pallas_cases(S=5):
+    """tests/test_pallas.py:cases(), from the same seeded generator, with S
+    columns per row (5 as there; 8 for flip-flop tables)."""
     rng = np.random.default_rng(7)
 
-    def softmax_log(T, S=5):
+    def softmax_log(T, S=S):
         x = rng.normal(size=(T, S)) * 2
         return (x - np.log(np.exp(x).sum(1, keepdims=True))).astype(
             np.float32)
@@ -181,11 +182,23 @@ def test_table_state_matches_jax(cases, n_steps):
 def test_unported_branches_raise():
     y = np.log(np.full((4, 5), 0.2, np.float32))
     env = np.tile(np.array([0, 4], np.int64), (4, 1))
-    with pytest.raises(NotImplementedError, match="A2b"):
-        tp.beam_search_2d_planned(y, y, env, model="ctc_merge_repeats",
-                                  device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
         tp.beam_search_2d_planned(y, y, env, exact=True, device="cpu")
+
+
+@pytest.mark.parametrize("model,S", [("ctc_merge_repeats", 5),
+                                     ("ctc_flipflop", 8)])
+def test_bonito_and_flipflop_branches_decode(model, S):
+    """The kinds that raised before (ROADMAP A2b) decode, to the JAX
+    engine's string (tests/test_torch_planned_kinds.py has more cases)."""
+    rng = np.random.default_rng(5)
+    y1, y2 = (np.log(rng.dirichlet(np.ones(S), size=T)).astype(np.float32)
+              for T in (12, 10))
+    env = np.tile(np.array([0, 10], np.int64), (12, 1))
+    with jax_f32():
+        want = jp.beam_search_2d_planned(y1, y2, env, model=model)
+    got = tp.beam_search_2d_planned(y1, y2, env, model=model, device="cpu")
+    assert got == want and len(got) > 0
 
 
 def test_empty_read_decodes_to_empty():

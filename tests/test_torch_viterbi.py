@@ -101,3 +101,70 @@ def test_unknown_mask_mode_and_missing_card(monkeypatch):
         tvit.viterbi_path_masked(y, MASK)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrans.flipflop(y).viterbi_decode()
+
+
+@pytest.mark.parametrize("seed", [20, 21])
+def test_pair_stage1_batch_equals_each_read(seed):
+    """Stage 1 of a flip-flop pair: both reads' DPs in one batched call,
+    each equal to the read's own decode and to the JAX package's."""
+    ys = [dirichlet_log(T, 8, seed + k).astype(np.float64)
+          for k, T in enumerate((140, 97))]
+    models = [ttrans.flipflop(y) for y in ys]
+    got = ttrans.viterbi_decode_batch(models, device="cpu")
+    for y, m, (s, p) in zip(ys, models, got):
+        want_s, want_p = jtrans.flipflop(y).viterbi_decode(return_path=True)
+        assert s == want_s
+        np.testing.assert_array_equal(p, np.asarray(want_p))
+        s1, p1 = m.viterbi_decode(return_path=True, device="cpu")
+        assert s1 == s
+        np.testing.assert_array_equal(p1, p)
+
+
+def test_batch_keeps_other_kinds_on_their_own_decode():
+    y = dirichlet_log(50, 5, 8).astype(np.float64)
+    ff = dirichlet_log(30, 8, 9).astype(np.float64)
+    models = [ttrans.poreover(y), ttrans.flipflop(ff), ttrans.bonito(y)]
+    got = ttrans.viterbi_decode_batch(models, device="cpu")
+    for m, (s, p) in zip(models, got):
+        s1, p1 = m.viterbi_decode(return_path=True, device="cpu")
+        assert s == s1
+        np.testing.assert_array_equal(p, p1)
+
+
+def test_pair_decode_stage1_passes_the_device(tmp_path, monkeypatch):
+    """pair-decode hands ``--device`` to the flip-flop DP (one batched
+    call with both reads), so ``--device cpu`` never reaches for CUDA."""
+    from poreover_tpu_torch.cli import build_parser
+    from poreover_tpu_torch.decoding.pair import pair_decode_helper
+    from poreover_tpu_torch.sim import write_pairs
+
+    write_pairs(str(tmp_path), 1, seed=3, lo=40, hi=50, kind="flipflop")
+    calls = []
+    real = tvit.viterbi_path_masked_batch
+
+    def spy(ys, transition, mask_mode="additive", device=None):
+        calls.append((len(ys), device))
+        return real(ys, transition, mask_mode, device=device)
+
+    monkeypatch.setattr(tvit, "viterbi_path_masked_batch", spy)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = build_parser().parse_args(
+        ["pair-decode", "s0_1.csv", "s0_2.csv", "--dir", str(tmp_path),
+         "--basecaller", "flappie", "--reverse_complement", "--device",
+         "cpu"])
+    got = []
+    pair_decode_helper(args, lambda wl, *_: got.append(wl))
+    assert calls == [(2, "cpu")]
+    assert len(got) == 1
+
+
+def test_cuda_route_takes_float32_tables_only(monkeypatch):
+    """On a CUDA device the kernel computes in float32 and says so rather
+    than casting a float64 table (checked before any launch)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    y = dirichlet_log(5, 8, 1).astype(np.float64)
+    with pytest.raises(TypeError, match="float32"):
+        tvit.viterbi_path_masked_batch([y], MASK, device="cuda")
+    with pytest.raises(ValueError, match="length 0"):
+        tvit.viterbi_path_masked_batch([y[:0].astype(np.float32)], MASK,
+                                       device="cuda")

@@ -1,0 +1,173 @@
+"""Times the kernels of one or more checkouts on the full-size waves of
+``chip_smoke.py``, on one CUDA card.
+
+    python3 tools/kernel_waves.py --waves beam1d [--reads 32,264,1056]
+                                  [--reps 3] TREE ...
+    python3 tools/kernel_waves.py --waves pair [--reps 3] TREE ...
+
+Each TREE is a directory holding a ``poreover_tpu_torch`` package (this
+checkout, or an unpacked ``git archive`` of another commit; ``--waves
+pair`` also needs its ``native/``); naming trees in the order A B B A
+compares two versions in one call. The waves, made once with this
+checkout's simulator and stages:
+
+- ``beam1d``: the 1D beam kernel (``csrc/beam1d.cu``) on the reads of
+  ``chip_smoke.py``'s phase 6 (32 simulated reads, seed 11, 5200-8200
+  bases, poreover CTC, beam width 25), repeated into waves of each
+  ``--reads`` size;
+- ``pair``: the pair kernel (``csrc/pair_beam_batch.cu``) and the box
+  kernel (``csrc/box_beam.cu``) on the plain-CTC waves of phases 5 and 9:
+  the 8 simulated pairs (seed 7, 5200-8200 bases,
+  ``--reverse_complement``) with their envelopes, and their anchored boxes
+  (``--skip_matches --skip_threshold 10``).
+
+Each tree runs in a process of its own, which builds its kernels and times
+one launch per wave with CUDA events (the mean of ``--reps`` after a
+warm-up). Prints the card's name and power limit, one line per tree and
+wave, and a digest of each wave's outputs; exits non-zero if two trees'
+outputs differ on a wave.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import pickle
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def make_inputs(waves: str, d: str) -> None:
+    """The inputs of ``waves``, made with this checkout, written into
+    ``d``."""
+    sys.path.insert(0, HERE)
+    if waves == "beam1d":
+        from poreover_tpu_torch.io.trace import model_from_trace
+        from poreover_tpu_torch.sim import write_reads
+
+        with tempfile.TemporaryDirectory() as t:
+            write_reads(t, 32, seed=11, lo=5200, hi=8200)
+            for i in range(32):
+                np.save(os.path.join(d, f"y{i}.npy"), model_from_trace(
+                    os.path.join(t, f"r{i}.npy"), "poreover").log_prob)
+        return
+    import chip_smoke as cs
+    from poreover_tpu_torch.sim import write_pairs
+
+    with tempfile.TemporaryDirectory() as t:
+        pairs_txt, _ = write_pairs(t, 8, seed=7, lo=5200, hi=8200)
+        files = cs.pair_files(pairs_txt)
+        wave = [cs.workload_of(t, r1, r2) for r1, r2 in files]
+        boxes = [b for r1, r2 in files
+                 for b in cs.anchored_boxes_of(t, r1, r2)[0]]
+    with open(os.path.join(d, "waves.pkl"), "wb") as f:
+        pickle.dump(dict(pair=wave, box=boxes), f)
+
+
+def prepared_waves(waves: str, d: str, sizes):
+    """(name, prepared launch, launch function, longest plan) of each wave,
+    one at a time, with the package of the tree on ``sys.path``."""
+    if waves == "beam1d":
+        from poreover_tpu_torch.ops import beam1d
+
+        ys = [np.load(os.path.join(d, f"y{i}.npy")) for i in range(32)]
+        for B in sizes:
+            prep = beam1d.prepare_beam1d([ys[i % 32] for i in range(B)],
+                                         beam_width=25, device="cuda")
+            yield (f"{B} reads", prep, beam1d.launch_beam1d,
+                   int(prep["meta"][:, 1].max()))
+        return
+    from poreover_tpu_torch.ops import box_beam as bb
+    from poreover_tpu_torch.ops import pair_beam_batch as pbb
+
+    with open(os.path.join(d, "waves.pkl"), "rb") as f:
+        inputs = pickle.load(f)
+    for name, prep, launch in (
+            ("pair wave", pbb.prepare_pairs(inputs["pair"], device="cuda"),
+             pbb.launch_prepared),
+            ("box wave", bb.prepare_boxes(inputs["box"], device="cuda"),
+             bb.launch_boxes)):
+        yield name, prep, launch, int(prep["meta"][:, 7].max())
+
+
+def time_tree(tree: str, waves: str, d: str, sizes, reps: int) -> dict:
+    """In this process: the kernels of ``tree`` on each wave."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    out = {}
+    for name, prep, launch, longest in prepared_waves(waves, d, sizes):
+        launch(prep)  # builds, warms
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            outs = launch(prep)
+        e1.record()
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for x in outs:
+            h.update(x.contiguous().view(torch.uint8).cpu().numpy())
+        out[name] = dict(ms=e0.elapsed_time(e1) / reps, longest=longest,
+                         digest=h.hexdigest()[:16])
+        del prep, outs
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("trees", nargs="*")
+    ap.add_argument("--waves", choices=("beam1d", "pair"), required=True)
+    ap.add_argument("--reads", default="32,264,1056",
+                    help="beam1d wave sizes")
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--one", help=argparse.SUPPRESS)
+    ap.add_argument("--inputs", help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    sizes = [int(x) for x in a.reads.split(",")]
+    if a.one:
+        print(json.dumps(time_tree(a.one, a.waves, a.inputs, sizes, a.reps)))
+        return 0
+    if not a.trees:
+        ap.error("name at least one tree")
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+    digests: dict[str, str] = {}
+    bad = False
+    with tempfile.TemporaryDirectory() as d:
+        make_inputs(a.waves, d)
+        for tree in a.trees:
+            r = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--one", tree,
+                 "--waves", a.waves, "--inputs", d, "--reads", a.reads,
+                 "--reps", str(a.reps)], capture_output=True, text=True)
+            if r.returncode:
+                print(r.stderr[-4000:], file=sys.stderr)
+                return 1
+            for name, x in json.loads(
+                    r.stdout.strip().splitlines()[-1]).items():
+                same = digests.setdefault(name, x["digest"]) == x["digest"]
+                bad |= not same
+                print(f"{tree}: {name} {x['ms']:.3f} ms "
+                      f"({x['ms'] * 1e3 / x['longest']:.3f} us per step of "
+                      f"the longest plan) outputs {x['digest']}"
+                      f"{'' if same else ' DIFFER'}", flush=True)
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
