@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """On-GPU smoke test of the PyTorch/CUDA port's main paths (pair-decode,
-decode and anchored pair-decode; pair-decode for all three model kinds).
+decode and anchored pair-decode; pair-decode for all three model kinds;
+pair-decode --single beam; call and call --decode).
 
 Run from a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
 Phases (each fails the run if it fails):
-  1. build: the C++ host runtime (g++), the four CUDA kernels (nvcc,
+  1. build: the C++ host runtime (g++), the five CUDA kernels (nvcc,
      sm_90a; the pair kernels with one template instance per model kind)
      and the instrumented builds of the first three
      (``-DPOREOVER_PHASE_CLOCKS``), one process each, all from the
@@ -50,7 +51,11 @@ Phases (each fails the run if it fails):
      grid, as above. The Viterbi kernel (``viterbi_path_masked_batch``)
      against its plain version ``_viterbi_masked_padded`` on flip-flop
      reads of mixed lengths (a T = 1 read among them), additive and hard
-     masks: every path equal.
+     masks: every path equal. The acceptor kernel (``acceptor_cuda``
+     against ``acceptor_plain``) on the CPU tests' shapes (ACCEPTOR_READS:
+     a full 2002-step window, T < 2 * band, a band narrower than T / L,
+     L = 0, L = 1, T = 1, T < L) in one launch, S = 5 and 8, bands 1000
+     and 10: pointer bytes and paths equal.
   3. pair-decode at full size, through the CLI entry point
      (``poreover_tpu_torch.cli.main``): 8 simulated pairs (seed 7,
      5200-8200 bases, ~36k-58k steps per read) decoded with
@@ -141,10 +146,49 @@ Phases (each fails the run if it fails):
  11. a pairs file under ``--basecaller poreover`` with one CTC ``.npy`` pair
      and one 8-column CSV pair: both decode, one pair-kernel launch per
      kind.
+ 12. ``pair-decode --single beam`` at full size, through the CLI: phase 3's
+     8 pairs, launch counts zeroed just before and read just after (one
+     1D beam and one acceptor launch per pair, one pair-kernel launch); 8
+     records, none skipped; pair 0 at >= 0.999 to the f64 oracle on the
+     envelope this run built; each consensus's identity to the truth
+     beside read 1's beam call and phase 3's consensus; stage timers with
+     ``1d_basecall`` split into ``beam_1d`` and ``acceptor``; the
+     acceptor kernel against its plain version on pair 0's two reads with
+     the labels the 1D beam wrote (pointers and paths equal), timed per
+     pair launch and per read, with its bound; 3 small bonito and 3 small
+     flip-flop pairs byte-identical to ``--device cpu`` (the JAX package
+     skips some of those pairs, and so does the port), their stage 1
+     strings and paths equal on the card and the CPU.
+ 13. ``call`` at full width: CALL_READS seeded raw signals of
+     CALL_SAMPLES samples, conv1_bigru3 at 256 / 9 / 128 with the seeded
+     initialiser's weights written as a TF bundle (``tools/tf_bundle.py``)
+     and read back through ``--weights``. As FAST5 files through the CLI
+     when h5py is installed; without it the
+     same signals, scaled by ``parse_fast5``'s ``scale_signal``, enter
+     below the FAST5 reader (``network/call.py:call_signal``). Samples/s
+     end to end, the model's load, the forward ms per [128, 1000, 1]
+     batch; read 0's probabilities against ``--device cpu`` within
+     PROB_ATOL; each of the other four architectures, one batch on the
+     card against the CPU within PROB_ATOL.
+ 14. ``call --decode viterbi`` and ``--decode beam`` on phase 13's reads
+     (launch counts zeroed just before, read just after), against
+     ``call`` then ``decode`` on the card: the Viterbi FASTA must be
+     byte-identical; the beam's strings must equal a control that takes
+     the saved probabilities' log on the card (the fused path's log) and
+     packs it on the host with ``planes_from_numpy`` (the two-stage
+     path's packer), and the fused packer's planes (y, root prefix sums,
+     offsets) must equal the host packer's on those log values; the
+     records that differ from ``decode --algorithm beam`` (which takes
+     numpy's log on the host) are printed with the count of log values
+     the two logs disagree on; the 1D kernel timed on the fused wave.
+
+``python3 chip_smoke.py --first-look`` runs only a short first check of
+the acceptor kernel and the network (``first_look``) and prints no result.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each kernel instance with the model kinds it ran, and with
-``us_per_step``), and as its last line ``{"ok":
+``us_per_step``; the acceptor with ``us_per_row``), and as its last line
+``{"ok":
 true, "device": {...}}``. Exits non-zero, printing no result, without a
 CUDA device or without the package beside it.
 """
@@ -219,6 +263,13 @@ KIND_MODEL = {"poreover": "ctc", "bonito": "ctc_merge_repeats",
               "flipflop": "ctc_flipflop"}
 VITERBI_LENGTHS = (300, 1, 257, 64, 65, 2, 1000, 129)  # phase 2's reads
 BEAM1D_WAVES = (264, 1056)  # larger 1D waves (phases 2 and 7)
+CALL_READS = 32  # phases 13-14: raw signals through call
+CALL_SAMPLES = (50_000, 80_000)  # their lengths, drawn in [lo, hi)
+# phase 13: the card's softmax probabilities against the CPU's. Both are
+# float32 without TF32, but cuDNN's GRU and convolution sum in other orders
+# than the CPU's over 1000 recurrent steps (observed 1.1e-6 on a full
+# [128, 1000, 1] batch of conv1_bigru3)
+PROB_ATOL = 1e-5
 
 
 def log(*a):
@@ -286,15 +337,15 @@ def boxes():
     return [b for b in out if plan_steps(b) <= REAL_BOX_STEPS]
 
 
-def workload_of(d, r1, r2, kind="poreover"):
-    """Stages 1-3 of the port for one pair of reads of the kind ``kind``:
-    (y1, y2, env)."""
+def workload_of(d, r1, r2, kind="poreover", extra=()):
+    """Stages 1-3 of the port for one pair of reads of the kind ``kind``
+    (``extra``: more pair-decode flags): (y1, y2, env)."""
     from poreover_tpu_torch.decoding.pair import pair_decode_helper
     from poreover_tpu_torch.cli import build_parser
 
     args = build_parser().parse_args(
         ["pair-decode", r1, r2, "--dir", d, "--basecaller",
-         BASECALLER[kind], "--reverse_complement"])
+         BASECALLER[kind], "--reverse_complement", *extra])
     got = []
     pair_decode_helper(args, _workload_sink=lambda wl, *_: got.append(wl))
     if not got:
@@ -546,6 +597,69 @@ def compare_viterbi():
             f"{t_p:.1f} ms")
         out = out or (t_k, t_p)
     return out
+
+
+# the acceptor's phase 2 reads: (T, label length) at band 1000 and 10 (the
+# CPU tests' shapes: a full 2002-step window, T < 2 * band, a band narrower
+# than T / L, L = 0, L = 1, T = 1, T < L)
+ACCEPTOR_READS = ((3000, 420), (700, 90), (50, 0), (50, 1), (1, 1), (5, 9),
+                  (300, 41))
+ACCEPTOR_OPS_PER_CELL = 6  # emit add, H subtract, scan max, v add, stay
+# add, the pointer's compare
+
+
+def acceptor_bound_ms(packed) -> tuple[float, str]:
+    """Least time for an acceptor launch: bytes (the planes, G and the row
+    table read once; the pointer band and the path written once) over HBM
+    bandwidth, vs ACCEPTOR_OPS_PER_CELL float ops per writable cell (from
+    the row table) over f32 peak."""
+    rows, meta = packed["rows"], packed["meta"]
+    n_bytes = (packed["y"].nbytes + packed["G"].nbytes + rows.nbytes
+               + int((meta[:, 3] * meta[:, 4]).sum()) + int(meta[:, 1].sum()))
+    cells = int(np.maximum(rows[:, 2] - rows[:, 1] + 1, 0).sum())
+    t_bytes = n_bytes / HBM_BPS * 1e3
+    t_ops = cells * ACCEPTOR_OPS_PER_CELL / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare_acceptor(name, packed):
+    """The acceptor kernel against its plain version, both on the card, on
+    one packed launch: pointer bytes and paths equal (tolerance 0, they
+    are integers; the row table with each row's window offset is the
+    input both read). Returns (kernel ms, plain ms)."""
+    import torch
+    from poreover_tpu_torch.ops import acceptor as ta
+
+    args = ta.upload(packed, torch.device(DEVICE))
+    (k_ptr, k_path), t_k = timed(lambda: ta.acceptor_cuda(
+        *args, packed["meta"], 4))
+    (p_ptr, p_path), t_p = timed(lambda: ta.acceptor_plain(
+        *args, packed["meta"], 4))
+    if not (torch.equal(k_ptr, p_ptr) and torch.equal(k_path, p_path)):
+        bad = int((k_path != p_path).sum())
+        fail(f"acceptor, {name}: the kernel differs from the plain version "
+             f"({bad} path steps, {int((k_ptr != p_ptr).sum())} pointer "
+             "bytes)")
+    log(f"  acceptor, {name}: pointers ({k_ptr.numel()} bytes) and paths "
+        f"({k_path.numel()} steps) equal to the plain version; kernel "
+        f"{t_k:.2f} ms, plain {t_p:.1f} ms")
+    return t_k, t_p
+
+
+def compare_acceptor_cases():
+    """Phase 2: the acceptor kernel against its plain version on
+    ACCEPTOR_READS, all in one launch, for S = 5 and 8 columns and bands
+    1000 and 10."""
+    from poreover_tpu_torch.ops import acceptor as ta
+
+    for S in (5, 8):
+        for band in (1000, 10):
+            rng = np.random.default_rng(23)
+            ys = [softmax_log(rng, T, S) for T, _ in ACCEPTOR_READS]
+            labels = ["".join("ACGT"[i] for i in rng.integers(0, 4, L))
+                      for _, L in ACCEPTOR_READS]
+            compare_acceptor(f"S={S} band={band}, {len(ys)} reads",
+                             ta.pack_acceptor(ys, labels, band))
 
 
 def anchored_boxes_of(d, r1, r2, kind="poreover"):
@@ -960,6 +1074,8 @@ def flipflop_template_control():
 
 def zero_counts():
     """Every kernel wrapper's launch counts to 0."""
+    from poreover_tpu_torch.ops import acceptor as ta
+    from poreover_tpu_torch.ops import beam1d
     from poreover_tpu_torch.ops import box_beam as bb
     from poreover_tpu_torch.ops import pair_beam_batch as pbb
     from poreover_tpu_torch.ops import viterbi as tv
@@ -967,6 +1083,8 @@ def zero_counts():
     pbb.launch_count = pbb.single_launch_count = 0
     bb.box_launch_count = 0
     tv.launch_count = 0
+    beam1d.launch_count = 0
+    ta.launch_count = 0
 
 
 def viterbi_bound_ms(lengths, S=8) -> tuple[float, str]:
@@ -1303,11 +1421,337 @@ def mixed_pairs_file():
         "consensus equals its own run's")
 
 
+def single_beam_phase(gpu, truth, cons_viterbi):
+    """Phase 12: ``pair-decode --single beam`` on phase 3's 8 full-size CTC
+    pairs through the CLI (launch counts zeroed just before, read just
+    after: one 1D beam and one acceptor launch per pair, one pair-kernel
+    launch); 8 records, none skipped; pair 0 at >= 0.999 to the f64 oracle
+    on this run's envelope; each consensus's identity to the truth beside
+    read 1's beam call and phase 3's ``--single viterbi`` consensus; the
+    acceptor kernel against its plain version on pair 0's two reads with
+    the labels the 1D beam wrote, timed per read and per pair launch; the
+    small bonito and flip-flop pairs of the CPU tests byte-identical to
+    ``--device cpu``, and their stage 1 paths on the card equal to the
+    CPU's. Returns the acceptor's entry of the kernels line."""
+    import torch
+    from poreover_tpu_torch import native
+    from poreover_tpu_torch.io.trace import model_from_trace
+    from poreover_tpu_torch.models.transducer import beam_acceptor_batch
+    from poreover_tpu_torch.ops import acceptor as ta
+    from poreover_tpu_torch.ops import beam1d
+    from poreover_tpu_torch.ops import pair_beam_batch as pbb
+    from poreover_tpu_torch.sim import write_pairs
+
+    sb = ("--single", "beam")
+    with tempfile.TemporaryDirectory() as d:
+        pairs_txt, _ = write_pairs(d, 8, seed=7, lo=5200, hi=8200)
+        zero_counts()
+        cons, calls, rows, wall, tm = pair_decode_cli(d, pairs_txt,
+                                                      "poreover", "sb", sb)
+        launches = {"beam1d": beam1d.launch_count,
+                    "acceptor": ta.launch_count,
+                    "pair_beam_batch": pbb.launch_count}
+        if len(cons) != 8 or any(r[-1] != "0" for r in rows):
+            fail(f"--single beam: expected 8 consensus records and no "
+                 f"skips; got {len(cons)} records, log rows {rows}")
+        if min(launches.values()) < 1:
+            fail(f"--single beam: a kernel of its path ran no time: "
+                 f"{launches}")
+        wl0 = workload_of(d, "s0_1.npy", "s0_2.npy", extra=sb)
+        m1 = model_from_trace(os.path.join(d, "s0_1.npy"), "poreover")
+        m2 = model_from_trace(os.path.join(d, "s0_2.npy"), "poreover")
+        m2.reverse_complement()
+    log(f"phase 12 pair-decode --single beam: 8 pairs, launches {launches}, "
+        f"end-to-end {wall:.2f} s ({8 / wall:.2f} pairs/s; consensus "
+        f"{8 / tm['consensus_2d']:.2f} pairs/s stage 4 wall); stages "
+        + " ".join(f"{k}={v:.3f}s" for k, v in tm.items()))
+    t0 = time.perf_counter()
+    oracle = native.pair_beam_row_col_cpu_emul(*wl0, beam_width=5)
+    ident = identity(cons[0], oracle)
+    log(f"  pair 0: consensus {len(cons[0])} bases, f64 oracle on this run's "
+        f"envelope {len(oracle)} bases ({time.perf_counter() - t0:.1f} s), "
+        f"aligned identity {ident:.6f}")
+    if not np.isfinite(ident) or ident < 0.999:
+        fail(f"--single beam pair 0 identity {ident} to the f64 oracle < "
+             "0.999")
+    ids = [identity(c, t) for c, t in zip(cons, truth)]
+    ids_call = [identity(c, t) for c, t in zip(calls[0::2], truth)]
+    ids_vit = [identity(c, t) for c, t in zip(cons_viterbi, truth)]
+    log("  identity to read 1's true sequence, --single beam consensus / "
+        "read 1's beam call / --single viterbi consensus: "
+        + " ".join(f"{a:.4f}/{b:.4f}/{c:.4f}"
+                   for a, b, c in zip(ids, ids_call, ids_vit))
+        + f"; means {np.mean(ids):.4f}/{np.mean(ids_call):.4f}/"
+        f"{np.mean(ids_vit):.4f}")
+
+    # the acceptor kernel on pair 0's reads, with the 1D beam's labels
+    packed = ta.pack_acceptor([m1.log_prob, m2.log_prob], calls[:2], 1000)
+    _, p_ms = compare_acceptor("pair 0 at full size, the 1D beam's labels",
+                               packed)
+    args = ta.upload(packed, torch.device(DEVICE))
+    pair_ms = event_ms(lambda: ta.acceptor_cuda(*args, packed["meta"], 4),
+                       reps=3)
+    bound, by = acceptor_bound_ms(packed)
+    per_read = []
+    for y, label in ((m1.log_prob, calls[0]), (m2.log_prob, calls[1])):
+        one = ta.pack_acceptor([y], [label], 1000)
+        a1 = ta.upload(one, torch.device(DEVICE))
+        per_read.append((len(y), len(label), event_ms(
+            lambda: ta.acceptor_cuda(*a1, one["meta"], 4), reps=3),
+            acceptor_bound_ms(one)[0]))
+    log(f"  acceptor [{gpu}]: {pair_ms:.2f} ms per pair launch (bound "
+        f"{bound:.4f} ms, {by}); per read "
+        + "; ".join(f"T={T} L={L}: {ms:.2f} ms ({ms * 1e3 / L:.2f} us per "
+                    f"row, bound {b:.4f} ms)" for T, L, ms, b in per_read)
+        + f"; plain version {p_ms:.1f} ms per pair")
+    log(f"  1d_basecall {tm['1d_basecall']:.3f} s = beam_1d "
+        f"{tm['beam_1d']:.3f} s + acceptor {tm['acceptor']:.3f} s + the "
+        "sequence maps")
+
+    # the other kinds: the CPU tests' small pairs, card against cpu
+    for kind in ("bonito", "flipflop"):
+        with tempfile.TemporaryDirectory() as d:
+            pairs_txt, _ = write_pairs(d, 3, seed=17, lo=70, hi=100,
+                                       kind=kind)
+            outs = [pair_decode_cli(d, pairs_txt, BASECALLER[kind], f"o_{dv}",
+                                    sb, device=dv) for dv in (DEVICE, "cpu")]
+            for suffix in (".1d.fasta", ".2d.fasta", ".log"):
+                a, b = (open(os.path.join(d, f"o_{dv}{suffix}")).read()
+                        for dv in (DEVICE, "cpu"))
+                if suffix == ".log":
+                    a, b = a.splitlines()[2:], b.splitlines()[2:]
+                if a != b:
+                    fail(f"--single beam {kind}: {suffix} differs between "
+                         "the card and --device cpu")
+            ext = ".csv" if kind == "flipflop" else ".npy"
+            bad = 0
+            for r1, r2 in pair_files(pairs_txt):
+                ms = [model_from_trace(os.path.join(d, r), BASECALLER[kind])
+                      for r in (r1, r2)]
+                ms[1].reverse_complement()
+                on_card, on_cpu = (beam_acceptor_batch(ms, device=dv)
+                                   for dv in (DEVICE, "cpu"))
+                bad += sum(a[0] != b[0] or not np.array_equal(a[1], b[1])
+                           for a, b in zip(on_card, on_cpu))
+            if bad:
+                fail(f"--single beam {kind}: {bad} stage 1 results differ "
+                     "between the card and the CPU")
+            n_ok = sum(r[-1] == "0" for r in outs[0][2])
+        log(f"  --single beam {kind} ({ext} traces): 3 small pairs, files "
+            f"byte-identical to --device cpu ({n_ok} decoded, the others "
+            "skipped as in the JAX package); stage 1 strings and paths "
+            "equal on both")
+    return {
+        "name": "acceptor", "kinds": ["ctc", "ctc_merge_repeats",
+                                      "ctc_flipflop"], "route": "cuda",
+        "source": "poreover_tpu_torch/csrc/acceptor.cu",
+        "replaces": "poreover_tpu/ops/acceptor.py:60 (a lax.scan, not a "
+                    "Pallas kernel)",
+        "launches": launches["acceptor"],
+        "max_abs_err": 0.0,  # pointers and paths are integers, held equal
+        "ms": pair_ms, "plain_ms": p_ms,
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "ms_per_read": [ms for _, _, ms, _ in per_read],
+        "us_per_row": [ms * 1e3 / L for _, L, ms, _ in per_read],
+        "plain_input": "pair 0 of the --single beam wave, both reads",
+    }
+
+
+def call_and_fused_phases(gpu):
+    """Phases 13 and 14: ``call`` at full width, then ``call --decode
+    viterbi|beam``, on CALL_READS seeded raw signals of CALL_SAMPLES
+    samples (FAST5 files through the CLI when h5py is installed; without
+    it, the same signals enter below ``parse_fast5``, scaled by its
+    ``scale_signal``). The conv1_bigru3 network at 256 / 9 / 128 with the
+    seeded initialiser's weights, written as a TF bundle and read back
+    through ``--weights``."""
+    import importlib.util
+
+    import torch
+    from poreover_tpu_torch.cli import build_parser
+    from poreover_tpu_torch.cli import main as cli_main
+    from poreover_tpu_torch.decoding import fused
+    from poreover_tpu_torch.io.fast5 import batch_input, scale_signal
+    from poreover_tpu_torch.network import call as nc
+    from poreover_tpu_torch.network.model import (
+        ARCHS, init_params, load_network,
+    )
+    from poreover_tpu_torch.ops import beam1d
+    from poreover_tpu_torch.sim import synth_raw_signal, write_fast5
+    from tools.tf_bundle import keras_conv1_bigru3_tensors, write_bundle
+
+    have_h5py = importlib.util.find_spec("h5py") is not None
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(31)
+    raws = [synth_raw_signal(rng, int(rng.integers(*CALL_SAMPLES)))
+            for _ in range(CALL_READS)]
+    names = [f"c{i:02d}" for i in range(CALL_READS)]
+    signals = [scale_signal(r) for r in raws]
+    n_samples = sum(len(s) for s in signals)
+    with tempfile.TemporaryDirectory() as d:
+        prefix = os.path.join(d, "ckpt", "checkpoint-0")
+        write_bundle(prefix, keras_conv1_bigru3_tensors(
+            init_params("conv1_bigru3", seed=0)))
+        reads = os.path.join(d, "reads")
+        os.makedirs(reads)
+        if have_h5py:
+            for name, raw in zip(names, raws):
+                write_fast5(os.path.join(reads, name + ".fast5"), raw, name)
+
+        def run_call(out, device, n):
+            """``call`` of the first n reads on ``device``; (wall seconds,
+            of which loading the model, or None through the CLI)."""
+            os.makedirs(out, exist_ok=True)
+            t0 = time.perf_counter()
+            t_load = None
+            if have_h5py:
+                src = reads if n == CALL_READS else os.path.join(
+                    reads, names[0] + ".fast5")
+                cli_main(["call", src, "--weights", prefix, "--dir", out,
+                          "--device", device])
+            else:
+                args = build_parser().parse_args(
+                    ["call", reads, "--weights", prefix, "--dir", out])
+                dv = torch.device(device)
+                fwd = nc.make_forward(nc.load_model(args, dv), dv)
+                t_load = time.perf_counter() - t0
+                for name, sig in zip(names[:n], signals[:n]):
+                    nc.call_signal(args, fwd, sig, name)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, t_load
+
+        zero_counts()
+        call_wall, t_load = run_call(os.path.join(d, "probs"), DEVICE,
+                                     CALL_READS)
+        probs = [np.load(os.path.join(d, "probs", n + ".npy")) for n in names]
+        if [len(p) for p in probs] != [len(s) for s in signals] or any(
+                not np.all(np.isfinite(p)) for p in probs):
+            fail("call: the probabilities' shapes or values are wrong")
+        run_call(os.path.join(d, "probs_cpu"), "cpu", 1)
+        cpu0 = np.load(os.path.join(d, "probs_cpu", names[0] + ".npy"))
+        err = float(np.abs(cpu0 - probs[0]).max())
+        net = nc.load_model(build_parser().parse_args(
+            ["call", reads, "--weights", prefix]), dev)
+        x = torch.as_tensor(batch_input(signals[0], 1000)[0][:1].astype(
+            np.float32)).to(dev)[0]
+        with torch.inference_mode():
+            fwd_ms = event_ms(lambda: torch.softmax(net(x), -1), reps=5)
+        how = ("FAST5 files through the CLI" if have_h5py else "no h5py on "
+               "this machine: the signals enter below parse_fast5")
+        log(f"phase 13 call [{gpu}] ({how}): {CALL_READS} reads, "
+            f"{n_samples} samples, end to end "
+            f"{call_wall:.2f} s ({n_samples / call_wall:.0f} samples/s"
+            + (f"; model load {t_load:.2f} s, then "
+               f"{(call_wall - t_load) * 1e3 / CALL_READS:.1f} ms per read"
+               if t_load is not None else "") + "); "
+            f"forward + softmax {fwd_ms:.2f} ms per [128, 1000, 1] batch; "
+            f"read 0 against --device cpu: max abs difference "
+            f"{err:.3g} (tolerance {PROB_ATOL})")
+        if not err <= PROB_ATOL:
+            fail(f"call: the card's probabilities differ from the CPU's by "
+                 f"{err} > {PROB_ATOL}")
+        xb = batch_input(signals[0], 1000)[0][0].astype(np.float32)
+        for arch in ARCHS:
+            if arch == "conv1_bigru3":
+                continue
+            tree = init_params(arch, seed=0)
+            outs = []
+            for dv in (dev, torch.device("cpu")):
+                net_a = load_network(tree, arch, device=dv)
+                with torch.inference_mode():
+                    outs.append(torch.softmax(
+                        net_a(torch.as_tensor(xb).to(dv)), -1).cpu().numpy())
+            e = float(np.abs(outs[0] - outs[1]).max())
+            same = float((outs[0].argmax(-1) == outs[1].argmax(-1)).mean())
+            log(f"  {arch}: one [128, 1000, 1] batch, card against CPU max "
+                f"abs difference {e:.3g}, argmax equal at {same:.6f} of "
+                "steps")
+            if not e <= PROB_ATOL:
+                fail(f"{arch}: card against CPU {e} > {PROB_ATOL}")
+
+        # ---- phase 14: fused decodes against call then decode
+        def fused_run(algorithm):
+            out = os.path.join(d, f"fused_{algorithm}")
+            argv = ["call", reads, "--weights", prefix, "--decode",
+                    algorithm, "--out", out]
+            t0 = time.perf_counter()
+            if have_h5py:
+                cli_main(argv)
+            else:
+                args = build_parser().parse_args(argv)
+                fused.decode_signals(args, nc.load_model(args, dev), names,
+                                     signals, dev)
+            torch.cuda.synchronize()
+            return read_fasta(out + ".fasta"), time.perf_counter() - t0
+
+        summary = {}
+        for algorithm in ("viterbi", "beam"):
+            zero_counts()
+            got, wall = fused_run(algorithm)
+            b4 = beam1d.launch_count
+            two, two_wall, _ = decode_cli(os.path.join(d, "probs"),
+                                          [os.path.join(d, "probs")],
+                                          "poreover", algorithm, "two_" +
+                                          algorithm)
+            two = [two[n] for n in names]
+            differ = [i for i, (a, b) in enumerate(zip(got, two)) if a != b]
+            summary[algorithm] = (wall, two_wall, b4, differ)
+            if len(got) != CALL_READS:
+                fail(f"call --decode {algorithm}: {len(got)} records")
+            if algorithm == "viterbi" and differ:
+                fail(f"call --decode viterbi differs from call then decode "
+                     f"at reads {differ}")
+            if algorithm == "beam" and b4 < 1:
+                fail("call --decode beam launched beam1d no time")
+        # the beam's control: the saved probabilities' log taken on the card
+        # (as the fused path takes it), then packed on the host by the
+        # two-stage path's packer, so that only the log is shared with the
+        # fused path; the fused packer's planes must equal the host's
+        ys = [torch.log(torch.as_tensor(p).to(dev)) for p in probs]
+        ys_h = [a.cpu().numpy() for a in ys]
+        control = beam1d.beam1d_batch(ys_h, 25, device=dev)
+        if control != got:
+            fail("call --decode beam differs from the card-log decode of the "
+                 "saved probabilities")
+        y, root, meta, meta_h = fused.pack_planes(ys)
+        planes_h = beam1d.planes_from_numpy(ys_h, "ctc")
+        root_diff = int((root.cpu().numpy() != planes_h["root"]).sum())
+        if (root_diff or not np.array_equal(meta_h, planes_h["meta"])
+                or not np.array_equal(y.cpu().numpy(), planes_h["y"])):
+            fail(f"fused.pack_planes differs from planes_from_numpy on the "
+                 f"same log values ({root_diff} root prefix sums differ)")
+        b4_ms = event_ms(lambda: beam1d.beam1d_cuda(y, root, meta, meta_h,
+                                                    25, 4, 0), reps=2)
+        host = [np.log(p) for p in probs]
+        log_diff = sum(int((a != b).sum()) for a, b in zip(ys_h, host))
+        n_log = sum(h.size for h in host)
+        (v_wall, v_two, _, _), (b_wall, b_two, b4, differ) = (
+            summary["viterbi"], summary["beam"])
+        log(f"phase 14 fused [{gpu}]: call --decode viterbi {v_wall:.2f} s "
+            f"({CALL_READS / v_wall:.2f} reads/s), FASTA byte-identical to "
+            f"call then decode --algorithm viterbi ({v_two:.2f} s); call "
+            f"--decode beam {b_wall:.2f} s ({CALL_READS / b_wall:.2f} "
+            f"reads/s; {b4} beam1d launch(es), kernel {b4_ms:.1f} ms per "
+            f"wave), equal to the card-log control; against call then "
+            f"decode --algorithm beam ({b_two:.2f} s): {len(differ)} of "
+            f"{CALL_READS} records differ {differ}")
+        if differ:
+            log("  the records that differ, aligned identity of the fused "
+                "string to the two-stage one: " + " ".join(
+                    f"{i}: {identity(got[i], two[i]):.6f}" for i in differ))
+        log(f"  log of the saved probabilities, the card's torch.log against "
+            f"numpy's np.log on this host: {log_diff} of {n_log} entries "
+            f"differ ({log_diff / n_log:.2%}); the fused packer's planes "
+            f"equal the host packer's on the card's log values (root plane: "
+            f"{root_diff} of {len(planes_h['root'])} prefix sums differ)")
+
+
 def build_all():
-    """Phase 1: the host runtime, the three kernels and the instrumented
-    builds of all three, one compiler process each, in parallel; prints
+    """Phase 1: the host runtime, the five kernels and the instrumented
+    builds of the first three, one compiler process each, in parallel; prints
     the compiler's register / spill report."""
     from poreover_tpu_torch import build, native
+    from poreover_tpu_torch.ops import acceptor as ta
     from poreover_tpu_torch.ops import beam1d
     from poreover_tpu_torch.ops import box_beam as bb
     from poreover_tpu_torch.ops import pair_beam_batch as pbb
@@ -1324,7 +1768,7 @@ def build_all():
 
     ths = [threading.Thread(target=run, args=(f,))
            for f in (native.load, pbb.load_kernel, beam1d.load_kernel,
-                     bb.load_kernel, tv.load_kernel,
+                     bb.load_kernel, tv.load_kernel, ta.load_kernel,
                      lambda: pbb.load_kernel(True),
                      lambda: bb.load_kernel(True),
                      lambda: beam1d.load_kernel(True))]
@@ -1335,7 +1779,8 @@ def build_all():
     if errs:
         fail(f"build: {errs[0]}")
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s")
-    for kernel in ("pair_beam_batch", "beam1d", "box_beam", "viterbi"):
+    for kernel in ("pair_beam_batch", "beam1d", "box_beam", "viterbi",
+                   "acceptor"):
         for line in build.ptxas_report(kernel):
             log(f"  ptxas {kernel}: {line}")
 
@@ -1402,6 +1847,7 @@ def main():
     kstats_box = {k: {"max_abs_err": 0.0} for k in ("bonito", "flipflop")}
     pair_kinds_phase2(kstats, kstats_box)
     compare_viterbi()
+    compare_acceptor_cases()
     log(f"phase 2 done: {time.perf_counter() - t_start:.0f} s elapsed")
 
     # ---- phase 3: pair-decode at full size, through the CLI
@@ -1412,7 +1858,7 @@ def main():
     from poreover_tpu_torch.utils.timers import timers
 
     with tempfile.TemporaryDirectory() as d:
-        pairs_txt, _ = write_pairs(d, 8, seed=7, lo=5200, hi=8200)
+        pairs_txt, truth3 = write_pairs(d, 8, seed=7, lo=5200, hi=8200)
         out = os.path.join(d, "out")
         pbb.launch_count = 0
         t0 = time.perf_counter()
@@ -1755,6 +2201,14 @@ def main():
     # ---- phase 11: a pairs file of mixed kinds
     mixed_pairs_file()
 
+    # ---- phase 12: pair-decode --single beam at full size
+    acc = single_beam_phase(gpu, truth3, cons_full)
+    log(f"phase 12 done: {time.perf_counter() - t_start:.0f} s elapsed")
+
+    # ---- phases 13-14: call at full width, then the fused decodes
+    call_and_fused_phases(gpu)
+    log(f"phase 14 done: {time.perf_counter() - t_start:.0f} s elapsed")
+
     kernels = [{
         "name": "pair_beam_batch", "kinds": ["ctc"], "route": "cuda",
         "source": "poreover_tpu_torch/csrc/pair_beam_batch.cu",
@@ -1803,7 +2257,7 @@ def main():
         "plain_input": f"pair 0's boxes of the anchored wave with plans of "
                        f"<= {BOX_PLAIN_STEPS} steps",
         "ms_on_plain_input": box0_k, "bound_ms_on_plain_input": box0_bound,
-    }] + kind_entries
+    }] + kind_entries + [acc]
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"ok": True, "device": {
@@ -1811,5 +2265,89 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def first_look():
+    """``--first-look``: a short first check of the acceptor kernel and the
+    network on the card (about a minute), before the whole run: the
+    versions and whether h5py is installed; the acceptor's build and ptxas
+    report; the ``cuda``-marked acceptor tests of tests/test_torch_kernel.py;
+    the kernel against its plain version on two full-size simulated CTC
+    reads (seed 7; 7000 and 5300 bases, their true sequences as labels),
+    timed per read and per two-read launch; conv1_bigru3 at full width on
+    one [128, 1000, 1] batch of seeded noise on the card and the CPU:
+    forward + softmax ms per batch, the largest probability difference, and
+    on how many probabilities the card's ``torch.log`` and numpy's
+    ``np.log`` disagree. Prints no result line."""
+    import importlib.util
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, HERE)
+    from poreover_tpu_torch import build
+    from poreover_tpu_torch.network.model import init_params, load_network
+    from poreover_tpu_torch.ops import acceptor as ta
+    from poreover_tpu_torch.sim import synth_ctc_read
+
+    log(gpu_line())
+    log(sys.version.split()[0], torch.__version__, torch.version.cuda,
+        "h5py" if importlib.util.find_spec("h5py") else "no h5py")
+    t0 = time.perf_counter()
+    ta.load_kernel()
+    log(f"acceptor build {time.perf_counter() - t0:.1f} s")
+    for line in build.ptxas_report("acceptor"):
+        log("ptxas", line)
+    tests = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
+         "-k", "acceptor", "-p", "no:cacheprovider",
+         os.path.join(HERE, "tests", "test_torch_kernel.py")],
+        capture_output=True, text=True, cwd=HERE)
+    log(tests.stdout.strip().splitlines()[-1])
+    if tests.returncode != 0:
+        fail(f"the acceptor tests: {tests.stdout[-3000:]}"
+             f"{tests.stderr[-2000:]}")
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(7)
+    ys, labels = [], []
+    for n in (7000, 5300):
+        seq = rng.integers(0, 4, n)
+        ys.append(synth_ctc_read(rng, seq))
+        labels.append("".join("ACGT"[c] for c in seq))
+    packed = ta.pack_acceptor(ys, labels, 1000)
+    compare_acceptor(f"full-size reads T {[len(y) for y in ys]}", packed)
+    args = ta.upload(packed, dev)
+    pair_ms = event_ms(lambda: ta.acceptor_cuda(*args, packed["meta"], 4), 2)
+    log(f"acceptor, both reads in one launch: {pair_ms:.2f} ms")
+    for y, label in zip(ys, labels):
+        one = ta.pack_acceptor([y], [label], 1000)
+        a1 = ta.upload(one, dev)
+        ms = event_ms(lambda: ta.acceptor_cuda(*a1, one["meta"], 4), 2)
+        log(f"acceptor, T={len(y)} L={len(label)}: {ms:.2f} ms "
+            f"({ms * 1e3 / len(label):.2f} us per row)")
+
+    tree = init_params("conv1_bigru3", seed=0)
+    net_c = load_network(tree, "conv1_bigru3", device=dev)
+    net_h = load_network(tree, "conv1_bigru3", device="cpu")
+    x = np.random.default_rng(1).normal(size=(128, 1000, 1)).astype(
+        np.float32)
+    with torch.inference_mode():
+        xc = torch.from_numpy(x).to(dev)
+        fwd_ms = event_ms(lambda: torch.softmax(net_c(xc), -1), 3)
+        pc = torch.softmax(net_c(xc), -1)
+        t0 = time.perf_counter()
+        ph = torch.softmax(net_h(torch.from_numpy(x)), -1).numpy()
+        cpu_s = time.perf_counter() - t0
+        pcn = pc.cpu().numpy()
+        n_log = int((torch.log(pc).cpu().numpy() != np.log(pcn)).sum())
+    log(f"conv1_bigru3 forward + softmax {fwd_ms:.2f} ms per [128, 1000, 1] "
+        f"batch (CPU {cpu_s:.2f} s); max abs probability difference "
+        f"{np.abs(pcn - ph).max():.3g}; torch.log against np.log: {n_log} "
+        f"of {pcn.size} differ")
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--first-look"]:
+        first_look()
+    else:
+        main()

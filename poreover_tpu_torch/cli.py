@@ -2,11 +2,12 @@
 
 The five subcommands and the flag surface of ``poreover_tpu/cli.py`` (the
 reference CLI, poreover/__main__.py:19-99), plus ``--device`` on
-``pair-decode`` and ``decode``. ``pair-decode`` runs on its main path
-(poreover CTC traces, envelope, row_col beam, Viterbi 1D stage) and
-``decode`` for all three model kinds (Viterbi, beam and prefix search);
-flags and subcommands outside the port so far exit with an error naming
-the ROADMAP item that ports them.
+``call``, ``pair-decode`` and ``decode``. ``call`` runs the network (and,
+with ``--decode``, the fused decode), ``pair-decode`` its envelope /
+row_col path for all three model kinds (``--single viterbi|beam``,
+``--skip_matches``) and ``decode`` for all three model kinds (Viterbi, beam
+and prefix search); flags and subcommands outside the port so far exit
+with an error naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -82,6 +83,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="beam width for --decode beam")
     p_call.add_argument("--out", default=None,
                         help="output FASTA prefix for --decode")
+    p_call.add_argument(
+        "--device", default="cuda", choices=["cuda", "cpu"],
+        help="where the network (and a fused decode) runs: on the card, or "
+        "on the CPU")
 
     # ---- decode ----
     p_dec = subparsers.add_parser(
@@ -196,8 +201,17 @@ def _train(args):
 
 
 def _call(args):
-    _not_ported("call" + (" --decode" if args.decode else ""),
-                "A9" if args.decode else "A8")
+    from .device import resolve_device
+
+    resolve_device(args.device)
+    if args.decode:
+        from .decoding.fused import call_and_decode
+
+        call_and_decode(args)
+        return
+    from .network.call import call
+
+    call(args)
 
 
 def _decode(args):
@@ -214,7 +228,6 @@ def _benchmark(args):
 _PAIR_UNPORTED = [
     ("--method split|align", lambda a: a.method != "envelope", "A13"),
     ("--algorithm prefix", lambda a: a.algorithm != "beam", "A13"),
-    ("--single beam", lambda a: a.single != "viterbi", "A10"),
     ("--exact", lambda a: a.exact, "A11"),
     ("--f64", lambda a: a.f64, "A11"),
     ("--beam_search_method row|grid",

@@ -2,10 +2,13 @@
 
 Port of ``poreover_tpu/decoding/pair.py`` for the main path: poreover,
 bonito and flip-flop traces, ``--method envelope``, ``--algorithm beam``,
-``row_col``, ``--single viterbi``, and its anchored mode
+``row_col``, ``--single viterbi|beam``, and its anchored mode
 ``--skip_matches``. Stages per pair (reference pair_decode.py:305-529):
-  1. 1D basecall of both reads (per-step argmax, numpy; a flip-flop
-     pair's two Viterbi DPs in one batched call on the device)
+  1. 1D basecall of both reads: ``--single viterbi``, the per-step argmax
+     (numpy; a flip-flop pair's two Viterbi DPs in one batched call on the
+     device); ``--single beam``, the 1D beam search and the banded Viterbi
+     acceptor's path of its string, each one launch for both reads
+     (``models/transducer.py:beam_acceptor_batch``)
   2. Global alignment of the two basecalls (banded NW, C++ via ctypes)
   3. Banded alignment envelope over the U x V lattice (numpy)
   4. Consensus: the row_col pair beam search over the envelope, in waves
@@ -43,7 +46,9 @@ import numpy as np
 
 from .. import native
 from ..io.trace import model_from_trace
-from ..models.transducer import MODEL_STRING, viterbi_decode_batch
+from ..models.transducer import (
+    MODEL_STRING, beam_acceptor_batch, viterbi_decode_batch,
+)
 from ..utils.fasta import fasta_format
 from ..utils.timers import timers
 from . import envelope as envelope_mod
@@ -224,8 +229,10 @@ def pair_decode_helper(args, _workload_sink=None):
     if not args.diagonal_envelope:
         # ---- stage 1: 1D basecalls ----
         _t0 = time.perf_counter()
+        decode_1d = (viterbi_decode_batch if args.single == "viterbi"
+                     else beam_acceptor_batch)
         (basecall1, viterbi_path1), (basecall2, viterbi_path2) = \
-            viterbi_decode_batch([model1, model2], device=args.device)
+            decode_1d([model1, model2], device=args.device)
 
         if abs(len(basecall1) - len(basecall2)) > 1000:
             log.warning("skipping pair due to length mismatch")

@@ -171,6 +171,42 @@ def viterbi_decode_batch(models, device=None) -> list[tuple]:
     return out
 
 
+def beam_acceptor_batch(models, device=None, beam_width: int = 25,
+                        band_size: int = 1000) -> list[tuple]:
+    """(string, path) of each model's 1D beam search and the banded Viterbi
+    acceptor's path of that string through the read: stage 1 of
+    ``pair-decode --single beam`` (reference pair_decode.py, the JAX
+    package's decoding/pair.py:344-354: ``beam_search`` at its default
+    width 25, then ``viterbi_acceptor`` with ``band_size=1000``). The
+    models are of one kind. On a CUDA device the beam search is one launch
+    of the 1D beam kernel and the acceptor one launch of its kernel, for
+    all the models together; on the CPU their plain versions run. The
+    stage timers ``beam_1d`` and ``acceptor`` split the two."""
+    from ..decoding.decode import _uses_kernel
+    from ..device import resolve_device
+    from ..ops.acceptor import viterbi_acceptor_batch
+    from ..utils.timers import timers
+
+    dev = resolve_device(device)
+    ys = [m.log_prob for m in models]
+    model = MODEL_STRING[models[0].kind]
+    with timers.stage("beam_1d"):
+        if _uses_kernel(dev, beam_width):
+            from ..ops.beam1d import beam1d_batch
+
+            seqs = beam1d_batch(ys, beam_width=beam_width, model=model,
+                                device=dev)
+        else:
+            from ..ops.beam import beam_search_batch
+
+            seqs = beam_search_batch(ys, beam_width=beam_width, model=model,
+                                     device=dev)
+    with timers.stage("acceptor"):
+        paths = viterbi_acceptor_batch(ys, seqs, band_size=band_size,
+                                       device=dev)
+    return list(zip(seqs, paths))
+
+
 def from_kind(kind: str, log_prob) -> Transducer:
     cls = {"poreover": poreover, "bonito": bonito, "flipflop": flipflop}[kind]
     return cls(log_prob)

@@ -6,7 +6,8 @@ template strand and its reverse-complement strand (with ~5%
 substitutions), each rendered as CTC emissions with geometric dwell (~7
 steps/base) and Gaussian logit noise. At 5200-8200 bases a read has
 ~36k-58k time steps. Flip-flop reads render the same strands as flip-flop
-emissions; single reads use the same rendering.
+emissions; single reads use the same rendering. Raw current traces
+(``synth_raw_signal``, ``write_fast5``) feed the network's ``call``.
 """
 from __future__ import annotations
 
@@ -155,6 +156,34 @@ def write_reads(directory, n: int, seed: int, lo: int, hi: int,
         _write_trace(os.path.join(directory, f"r{i}"),
                      render(rng, seq, noise), kind)
     return truth
+
+
+def synth_raw_signal(rng: np.random.Generator, n: int) -> np.ndarray:
+    """A raw nanopore current trace of ``n`` samples for ``call``, as int16
+    counts (a FAST5 file's ``Signal``): a level drawn in [350, 650) held
+    for 8 samples, Gaussian noise of 15, and 5 samples at 900, outside the
+    (200, 800) window that ``parse_fast5`` clips."""
+    levels = rng.uniform(350, 650, n // 8 + 1).repeat(8)[:n]
+    sig = levels + rng.normal(0, 15, n)
+    sig[rng.choice(n, 5, replace=False)] = 900
+    return sig.astype(np.int16)
+
+
+def write_fast5(path, raw: np.ndarray, read_id: str) -> None:
+    """One raw read in the FAST5 layout ``io/fast5.py:parse_fast5`` reads
+    (``/Raw/Reads/Read_1`` with the signal and its attributes, the
+    channel's ``UniqueGlobalKey/channel_id``); needs h5py."""
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        g = f.create_group("/Raw/Reads/Read_1")
+        g.attrs["read_id"] = read_id.encode()
+        g.attrs["duration"] = len(raw)
+        g.create_dataset("Signal", data=np.asarray(raw, np.int16))
+        ch = f.create_group("UniqueGlobalKey/channel_id")
+        ch.attrs["digitisation"] = 8192.0
+        ch.attrs["range"] = 1402.8
+        ch.attrs["offset"] = 6.0
 
 
 def ctc_log_likelihood(y: np.ndarray, seq: str) -> float:

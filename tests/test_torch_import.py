@@ -32,6 +32,12 @@ MODULES = [
     "poreover_tpu_torch.ops.beam1d",
     "poreover_tpu_torch.ops.viterbi",
     "poreover_tpu_torch.ops.prefix",
+    "poreover_tpu_torch.ops.acceptor",
+    "poreover_tpu_torch.io.fast5",
+    "poreover_tpu_torch.io.tf_checkpoint",
+    "poreover_tpu_torch.network.model",
+    "poreover_tpu_torch.network.call",
+    "poreover_tpu_torch.decoding.fused",
     "poreover_tpu_torch.utils",
 ]
 
@@ -53,7 +59,8 @@ def test_import_leaves_jax_out(mod):
 
 def test_sources_import_no_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|poreover_tpu)\b", re.M)
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "tools" / "tf_bundle.py"]
     hits = [f"{f.relative_to(REPO)}" for f in files
             if pat.search(f.read_text())]
     assert not hits, hits
@@ -74,3 +81,26 @@ def test_cuda_request_without_card_raises(monkeypatch):
         pair_beam_batch([(y, y, env)], device="cuda")
     # an explicit CPU request runs the plain version
     assert isinstance(pair_beam_batch([(y, y, env)], device="cpu")[0], str)
+
+
+def test_new_entry_points_need_the_card_or_cpu(monkeypatch, tmp_path):
+    """``call``, the network builder and the acceptor run on the card
+    unless asked for the CPU; without a card they raise rather than fall
+    back."""
+    from poreover_tpu_torch.cli import main
+    from poreover_tpu_torch.network.model import init_params, load_network
+    from poreover_tpu_torch.ops.acceptor import viterbi_acceptor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    y = np.log(np.full((6, 5), 0.2, np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        viterbi_acceptor(y, "AC")
+    assert viterbi_acceptor(y, "AC", device="cpu").shape == (6,)
+    small = dict(num_neurons=4, kernel_size=3, filters=2)
+    tree = init_params("conv1_bigru3", seed=0, **small)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_network(tree, "conv1_bigru3", **small)
+    net = load_network(tree, "conv1_bigru3", device="cpu", **small)
+    assert next(net.parameters()).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["call", str(tmp_path), "--weights", str(tmp_path)])

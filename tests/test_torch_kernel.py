@@ -471,3 +471,56 @@ def test_beam1d_kernel_edge_cases_on_card(cuda_device, model, S, case):
     strings = _beam1d_on_card(ys, W, model, cuda_device)
     assert len(strings) == len(ys)
 
+
+
+def _acceptor_reads(S, seed=23):
+    """Reads and labels for the acceptor kernel: a full 2002-step window
+    (band 1000, T > 2002), T < 2 * band, a band narrower than T / L (band
+    10, through the ``band`` argument), L = 0, L = 1, T = 1 and T < L."""
+    rng = np.random.default_rng(seed)
+
+    def lp(T):
+        x = rng.normal(size=(T, S)) * 2
+        return (x - np.log(np.exp(x).sum(1, keepdims=True))).astype(
+            np.float32)
+
+    def label(L):
+        return "".join("ACGT"[i] for i in rng.integers(0, 4, L))
+
+    return [(lp(T), label(L)) for T, L in
+            ((3000, 420), (700, 90), (50, 0), (50, 1), (1, 1), (5, 9),
+             (300, 41))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [5, 8])
+@pytest.mark.parametrize("band", [1000, 10])
+def test_acceptor_kernel_matches_plain_on_card(cuda_device, S, band):
+    """The acceptor kernel against its plain version on the card, all
+    reads in one launch: pointer bytes and paths equal (tolerance 0), the
+    launch counted once; and the CPU's plain version gives the same."""
+    from poreover_tpu_torch.ops import acceptor as ta
+
+    reads = _acceptor_reads(S)
+    packed = ta.pack_acceptor([y for y, _ in reads], [l for _, l in reads],
+                              band)
+    on_card = ta.upload(packed, cuda_device)
+    before = ta.launch_count
+    k_ptr, k_path = ta.acceptor_cuda(*on_card, packed["meta"], 4)
+    torch.cuda.synchronize()
+    assert ta.launch_count == before + 1
+    p_ptr, p_path = ta.acceptor_plain(*on_card, packed["meta"], 4)
+    assert torch.equal(k_ptr, p_ptr) and torch.equal(k_path, p_path)
+    c_ptr, c_path = ta.acceptor_plain(*ta.upload(packed, torch.device("cpu")),
+                                      packed["meta"], 4)
+    assert torch.equal(k_ptr.cpu(), c_ptr) and torch.equal(k_path.cpu(),
+                                                           c_path)
+    paths = ta.viterbi_acceptor_batch([y for y, _ in reads],
+                                      [l for _, l in reads], band,
+                                      device=cuda_device)
+    for (y, label), path, (o, t) in zip(reads, paths,
+                                        packed["meta"][:, :2].tolist()):
+        assert np.array_equal(path, k_path.cpu().numpy()[o:o + t])
+        if band == 1000 and len(y) >= len(label):
+            # an open band: every label character has its step
+            assert "".join("ACGT"[c] for c in path if c < 4) == label

@@ -1,9 +1,10 @@
 """Times the kernels of one or more checkouts on the full-size waves of
-``chip_smoke.py``, on one CUDA card.
+``chip_smoke.py``, or their CLI paths end to end, on one CUDA card.
 
     python3 tools/kernel_waves.py --waves beam1d [--reads 32,264,1056]
                                   [--reps 3] TREE ...
     python3 tools/kernel_waves.py --waves pair [--reps 3] TREE ...
+    python3 tools/kernel_waves.py --waves e2e [--reps 3] TREE ...
 
 Each TREE is a directory holding a ``poreover_tpu_torch`` package (this
 checkout, or an unpacked ``git archive`` of another commit; ``--waves
@@ -19,7 +20,13 @@ checkout's simulator and stages:
   kernel (``csrc/box_beam.cu``) on the plain-CTC waves of phases 5 and 9:
   the 8 simulated pairs (seed 7, 5200-8200 bases,
   ``--reverse_complement``) with their envelopes, and their anchored boxes
-  (``--skip_matches --skip_threshold 10``).
+  (``--skip_matches --skip_threshold 10``);
+- ``e2e``: the same 8 pairs and 32 reads as files, through each tree's
+  CLI end to end (phases 3, 8 and 6): ``pair-decode --reverse_complement
+  --threads 8``, the same with ``--skip_matches --skip_threshold 10``,
+  and ``decode --algorithm beam|viterbi --beam_width 25 --threads 32``;
+  wall seconds of each of ``--reps`` runs after a warm-up run (which
+  builds the kernels), and the last run's stage timers.
 
 Each tree runs in a process of its own, which builds its kernels and times
 one launch per wave with CUDA events (the mean of ``--reps`` after a
@@ -37,16 +44,38 @@ import pickle
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# the e2e runs: name -> CLI arguments after the input files' directory
+E2E_RUNS = {
+    "pair-decode": ["--reverse_complement", "--threads", "8"],
+    "pair-decode --skip_matches": ["--reverse_complement", "--threads", "8",
+                                   "--skip_matches", "--skip_threshold",
+                                   "10"],
+    "decode beam": ["--algorithm", "beam", "--beam_width", "25",
+                    "--threads", "32"],
+    "decode viterbi": ["--algorithm", "viterbi", "--beam_width", "25",
+                       "--threads", "32"],
+}
+
+
 def make_inputs(waves: str, d: str) -> None:
     """The inputs of ``waves``, made with this checkout, written into
     ``d``."""
     sys.path.insert(0, HERE)
+    if waves == "e2e":
+        from poreover_tpu_torch.sim import write_pairs, write_reads
+
+        os.makedirs(os.path.join(d, "pairs"))
+        os.makedirs(os.path.join(d, "reads"))
+        write_pairs(os.path.join(d, "pairs"), 8, seed=7, lo=5200, hi=8200)
+        write_reads(os.path.join(d, "reads"), 32, seed=11, lo=5200, hi=8200)
+        return
     if waves == "beam1d":
         from poreover_tpu_torch.io.trace import model_from_trace
         from poreover_tpu_torch.sim import write_reads
@@ -96,9 +125,47 @@ def prepared_waves(waves: str, d: str, sizes):
         yield name, prep, launch, int(prep["meta"][:, 7].max())
 
 
+def e2e_tree(d: str, reps: int) -> dict:
+    """In this process: ``E2E_RUNS`` through the CLI of the tree on
+    ``sys.path``."""
+    import glob
+
+    import torch
+    from poreover_tpu_torch.cli import main as cli_main
+    from poreover_tpu_torch.utils.timers import timers
+
+    out = {}
+    with tempfile.TemporaryDirectory() as o:
+        for name, flags in E2E_RUNS.items():
+            pairs = name.startswith("pair")
+            src = os.path.join(d, "pairs" if pairs else "reads")
+            dest = os.path.join(o, name.replace(" ", "_"))
+            argv = (["pair-decode",
+                     glob.glob(os.path.join(src, "*.txt"))[0], "--dir", src,
+                     "--basecaller", "poreover"] if pairs else
+                    ["decode", src, "--basecaller", "poreover"])
+            argv += [*flags, "--out", dest]
+            walls = []
+            for _ in range(reps + 1):
+                t0 = time.perf_counter()
+                cli_main(argv)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            h = hashlib.sha256()  # the log's "#" lines hold the arguments
+            for f in sorted(glob.glob(dest + ".*")):
+                h.update(b"".join(ln for ln in open(f, "rb")
+                                  if not ln.startswith(b"#")))
+            out[name] = dict(runs=walls[1:], timers=dict(timers.seconds),
+                             digest=h.hexdigest()[:16])
+    return out
+
+
 def time_tree(tree: str, waves: str, d: str, sizes, reps: int) -> dict:
-    """In this process: the kernels of ``tree`` on each wave."""
+    """In this process: the kernels of ``tree`` on each wave (``e2e``: its
+    CLI paths)."""
     sys.path.insert(0, os.path.abspath(tree))
+    if waves == "e2e":
+        return e2e_tree(d, reps)
     import torch
 
     out = {}
@@ -124,7 +191,8 @@ def time_tree(tree: str, waves: str, d: str, sizes, reps: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*")
-    ap.add_argument("--waves", choices=("beam1d", "pair"), required=True)
+    ap.add_argument("--waves", choices=("beam1d", "pair", "e2e"),
+                    required=True)
     ap.add_argument("--reads", default="32,264,1056",
                     help="beam1d wave sizes")
     ap.add_argument("--reps", type=int, default=3)
@@ -162,6 +230,14 @@ def main() -> int:
                     r.stdout.strip().splitlines()[-1]).items():
                 same = digests.setdefault(name, x["digest"]) == x["digest"]
                 bad |= not same
+                if a.waves == "e2e":
+                    print(f"{tree}: {name} end to end " + " ".join(
+                        f"{t:.3f}" for t in x["runs"]) + " s; last run's "
+                        "stages " + " ".join(f"{k}={v:.3f}s" for k, v in
+                                              x["timers"].items())
+                        + f"; outputs {x['digest']}"
+                        f"{'' if same else ' DIFFER'}", flush=True)
+                    continue
                 print(f"{tree}: {name} {x['ms']:.3f} ms "
                       f"({x['ms'] * 1e3 / x['longest']:.3f} us per step of "
                       f"the longest plan) outputs {x['digest']}"
