@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """On-GPU smoke test of the PyTorch/CUDA port's main paths (pair-decode,
 decode and anchored pair-decode; pair-decode for all three model kinds;
-pair-decode --single beam; call and call --decode).
+pair-decode --single beam; call and call --decode; train; benchmark).
 
 Run from a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
 Phases (each fails the run if it fails):
-  1. build: the C++ host runtime (g++), the five CUDA kernels (nvcc,
+  1. build: the C++ host runtime (g++), the six CUDA kernels (nvcc,
      sm_90a; the pair kernels with one template instance per model kind)
      and the instrumented builds of the first three
      (``-DPOREOVER_PHASE_CLOCKS``), one process each, all from the
@@ -181,13 +181,43 @@ Phases (each fails the run if it fails):
      records that differ from ``decode --algorithm beam`` (which takes
      numpy's log on the host) are printed with the count of log values
      the two logs disagree on; the 1D kernel timed on the fused wave.
+ 15. ``train`` at full width. (a) the CTC kernels (``ctc_cuda``) against
+     ``ctc_plain`` on the card, both variants: a train step's batch (B 64,
+     T 1000, the labels of 64 seeded windows, seeded logits) and hand
+     cases at T 200 (label length 0, a label longer than T, a repeated
+     base that only the merging variant cannot emit, logit lengths below
+     T and 0); the loss bit-equal, the gradient within CTC_GRAD_ULP;
+     each pass timed by CUDA events, the plain version's time, the bound;
+     for merge, ``F.ctc_loss``'s forward and backward time and its loss
+     against the kernel's. (b) ``train`` through the CLI on 64 x 42 seeded
+     windows (``sim.synth_training_windows``), conv1_bigru3 at 256 / 9 /
+     128, ``--batch_size 64 --save_every 20 --loss_every 5 --seed 3``
+     (40 steps, 2 validation batches), launch counts zeroed just before
+     and read just after: every logged loss finite, the last below the
+     first, checkpoint-0 and -1, final, model.json and metrics.jsonl
+     written, the validation edit distance printed. (e) ``call --weights
+     <run dir> --model <run dir>/model.json`` on two of phase 13's
+     signals: the newest checkpoint loaded, finite probabilities. (c) one
+     ``train_step`` from the same weights on 8 windows on the card and on
+     the CPU (tolerances at TRAIN_LOSS_RTOL and below). (d) a step at
+     batch 64 split by CUDA events (upload, forward, log-softmax, CTC
+     alpha, CTC gradient, the network's backward, Adam), samples/s and
+     steps/s.
+ 16. ``benchmark --fasta_pair`` on phase 3's FASTA files against the 8
+     simulated templates as the reference, and ``benchmark --fasta`` on
+     phase 6's 32 Viterbi calls against their true sequences (host code):
+     each ``.benchmark.csv`` written with a row per record and valid
+     identities, phase 6's 32 calls all mapped; phase 3's mapped counts
+     printed (the built-in aligner misses some of those insertion-heavy
+     calls, as the JAX package's does); wall times.
 
 ``python3 chip_smoke.py --first-look`` runs only a short first check of
-the acceptor kernel and the network (``first_look``) and prints no result.
+the CTC kernels and the train step (``first_look``) and prints no result.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each kernel instance with the model kinds it ran, and with
-``us_per_step``; the acceptor with ``us_per_row``), and as its last line
+``us_per_step``; the acceptor with ``us_per_row``; the CTC kernels with
+each pass's time and the merging variant's numbers), and as its last line
 ``{"ok":
 true, "device": {...}}``. Exits non-zero, printing no result, without a
 CUDA device or without the package beside it.
@@ -197,6 +227,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -270,6 +301,41 @@ CALL_SAMPLES = (50_000, 80_000)  # their lengths, drawn in [lo, hi)
 # than the CPU's over 1000 recurrent steps (observed 1.1e-6 on a full
 # [128, 1000, 1] batch of conv1_bigru3)
 PROB_ATOL = 1e-5
+# phase 15: train at full width. 64 x 42 windows of 1000 samples: holdout
+# 0.05 keeps 2 batches for validation and trains 40 steps.
+TRAIN_WIDTH = dict(arch="conv1_bigru3", num_neurons=128, kernel_size=9,
+                   filters=256)
+TRAIN_BATCH = 64
+TRAIN_BATCHES = 42
+TRAIN_WINDOW = 1000
+# phase 15(c): one train_step from the same weights on 8 windows, the card
+# against the CPU, tolerances set like phase 13's PROB_ATOL (both float32
+# without TF32, but cuDNN's GRU, convolution and their gradients sum in
+# other orders than the CPU's): the loss within a relative TRAIN_LOSS_RTOL;
+# each parameter's gradient within TRAIN_GRAD_RTOL of that tensor's largest
+# gradient; the updated parameters within TRAIN_PARAM_ATOL wherever the
+# gradient is resolved, |g| >= TRAIN_GRAD_FLOOR of the tensor's largest.
+# Adam's first step is -lr g / (|g| + eps): a gradient below the
+# comparison's resolution (cancelled sums near 0, whose sign the summation
+# order decides) moves its parameter anywhere in [-lr, lr], so those
+# parameters are only held within 2 lr and counted.
+TRAIN_STEP_WINDOWS = 8
+TRAIN_LR = 1e-3
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-5
+TRAIN_GRAD_FLOOR = 1e-4
+TRAIN_PARAM_ATOL = 1e-5
+# CTC kernel against its plain version on the card: the loss bit-equal; the
+# gradient within CTC_GRAD_ULP units in the last place (the kernel's and
+# torch's CUDA expf)
+CTC_GRAD_ULP = 0
+# float operations per real state and active step of the CTC passes (a
+# log-add-exp counted as OPS_LSE): plain forward 2 adds + lse; plain
+# backward 2 adds, 2 subs, 2 exps, 2 muls, 2 class adds, the gamma add;
+# merge forward 2 lse + add; merge backward 2 lse, 2 x (sub, exp, mul),
+# the class add, then 2 x (sub, exp, mul) and 2 adds
+CTC_OPS = {False: (2 + OPS_LSE, 11),
+           True: (2 * OPS_LSE + 1, 2 * OPS_LSE + 6 + 1 + 8)}
 
 
 def log(*a):
@@ -1077,6 +1143,7 @@ def zero_counts():
     from poreover_tpu_torch.ops import acceptor as ta
     from poreover_tpu_torch.ops import beam1d
     from poreover_tpu_torch.ops import box_beam as bb
+    from poreover_tpu_torch.ops import ctc
     from poreover_tpu_torch.ops import pair_beam_batch as pbb
     from poreover_tpu_torch.ops import viterbi as tv
 
@@ -1085,6 +1152,7 @@ def zero_counts():
     tv.launch_count = 0
     beam1d.launch_count = 0
     ta.launch_count = 0
+    ctc.launch_count = ctc.grad_launch_count = 0
 
 
 def viterbi_bound_ms(lengths, S=8) -> tuple[float, str]:
@@ -1746,14 +1814,501 @@ def call_and_fused_phases(gpu):
             f"{root_diff} of {len(planes_h['root'])} prefix sums differ)")
 
 
+def ulp_diff(a, b) -> int:
+    """Largest distance in units of the last place between two float32
+    arrays of equal shape (0 where both are zeros of either sign)."""
+    def ordered(x):
+        i = np.ascontiguousarray(x, np.float32).view(np.int32).astype(
+            np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int(np.abs(ordered(a) - ordered(b)).max()) if np.size(a) else 0
+
+
+def ctc_case_inputs(rng, rows, T, dev):
+    """One CTC batch on ``dev``: rows of (label, logit length); seeded
+    logits N(0, 2) through the loss's log-softmax. Returns (logp, labels,
+    label_lengths, logit_lengths) as the kernels take them."""
+    import torch
+    from poreover_tpu_torch.ops import ctc
+
+    B = len(rows)
+    L = max(1, max(len(lab) for lab, _ in rows))
+    labels = np.zeros((B, L), np.int32)
+    for i, (lab, _) in enumerate(rows):
+        labels[i, :len(lab)] = lab
+    logits = torch.as_tensor(rng.normal(0, 2, (B, T, 5)).astype(np.float32))
+    def as_int(v):
+        return torch.as_tensor(np.asarray(v, np.int32)).to(dev)
+
+    return (ctc.log_softmax(logits.to(dev)).contiguous(), as_int(labels),
+            as_int([len(lab) for lab, _ in rows]),
+            as_int([tb for _, tb in rows]))
+
+
+def ctc_fwd_bwd(fn, logp, labels, lab_len, logit_len, merge):
+    """(nll, gradient in logp of the batch mean) through ``fn``."""
+    import torch
+
+    x = logp.detach().clone().requires_grad_(True)
+    nll = fn(x, labels, lab_len, logit_len, merge)
+    g, = torch.autograd.grad(nll.mean(), x)
+    return nll.detach(), g
+
+
+def ctc_bound_ms(logp, labels, lab_len, logit_len, merge):
+    """Least time of one forward and backward: the bytes the function must
+    move (logp and the labels read, the loss and the gradient written) over
+    HBM bandwidth against its float operations over the float32 peak; and
+    the same with the alpha columns written and read back once."""
+    from poreover_tpu_torch.ops.ctc import padded_states
+
+    B, T, C = logp.shape
+    L = labels.shape[1]
+    Lb = lab_len.cpu().numpy().clip(0, L)
+    Tb = logit_len.cpu().numpy().clip(0, T)
+    S = 2 * Lb + 1 if merge else Lb + 1
+    ops = float((S * Tb).sum()) * sum(CTC_OPS[merge])
+    nbytes = 2 * B * T * C * 4 + B * L * 4 + 3 * B * 4
+    alpha_bytes = 2 * B * (T + 1) * padded_states(L, merge) * 4
+    t_ops = ops / F32_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_alpha = (nbytes + alpha_bytes) / HBM_BPS * 1e3
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound[0], bound[1], max(t_alpha, t_ops)
+
+
+def compare_ctc(name, inputs, merge, timing=False):
+    """The CTC kernels against ``ctc_plain`` on the card: the loss
+    bit-equal, the gradient within CTC_GRAD_ULP. With ``timing``, the
+    kernels' times (CUDA events, each pass apart), the plain version's
+    (host clock around one forward and backward) and, for merge, the
+    library's ``F.ctc_loss`` forward and backward and its difference from
+    the kernel. Returns a dict of the numbers."""
+    import torch
+    import torch.nn.functional as F
+    from poreover_tpu_torch.ops import ctc
+
+    k_nll, k_g = ctc_fwd_bwd(ctc.ctc_cuda, *inputs, merge)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_nll, p_g = ctc_fwd_bwd(ctc.ctc_plain, *inputs, merge)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    kn, pn = k_nll.cpu().numpy(), p_nll.cpu().numpy()
+    kg, pg = k_g.cpu().numpy(), p_g.cpu().numpy()
+    ulp = ulp_diff(kg, pg)
+    err = float(np.abs(kg - pg).max())
+    if not np.all(np.isfinite(kn)) or not np.all(np.isfinite(kg)):
+        fail(f"ctc {name}: the kernel's loss or gradient is not finite")
+    if not np.array_equal(kn.view(np.int32), pn.view(np.int32)):
+        fail(f"ctc {name}: the kernel's loss differs from the plain "
+             f"version's at {np.flatnonzero(kn != pn).tolist()} (max abs "
+             f"{np.abs(kn - pn).max()})")
+    if ulp > CTC_GRAD_ULP:
+        fail(f"ctc {name}: the gradient differs from the plain version's by "
+             f"{ulp} ulp > {CTC_GRAD_ULP} (max abs {err})")
+    out = {"max_abs_err": err, "grad_ulp": ulp, "plain_ms": plain_ms,
+           "loss": kn}
+    msg = (f"  ctc {'merge' if merge else 'plain'} {name}: loss bit-equal "
+           f"to ctc_plain, gradient {ulp} ulp (max abs {err:.3g})")
+    if timing:
+        logp, labels, lab_len, logit_len = inputs
+        go = torch.full_like(k_nll, 1.0 / len(k_nll))
+        _, alpha = ctc.alpha_pass(*inputs, merge)
+        out["alpha_ms"] = event_ms(lambda: ctc.alpha_pass(*inputs, merge), 5)
+        out["grad_ms"] = event_ms(lambda: ctc.grad_pass(*inputs, merge,
+                                                        alpha, go), 5)
+        out["ms"] = out["alpha_ms"] + out["grad_ms"]
+        out["bound_ms"], out["bound_by"], out["bound_ms_with_alpha"] = \
+            ctc_bound_ms(*inputs, merge)
+        out["library_ms"] = None
+        msg += (f"; kernel {out['ms']:.3f} ms (alpha {out['alpha_ms']:.3f}, "
+                f"gradient {out['grad_ms']:.3f}), plain version "
+                f"{plain_ms:.0f} ms, bound {out['bound_ms']:.4f} ms "
+                f"({out['bound_by']}; {out['bound_ms_with_alpha']:.4f} ms "
+                f"with the alpha columns' bytes)")
+        if merge:
+            lp_tbc = logp.transpose(0, 1)
+            tgt = labels.long()
+
+            def library():
+                x = lp_tbc.detach().requires_grad_(True)
+                loss = F.ctc_loss(x, tgt, logit_len.long(), lab_len.long(),
+                                  blank=4, reduction="none")
+                torch.autograd.grad(loss.mean(), x)
+                return loss
+
+            lib_nll = library().detach().cpu().numpy()
+            out["library_ms"] = event_ms(library, 5)
+            out["library_abs_diff"] = float(np.abs(lib_nll - kn).max())
+            out["library_rel_diff"] = float(
+                (np.abs(lib_nll - kn) / np.abs(kn)).max())
+            msg += (f"; F.ctc_loss forward + backward "
+                    f"{out['library_ms']:.3f} ms, its loss against the "
+                    f"kernel's: max abs {out['library_abs_diff']:.3g}, "
+                    f"relative {out['library_rel_diff']:.3g}")
+    log(msg)
+    return out
+
+
+def ctc_hand_rows(rng, T):
+    """Hand cases at T steps: label_length 0; a label longer than T
+    (infeasible in both variants); one base repeated (feasible without
+    merging, infeasible with it: L + repeats > T); logit_lengths < T; a
+    label of repeated pairs; logit_length 0."""
+    def rnd(n):
+        return rng.integers(0, 4, n).tolist()
+    return [([], T), (rnd(T + 50), T), ([2] * (T * 3 // 5), T),
+            (rnd(T // 5), T * 2 // 5 - 3), ([0, 0, 1, 1, 3, 3] * 10, T),
+            (rnd(5), 0), (rnd(T // 7), T)]
+
+
+def train_windows(n, seed):
+    """n seeded training windows as ``load_training_npz`` returns them."""
+    import tempfile as tf_
+    from poreover_tpu_torch.network.train import load_training_npz
+    from poreover_tpu_torch.sim import synth_training_windows
+
+    with tf_.TemporaryDirectory() as d:
+        path = os.path.join(d, "training.npz")
+        np.savez(path, **synth_training_windows(np.random.default_rng(seed),
+                                                n, TRAIN_WINDOW))
+        return load_training_npz(path)
+
+
+def ctc_phase(gpu, main_batch):
+    """Phase 15(a): the CTC kernels against ``ctc_plain`` on the card, both
+    variants, at the trainer's shape (``main_batch``: 64 windows' labels,
+    seeded logits) and on the hand cases, timed at the trainer's shape.
+    Returns {merge: numbers}."""
+    _, y, ylen = main_batch
+    rng = np.random.default_rng(41)
+    rows = [(y[i, :ylen[i]].tolist(), TRAIN_WINDOW) for i in range(len(y))]
+    main = ctc_case_inputs(rng, rows, TRAIN_WINDOW, DEVICE)
+    hand = ctc_case_inputs(rng, ctc_hand_rows(rng, 200), 200, DEVICE)
+    res = {}
+    for merge in (False, True):
+        res[merge] = compare_ctc(f"B {len(y)} T {TRAIN_WINDOW} (labels "
+                                 f"{int(ylen.min())}-{int(ylen.max())})",
+                                 main, merge, timing=True)
+        h = compare_ctc("hand cases T 200", hand, merge)
+        loss = h["loss"]
+        if not (loss[1] > 9e4 and (loss[2] > 9e4) == merge
+                and loss[5] > 9e4):
+            fail(f"ctc hand cases: the infeasible rows' losses {loss} are "
+                 "not near 1e5")
+        res[merge]["max_abs_err"] = max(res[merge]["max_abs_err"],
+                                        h["max_abs_err"])
+        res[merge]["grad_ulp"] = max(res[merge]["grad_ulp"], h["grad_ulp"])
+    log(f"phase 15a ctc [{gpu}]: the kernels equal to the plain version on "
+        "both variants")
+    return res
+
+
+def params_of(net):
+    return {k: v.detach().cpu().numpy() for k, v in net.state_dict().items()}
+
+
+def train_step_card_vs_cpu(batch):
+    """Phase 15(c): one ``train_step`` from the same weights on the same
+    windows, on the card and on the CPU. Returns the numbers the gate
+    reads: the losses and their relative difference, the largest gradient
+    difference relative to its tensor's largest gradient, the largest
+    parameter difference where the gradient is resolved, the count of
+    parameters where it is not and their largest difference, and the CPU's
+    seconds."""
+    import torch
+    from poreover_tpu_torch.network.model import (
+        PoreOverNet, init_params, params_from_flax,
+    )
+    from poreover_tpu_torch.network.train import (
+        make_optimizer, to_device, train_step,
+    )
+
+    tree = init_params(seed=5, **TRAIN_WIDTH)
+    out = []
+    for dev in (torch.device(DEVICE), torch.device("cpu")):
+        net = PoreOverNet(**TRAIN_WIDTH)
+        net.load_state_dict(params_from_flax(tree, TRAIN_WIDTH["arch"]))
+        net = net.to(dev).train()
+        opt = make_optimizer(net, TRAIN_LR)
+        t0 = time.perf_counter()
+        loss = float(train_step(net, opt, *to_device(*batch, dev)))
+        secs = time.perf_counter() - t0
+        out.append((loss, {k: (p.grad.detach().cpu().numpy(),
+                               p.detach().cpu().numpy())
+                           for k, p in net.named_parameters()}, secs))
+    (lc, card, _), (lh, cpu, cpu_s) = out
+    r = {"loss_card": lc, "loss_cpu": lh, "loss_rel": abs(lc - lh) / abs(lh),
+         "grad_rel": 0.0, "param_abs": 0.0, "unresolved": 0,
+         "unresolved_abs": 0.0, "params": 0, "cpu_s": cpu_s}
+    for k, (gh, ph) in cpu.items():
+        gc, pc = card[k]
+        scale = float(np.abs(gh).max())
+        r["grad_rel"] = max(r["grad_rel"],
+                            float(np.abs(gc - gh).max()) / scale)
+        res = np.abs(gh) >= TRAIN_GRAD_FLOOR * scale
+        d = np.abs(pc - ph)
+        r["params"] += d.size
+        r["param_abs"] = max(r["param_abs"], float(d[res].max(initial=0)))
+        r["unresolved"] += int((~res).sum())
+        r["unresolved_abs"] = max(r["unresolved_abs"],
+                                  float(d[~res].max(initial=0)))
+    return r
+
+
+def check_train_step(r):
+    log(f"  15c one train_step on {TRAIN_STEP_WINDOWS} windows, card against "
+        f"CPU: loss {r['loss_card']:.6f} / {r['loss_cpu']:.6f} (relative "
+        f"{r['loss_rel']:.3g}, tolerance {TRAIN_LOSS_RTOL}); gradient "
+        f"{r['grad_rel']:.3g} of each tensor's largest (tolerance "
+        f"{TRAIN_GRAD_RTOL}); updated parameters {r['param_abs']:.3g} where "
+        f"|g| >= {TRAIN_GRAD_FLOOR} of the tensor's largest (tolerance "
+        f"{TRAIN_PARAM_ATOL}); {r['unresolved']} of {r['params']} "
+        f"parameters below that, {r['unresolved_abs']:.3g} apart (bound "
+        f"{2 * TRAIN_LR}); the CPU's step {r['cpu_s']:.1f} s")
+    if not (r["loss_rel"] <= TRAIN_LOSS_RTOL
+            and r["grad_rel"] <= TRAIN_GRAD_RTOL
+            and r["param_abs"] <= TRAIN_PARAM_ATOL
+            and r["unresolved_abs"] <= 2 * TRAIN_LR):
+        fail(f"train_step: the card's step differs from the CPU's: {r}")
+
+
+def step_breakdown(batch, reps=5):
+    """Phase 15(d): one train step at full width split by CUDA events:
+    upload, forward, log-softmax, CTC alpha (with the mean), CTC gradient,
+    the network's backward (log-softmax's included), Adam. Returns ms per
+    part (mean of ``reps`` steps after a warm-up)."""
+    import torch
+    from poreover_tpu_torch.network.model import (
+        PoreOverNet, init_params, params_from_flax,
+    )
+    from poreover_tpu_torch.network.train import make_optimizer, to_device
+    from poreover_tpu_torch.ops import ctc
+
+    dev = torch.device(DEVICE)
+    net = PoreOverNet(**TRAIN_WIDTH)
+    net.load_state_dict(params_from_flax(init_params(seed=5, **TRAIN_WIDTH),
+                                         TRAIN_WIDTH["arch"]))
+    net = net.to(dev).train()
+    opt = make_optimizer(net, TRAIN_LR)
+    parts = ("upload", "forward", "log_softmax", "ctc_alpha", "ctc_grad",
+             "backward", "adam")
+    sums = dict.fromkeys(parts, 0.0)
+    for rep in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+        ev[0].record()
+        X, y, ylen = to_device(*batch, dev)
+        ev[1].record()
+        logits = net(X)
+        ev[2].record()
+        logp = ctc.log_softmax(logits).contiguous()
+        ev[3].record()
+        T = logp.shape[1]
+        nll = ctc.ctc_cuda(logp, y, ylen, torch.full_like(ylen, T), False)
+        loss = nll.mean()
+        ev[4].record()
+        g_logp, = torch.autograd.grad(loss, logp, retain_graph=True)
+        ev[5].record()
+        logp.backward(g_logp)
+        ev[6].record()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        ev[7].record()
+        torch.cuda.synchronize()
+        if rep:
+            for i, p in enumerate(parts):
+                sums[p] += ev[i].elapsed_time(ev[i + 1]) / reps
+    return sums
+
+
+def train_phase(gpu):
+    """Phase 15(b)-(e): ``train`` through the CLI at full width on the
+    seeded windows, the card's step against the CPU's, the step's
+    breakdown, and ``call`` from the trained run directory."""
+    import torch
+    from poreover_tpu_torch.cli import build_parser
+    from poreover_tpu_torch.cli import main as cli_main
+    from poreover_tpu_torch.io.fast5 import scale_signal
+    from poreover_tpu_torch.network import call as nc
+    from poreover_tpu_torch.network.checkpoint import load_params
+    from poreover_tpu_torch.network.model import PoreOverNet
+    from poreover_tpu_torch.ops import ctc
+    from poreover_tpu_torch.sim import synth_raw_signal, synth_training_windows
+
+    res = {}
+    n = TRAIN_BATCH * TRAIN_BATCHES
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as d:
+        npz = os.path.join(d, "training.npz")
+        np.savez(npz, **synth_training_windows(np.random.default_rng(3), n,
+                                               TRAIN_WINDOW))
+        zero_counts()
+        os.chdir(d)
+        try:
+            t0 = time.perf_counter()
+            cli_main(["train", "--data", npz, "--name", "smoke",
+                      "--model", TRAIN_WIDTH["arch"],
+                      "--num_neurons", str(TRAIN_WIDTH["num_neurons"]),
+                      "--kernel_size", str(TRAIN_WIDTH["kernel_size"]),
+                      "--filters", str(TRAIN_WIDTH["filters"]),
+                      "--batch_size", str(TRAIN_BATCH), "--save_every", "20",
+                      "--loss_every", "5", "--seed", "3"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        res["launches"] = (ctc.launch_count, ctc.grad_launch_count)
+        runs = [r for r in os.listdir(d) if r.startswith("conv1_bigru3_smoke")]
+        if len(runs) != 1:
+            fail(f"train: expected one run directory, found {runs}")
+        run = os.path.join(d, runs[0])
+        have = set(os.listdir(run))
+        need = {"checkpoint-0", "checkpoint-1", "final", "model.json",
+                "metrics.jsonl", "train.log"}
+        if not need <= have or "checkpoint-2" in have:
+            fail(f"train: the run directory holds {sorted(have)}")
+        metrics = [json.loads(x) for x in open(os.path.join(
+            run, "metrics.jsonl")).read().splitlines()]
+        losses = [m["loss"] for m in metrics if "loss" in m]
+        steps = [m["step"] for m in metrics if "loss" in m]
+        elapsed = [m["elapsed_s"] for m in metrics if "loss" in m]
+        eds = [(m["step"], m["test_edit_distance"]) for m in metrics
+               if "test_edit_distance" in m]
+        log(f"phase 15b train [{gpu}]: {n} windows of {TRAIN_WINDOW}, "
+            f"{TRAIN_WIDTH['arch']} at {TRAIN_WIDTH['filters']} / "
+            f"{TRAIN_WIDTH['kernel_size']} / {TRAIN_WIDTH['num_neurons']}, "
+            f"batch {TRAIN_BATCH}, 40 steps in "
+            f"{wall:.2f} s through the CLI (checkpoints and validation "
+            f"included); ctc launches {res['launches'][0]} alpha + "
+            f"{res['launches'][1]} gradient; loss at steps {steps}: "
+            + " ".join(f"{x:.3f}" for x in losses)
+            + f"; seconds since the loop began at those steps {elapsed}"
+            + "; validation edit distance (step, value): "
+            + " ".join(f"({s}, {e:.4f})" for s, e in eds))
+        if min(res["launches"]) < 40:
+            fail(f"train: the CTC kernels launched {res['launches']} times in "
+                 "40 steps")
+        if (len(losses) != 8 or not all(np.isfinite(losses))
+                or not losses[-1] < losses[0] or len(eds) != 2
+                or not all(np.isfinite([e for _, e in eds]))):
+            fail(f"train: losses {losses}, edit distances {eds}")
+        res["wall_s"] = wall
+        res["elapsed_s"] = elapsed
+        res["losses"] = losses
+        res["edit_distance"] = eds
+
+        # (e) call from the trained run directory on two of phase 13's
+        # signals (the same seed), below the FAST5 reader
+        rng = np.random.default_rng(31)
+        raws = [synth_raw_signal(rng, int(rng.integers(*CALL_SAMPLES)))
+                for _ in range(2)]
+        out = os.path.join(d, "probs")
+        os.makedirs(out)
+        args = build_parser().parse_args(
+            ["call", d, "--weights", run, "--model",
+             os.path.join(run, "model.json"), "--dir", out])
+        dev = torch.device(DEVICE)
+        net = nc.load_model(args, dev)
+        fwd = nc.make_forward(net, dev)
+        signals = [scale_signal(raw) for raw in raws]
+        for i, sig in enumerate(signals):
+            nc.call_signal(args, fwd, sig, f"c{i}")
+        probs = [np.load(os.path.join(out, f"c{i}.npy")) for i in range(2)]
+        direct = PoreOverNet(**TRAIN_WIDTH)
+        direct.load_state_dict(load_params(os.path.join(run, "checkpoint-1")))
+        sd_equal = all(torch.equal(a.cpu(), b) for a, b in zip(
+            net.state_dict().values(), direct.state_dict().values()))
+        if (not sd_equal
+                or [len(p) for p in probs] != [len(x) for x in signals]
+                or not all(np.all(np.isfinite(p)) for p in probs)):
+            fail("call --weights <run dir>: wrong weights or probabilities")
+        log(f"  15e call --weights <run dir> --model <run dir>/model.json: "
+            f"the newest checkpoint (checkpoint-1) loaded; 2 signals of "
+            f"{[len(x) for x in signals]} samples, probabilities finite")
+
+    r = train_step_card_vs_cpu(train_windows(TRAIN_STEP_WINDOWS, seed=9))
+    check_train_step(r)
+    res["card_vs_cpu"] = r
+
+    big = train_windows(TRAIN_BATCH, seed=10)
+    parts = step_breakdown(big)
+    step_ms = sum(parts.values())
+    log(f"  15d train step at full width, batch {TRAIN_BATCH} [{gpu}]: "
+        f"{step_ms:.2f} ms ({TRAIN_BATCH / step_ms * 1e3:.0f} samples/s, "
+        f"{1e3 / step_ms:.2f} steps/s): "
+        + " ".join(f"{k}={v:.3f}" for k, v in parts.items()) + " ms")
+    res["step_ms"] = step_ms
+    res["parts_ms"] = parts
+    log(f"phase 15 [{gpu}]: train done")
+    return res
+
+
+def benchmark_csv(path):
+    """(mapped, records, mean identity of the mapped) of a
+    ``.benchmark.csv``; fails if it is missing or an identity is outside
+    (0, 1]."""
+    import csv
+
+    if not os.path.exists(path):
+        fail(f"benchmark: {path} was not written")
+    with open(path) as f:
+        rows = list(csv.DictReader(f))
+    ids = [float(r["identity"]) for r in rows if r["mapped"] == "1"]
+    if not all(0.0 < x <= 1.0 for x in ids):
+        fail(f"benchmark: {path} holds identities {ids}")
+    return len(ids), len(rows), float(np.mean(ids)) if ids else float("nan")
+
+
+def benchmark_phase(gpu, keep, truth3, truth6):
+    """Phase 16: ``benchmark --fasta_pair`` on phase 3's FASTA files (16
+    1D calls, 8 consensi) against the 8 simulated templates, and
+    ``benchmark --fasta`` on phase 6's 32 Viterbi calls against their 32
+    true sequences (host code). Gates: every file's CSV holds a row per
+    record; phase 6's calls (identity >= IDENTITY_FLOOR, few insertions)
+    all map. Phase 3's records are mapped as far as the built-in k-mer
+    aligner finds them: the argmax calls of the simulator's noisy reads
+    carry ~18% inserted bases, which spread the aligner's diagonal votes
+    (ROADMAP §C); the counts are printed."""
+    from poreover_tpu_torch.cli import main as cli_main
+
+    def reference(name, seqs):
+        path = os.path.join(keep, name)
+        with open(path, "w") as f:
+            f.writelines(f">t{i}\n{t}\n" for i, t in enumerate(seqs))
+        return path
+
+    t0 = time.perf_counter()
+    cli_main(["benchmark", "--fasta_pair", os.path.join(keep, "out"),
+              "--reference", reference("ref3.fasta", truth3)])
+    wall = time.perf_counter() - t0
+    counts = {k: benchmark_csv(os.path.join(keep, f"out.{k}.benchmark.csv"))
+              for k in ("1d", "2d")}
+    t0 = time.perf_counter()
+    cli_main(["benchmark", "--fasta", os.path.join(keep, "vit.fasta"),
+              "--reference", reference("ref6.fasta", truth6)])
+    wall6 = time.perf_counter() - t0
+    counts["decode"] = benchmark_csv(os.path.join(keep, "vit.benchmark.csv"))
+    log(f"phase 16 benchmark (host code): --fasta_pair of phase 3 "
+        f"{wall:.2f} s, --fasta of phase 6 {wall6:.2f} s; mapped "
+        + ", ".join(f"{k}: {m}/{n} (mean identity {i:.4f})"
+                    for k, (m, n, i) in counts.items()))
+    if counts["2d"][1] != 8 or counts["1d"][1] != 16:
+        fail(f"benchmark: expected 8 consensus and 16 1D rows: {counts}")
+    if counts["decode"][:2] != (32, 32):
+        fail(f"benchmark: phase 6's Viterbi calls not all mapped: {counts}")
+    return wall, counts
+
+
 def build_all():
-    """Phase 1: the host runtime, the five kernels and the instrumented
+    """Phase 1: the host runtime, the six kernels and the instrumented
     builds of the first three, one compiler process each, in parallel; prints
     the compiler's register / spill report."""
     from poreover_tpu_torch import build, native
     from poreover_tpu_torch.ops import acceptor as ta
     from poreover_tpu_torch.ops import beam1d
     from poreover_tpu_torch.ops import box_beam as bb
+    from poreover_tpu_torch.ops import ctc
     from poreover_tpu_torch.ops import pair_beam_batch as pbb
     from poreover_tpu_torch.ops import viterbi as tv
 
@@ -1769,6 +2324,7 @@ def build_all():
     ths = [threading.Thread(target=run, args=(f,))
            for f in (native.load, pbb.load_kernel, beam1d.load_kernel,
                      bb.load_kernel, tv.load_kernel, ta.load_kernel,
+                     ctc.load_kernel,
                      lambda: pbb.load_kernel(True),
                      lambda: bb.load_kernel(True),
                      lambda: beam1d.load_kernel(True))]
@@ -1780,7 +2336,7 @@ def build_all():
         fail(f"build: {errs[0]}")
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s")
     for kernel in ("pair_beam_batch", "beam1d", "box_beam", "viterbi",
-                   "acceptor"):
+                   "acceptor", "ctc"):
         for line in build.ptxas_report(kernel):
             log(f"  ptxas {kernel}: {line}")
 
@@ -1879,6 +2435,11 @@ def main():
                  f"{len(recs)} records, log rows {rows}")
         cons_full = ["".join(r.splitlines()[1:]) for r in recs]
         cons0 = cons_full[0]
+        # phase 16 scores these FASTA files with ``benchmark``
+        keep = tempfile.mkdtemp()
+        for kind in ("1d", "2d"):
+            shutil.copy(f"{out}.{kind}.fasta", os.path.join(
+                keep, f"out.{kind}.fasta"))
         log(f"phase 3 pair-decode: 8 pairs, {launches} launch(es), "
             f"end-to-end {t_e2e:.2f} s, consensus stage {t_cons:.2f} s")
         wave = [workload_of(d, f"s{i}_1.npy", f"s{i}_2.npy")
@@ -1988,6 +2549,8 @@ def main():
             fail(f"beam identity {min(idents)} < {IDENTITY_FLOOR}")
         vrecs, vit_wall, vit_timers = decode_cli(d, [d], "poreover",
                                                  "viterbi", "vit")
+        shutil.copy(os.path.join(d, "vit.fasta"),
+                    os.path.join(keep, "vit.fasta"))
         if sorted(vrecs) != sorted(recs):
             fail("decode --algorithm viterbi: records missing")
         videns = [identity(vrecs[f"r{i}"], truth[i]) for i in range(32)]
@@ -2209,6 +2772,15 @@ def main():
     call_and_fused_phases(gpu)
     log(f"phase 14 done: {time.perf_counter() - t_start:.0f} s elapsed")
 
+    # ---- phase 15: train at full width
+    ctc_res = ctc_phase(gpu, train_windows(TRAIN_BATCH, seed=10))
+    tr = train_phase(gpu)
+    log(f"phase 15 done: {time.perf_counter() - t_start:.0f} s elapsed")
+
+    # ---- phase 16: benchmark on phase 3's and phase 6's FASTA files
+    benchmark_phase(gpu, keep, truth3, truth)
+    shutil.rmtree(keep)
+
     kernels = [{
         "name": "pair_beam_batch", "kinds": ["ctc"], "route": "cuda",
         "source": "poreover_tpu_torch/csrc/pair_beam_batch.cu",
@@ -2257,7 +2829,28 @@ def main():
         "plain_input": f"pair 0's boxes of the anchored wave with plans of "
                        f"<= {BOX_PLAIN_STEPS} steps",
         "ms_on_plain_input": box0_k, "bound_ms_on_plain_input": box0_bound,
-    }] + kind_entries + [acc]
+    }] + kind_entries + [acc, {
+        "name": "ctc", "kinds": ["plain", "merge_repeated"], "route": "cuda",
+        "source": "poreover_tpu_torch/csrc/ctc.cu",
+        "replaces": "poreover_tpu/ops/ctc.py:37 (a lax.scan, not a Pallas "
+                    "kernel)",
+        "launches": sum(tr["launches"]),
+        "max_abs_err": max(r["max_abs_err"] for r in ctc_res.values()),
+        "grad_ulp": max(r["grad_ulp"] for r in ctc_res.values()),
+        "ms": ctc_res[False]["ms"], "alpha_ms": ctc_res[False]["alpha_ms"],
+        "grad_ms": ctc_res[False]["grad_ms"],
+        "plain_ms": ctc_res[False]["plain_ms"],
+        "bound_ms": ctc_res[False]["bound_ms"],
+        "bound_by": ctc_res[False]["bound_by"],
+        "bound_ms_with_alpha": ctc_res[False]["bound_ms_with_alpha"],
+        "library_ms": None,
+        "merge_repeated": {k: ctc_res[True][k] for k in (
+            "ms", "alpha_ms", "grad_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_abs_diff", "library_rel_diff")},
+        "input": f"one train step's batch: B {TRAIN_BATCH}, T "
+                 f"{TRAIN_WINDOW}, labels of seeded windows",
+        "train_step_ms": tr["step_ms"],
+    }]
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"ok": True, "device": {
@@ -2266,17 +2859,13 @@ def main():
 
 
 def first_look():
-    """``--first-look``: a short first check of the acceptor kernel and the
-    network on the card (about a minute), before the whole run: the
-    versions and whether h5py is installed; the acceptor's build and ptxas
-    report; the ``cuda``-marked acceptor tests of tests/test_torch_kernel.py;
-    the kernel against its plain version on two full-size simulated CTC
-    reads (seed 7; 7000 and 5300 bases, their true sequences as labels),
-    timed per read and per two-read launch; conv1_bigru3 at full width on
-    one [128, 1000, 1] batch of seeded noise on the card and the CPU:
-    forward + softmax ms per batch, the largest probability difference, and
-    on how many probabilities the card's ``torch.log`` and numpy's
-    ``np.log`` disagree. Prints no result line."""
+    """``--first-look``: a short first check of the CTC kernels and the
+    trainer's step on the card (a few minutes), before the whole run: the
+    versions; the CTC kernels' build and ptxas report; the ``cuda``-marked
+    CTC tests of tests/test_torch_kernel.py; phase 15(a) (the kernels
+    against ``ctc_plain`` at the trainer's shape and on the hand cases,
+    timed); phase 15(c) (one train step, the card against the CPU) and
+    15(d) (the step's breakdown). Prints no result line."""
     import importlib.util
 
     import torch
@@ -2285,65 +2874,31 @@ def first_look():
         fail("torch.cuda.is_available() is false")
     sys.path.insert(0, HERE)
     from poreover_tpu_torch import build
-    from poreover_tpu_torch.network.model import init_params, load_network
-    from poreover_tpu_torch.ops import acceptor as ta
-    from poreover_tpu_torch.sim import synth_ctc_read
+    from poreover_tpu_torch.ops import ctc
 
-    log(gpu_line())
+    gpu = gpu_line()
+    log(gpu)
     log(sys.version.split()[0], torch.__version__, torch.version.cuda,
         "h5py" if importlib.util.find_spec("h5py") else "no h5py")
     t0 = time.perf_counter()
-    ta.load_kernel()
-    log(f"acceptor build {time.perf_counter() - t0:.1f} s")
-    for line in build.ptxas_report("acceptor"):
+    ctc.load_kernel()
+    log(f"ctc build {time.perf_counter() - t0:.1f} s")
+    for line in build.ptxas_report("ctc"):
         log("ptxas", line)
     tests = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
-         "-k", "acceptor", "-p", "no:cacheprovider",
+         "-k", "ctc", "-p", "no:cacheprovider",
          os.path.join(HERE, "tests", "test_torch_kernel.py")],
         capture_output=True, text=True, cwd=HERE)
     log(tests.stdout.strip().splitlines()[-1])
     if tests.returncode != 0:
-        fail(f"the acceptor tests: {tests.stdout[-3000:]}"
-             f"{tests.stderr[-2000:]}")
-
-    dev = torch.device(DEVICE)
-    rng = np.random.default_rng(7)
-    ys, labels = [], []
-    for n in (7000, 5300):
-        seq = rng.integers(0, 4, n)
-        ys.append(synth_ctc_read(rng, seq))
-        labels.append("".join("ACGT"[c] for c in seq))
-    packed = ta.pack_acceptor(ys, labels, 1000)
-    compare_acceptor(f"full-size reads T {[len(y) for y in ys]}", packed)
-    args = ta.upload(packed, dev)
-    pair_ms = event_ms(lambda: ta.acceptor_cuda(*args, packed["meta"], 4), 2)
-    log(f"acceptor, both reads in one launch: {pair_ms:.2f} ms")
-    for y, label in zip(ys, labels):
-        one = ta.pack_acceptor([y], [label], 1000)
-        a1 = ta.upload(one, dev)
-        ms = event_ms(lambda: ta.acceptor_cuda(*a1, one["meta"], 4), 2)
-        log(f"acceptor, T={len(y)} L={len(label)}: {ms:.2f} ms "
-            f"({ms * 1e3 / len(label):.2f} us per row)")
-
-    tree = init_params("conv1_bigru3", seed=0)
-    net_c = load_network(tree, "conv1_bigru3", device=dev)
-    net_h = load_network(tree, "conv1_bigru3", device="cpu")
-    x = np.random.default_rng(1).normal(size=(128, 1000, 1)).astype(
-        np.float32)
-    with torch.inference_mode():
-        xc = torch.from_numpy(x).to(dev)
-        fwd_ms = event_ms(lambda: torch.softmax(net_c(xc), -1), 3)
-        pc = torch.softmax(net_c(xc), -1)
-        t0 = time.perf_counter()
-        ph = torch.softmax(net_h(torch.from_numpy(x)), -1).numpy()
-        cpu_s = time.perf_counter() - t0
-        pcn = pc.cpu().numpy()
-        n_log = int((torch.log(pc).cpu().numpy() != np.log(pcn)).sum())
-    log(f"conv1_bigru3 forward + softmax {fwd_ms:.2f} ms per [128, 1000, 1] "
-        f"batch (CPU {cpu_s:.2f} s); max abs probability difference "
-        f"{np.abs(pcn - ph).max():.3g}; torch.log against np.log: {n_log} "
-        f"of {pcn.size} differ")
+        fail(f"the ctc tests: {tests.stdout[-3000:]}{tests.stderr[-2000:]}")
+    ctc_phase(gpu, train_windows(TRAIN_BATCH, seed=10))
+    check_train_step(train_step_card_vs_cpu(
+        train_windows(TRAIN_STEP_WINDOWS, seed=9)))
+    parts = step_breakdown(train_windows(TRAIN_BATCH, seed=10))
+    log(f"train step {sum(parts.values()):.2f} ms: "
+        + " ".join(f"{k}={v:.3f}" for k, v in parts.items()))
 
 
 if __name__ == "__main__":

@@ -2,12 +2,14 @@
 
 The five subcommands and the flag surface of ``poreover_tpu/cli.py`` (the
 reference CLI, poreover/__main__.py:19-99), plus ``--device`` on
-``call``, ``pair-decode`` and ``decode``. ``call`` runs the network (and,
-with ``--decode``, the fused decode), ``pair-decode`` its envelope /
-row_col path for all three model kinds (``--single viterbi|beam``,
-``--skip_matches``) and ``decode`` for all three model kinds (Viterbi, beam
-and prefix search); flags and subcommands outside the port so far exit
-with an error naming the ROADMAP item that ports them.
+``train``, ``call``, ``pair-decode`` and ``decode``. ``train`` trains a
+network (the CTC loss in the kernels of ``csrc/ctc.cu``), ``call`` runs
+it (and, with ``--decode``, the fused decode), ``pair-decode`` its
+envelope / row_col path for all three model kinds (``--single
+viterbi|beam``, ``--skip_matches``), ``decode`` all three model kinds
+(Viterbi, beam and prefix search) and ``benchmark`` scores FASTA / FASTQ
+against a reference on the host; flags outside the port so far exit with
+an error naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -52,6 +54,10 @@ def build_parser() -> argparse.ArgumentParser:
     p_train.add_argument("--num_neurons", type=int, default=128)
     p_train.add_argument("--kernel_size", type=int, default=9)
     p_train.add_argument("--filters", type=int, default=256)
+    p_train.add_argument(
+        "--device", default="cuda", choices=["cuda", "cpu"],
+        help="where the training step runs: on the card (the CTC loss in "
+        "the CUDA kernels), or its plain PyTorch version on the CPU")
 
     # ---- call ----
     p_call = subparsers.add_parser(
@@ -197,7 +203,12 @@ def _not_ported(what: str, item: str):
 
 
 def _train(args):
-    _not_ported("train", "A12")
+    from .device import resolve_device
+
+    resolve_device(args.device)
+    from .network.train import train
+
+    train(args)
 
 
 def _call(args):
@@ -221,7 +232,9 @@ def _decode(args):
 
 
 def _benchmark(args):
-    _not_ported("benchmark", "A15")
+    from .benchmark import benchmark
+
+    benchmark(args)
 
 
 # pair-decode flags outside the ported main path: (flag, test, ROADMAP item)

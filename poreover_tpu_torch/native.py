@@ -4,8 +4,8 @@ The port's own loader: it builds ``native/poreover_native.cpp``,
 ``pair_beam_cpu.cpp``, ``plan_walk.cpp`` and ``beam1d_cpu.cpp`` with
 ``g++ -O3 -std=c++17 -fPIC -shared`` into ``poreover_tpu_torch/_build/``
 at first use (never into ``native/``), and raises when no compiler is
-found. Covers the banded and full Needleman-Wunsch aligners, the C++ plan
-walk, and the f64 windowed-memo oracle of the pair beam search.
+found. Covers the banded and full Needleman-Wunsch aligners, the fitting
+aligner of ``benchmark``, the C++ plan walk, and the f64 windowed-memo oracle of the pair beam search.
 """
 from __future__ import annotations
 
@@ -53,6 +53,13 @@ def load():
         ndpointer(np.float64, flags="C_CONTIGUOUS"), ctypes.c_int,
         ndpointer(np.int64, flags="C_CONTIGUOUS"),
         ctypes.c_int, ctypes.c_char_p,
+    ]
+    lib.nw_fit_align.restype = ctypes.c_int
+    lib.nw_fit_align.argtypes = [
+        ctypes.c_char_p, ctypes.c_int,
+        ctypes.c_char_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_char_p, ctypes.c_char_p,
     ]
     lib.plan_walk_native.restype = ctypes.c_int
     lib.plan_walk_native.argtypes = [
@@ -104,6 +111,20 @@ def global_pair(seq1: str, seq2: str, match=2, mismatch=-1, gap_cost=-1):
         match, mismatch, gap_cost, out1, out2,
     )
     return out1.value[:n].decode(), out2.value[:n].decode()
+
+
+def fit_align(query: str, ref_window: str, match=2, mismatch=-1,
+              gap_cost=-1):
+    """Fitting alignment: query global, reference-window overhang free;
+    returns the gapped strings."""
+    buflen = len(query) + len(ref_window) + 1
+    out_q = ctypes.create_string_buffer(buflen)
+    out_r = ctypes.create_string_buffer(buflen)
+    n = load().nw_fit_align(
+        query.encode(), len(query), ref_window.encode(), len(ref_window),
+        match, mismatch, gap_cost, out_q, out_r,
+    )
+    return out_q.value[:n].decode(), out_r.value[:n].decode()
 
 
 def global_pair_banded(

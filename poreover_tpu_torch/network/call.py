@@ -8,11 +8,12 @@ float32 softmax probabilities (or ``.csv``), named by the FAST5 file's
 stem or, with ``--use_id``, its read id.
 
 Weights load from a TensorFlow bundle (the reference's Keras checkpoint
-layout, ``io/tf_checkpoint.py``) named by its prefix; a directory
-stands for its newest ``checkpoint-N``, as in the JAX package. The JAX
-package's other format, an orbax checkpoint, needs jax and orbax, which
-the port does not import: the port's trainer (ROADMAP A12) defines its
-own format, and until then such a path exits naming A12.
+layout, ``io/tf_checkpoint.py``) named by its prefix, or from a
+checkpoint of the port's trainer (``network/checkpoint.py``); a
+directory stands for its newest ``checkpoint-N``, as in the JAX package.
+The JAX package's other format, an orbax checkpoint, needs jax and orbax,
+which the port does not import: such a path exits naming
+``tools/orbax_to_torch.py``, which converts it.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import torch
 from ..build import REPO_DIR
 from ..device import resolve_device
 from ..io.fast5 import batch_input, parse_fast5
+from .checkpoint import is_checkpoint, load_params
 from .model import PoreOverNet, build_model, params_from_flax
 
 log = logging.getLogger("poreover_tpu_torch")
@@ -39,7 +41,8 @@ DEFAULT_WEIGHTS = str(REPO_DIR / "data" / "model" / "checkpoint-124")
 
 def latest_checkpoint(directory: str):
     """Newest checkpoint-N path inside ``directory`` (the JAX package's
-    rule: the JAX trainer's checkpoints are directories)."""
+    rule, which takes the port's checkpoint files, TF bundle prefixes and
+    the JAX trainer's orbax directories alike)."""
     cands = sorted(
         glob.glob(os.path.join(directory, "checkpoint-*")),
         key=lambda p: (len(p), p),
@@ -65,9 +68,10 @@ def _is_tf_bundle(prefix: str) -> bool:
 
 
 def weights_path(weights) -> str:
-    """The TF bundle prefix ``--weights`` names (the default checkpoint
-    when it is None, the newest checkpoint of a directory); exits when
-    there is none or it is not a TF bundle."""
+    """The checkpoint ``--weights`` names (the default checkpoint when it
+    is None, the newest checkpoint of a directory): a TF bundle prefix or
+    a checkpoint of the port's trainer; exits when there is none or it is
+    neither."""
     if weights is None:
         weights = DEFAULT_WEIGHTS
         if not _is_tf_bundle(weights):
@@ -77,12 +81,19 @@ def weights_path(weights) -> str:
             )
     elif os.path.isdir(weights) and latest_checkpoint(weights):
         weights = latest_checkpoint(weights)
-    if not _is_tf_bundle(weights):
+    if _is_tf_bundle(weights) or is_checkpoint(weights):
+        return weights
+    if os.path.isdir(weights):
         raise SystemExit(
-            f"poreover-tpu-torch: --weights {weights} is not a TensorFlow "
-            "checkpoint bundle (no .index); orbax checkpoints are not "
-            "ported to PyTorch yet (ROADMAP item A12)")
-    return weights
+            f"poreover-tpu-torch: --weights {weights} is a directory without "
+            "a TensorFlow checkpoint bundle or a checkpoint of the port's "
+            "trainer; if it is an orbax checkpoint of the JAX trainer, "
+            "convert it with `python tools/orbax_to_torch.py CHECKPOINT "
+            "OUT` and pass OUT")
+    raise SystemExit(
+        f"poreover-tpu-torch: --weights {weights} is neither a TensorFlow "
+        "checkpoint bundle (no .index) nor a checkpoint of the port's "
+        "trainer")
 
 
 def load_model(args, device) -> PoreOverNet:
@@ -91,8 +102,12 @@ def load_model(args, device) -> PoreOverNet:
     from ..io.tf_checkpoint import load_keras_conv1_bigru3
 
     net = _model_from_args(args)
-    tree = load_keras_conv1_bigru3(weights_path(args.weights))
-    net.load_state_dict(params_from_flax(tree, net.arch))
+    path = weights_path(args.weights)
+    if _is_tf_bundle(path):
+        net.load_state_dict(params_from_flax(load_keras_conv1_bigru3(path),
+                                             net.arch))
+    else:
+        net.load_state_dict(load_params(path))
     return net.eval().to(device)
 
 

@@ -7,7 +7,9 @@ substitutions), each rendered as CTC emissions with geometric dwell (~7
 steps/base) and Gaussian logit noise. At 5200-8200 bases a read has
 ~36k-58k time steps. Flip-flop reads render the same strands as flip-flop
 emissions; single reads use the same rendering. Raw current traces
-(``synth_raw_signal``, ``write_fast5``) feed the network's ``call``.
+(``synth_raw_signal``, ``write_fast5``) feed the network's ``call``, and
+labeled windows of a scaled current (``synth_training_windows``) its
+``train``.
 """
 from __future__ import annotations
 
@@ -156,6 +158,40 @@ def write_reads(directory, n: int, seed: int, lo: int, hi: int,
         _write_trace(os.path.join(directory, f"r{i}"),
                      render(rng, seq, noise), kind)
     return truth
+
+
+def synth_training_windows(rng: np.random.Generator, n: int,
+                           window: int = 1000, noise: float = 0.2) -> dict:
+    """n labeled training windows in ``io/labeled_data.py:to_npz``'s format:
+    ``signal`` float32 [n, window], ``labels`` int64 (each window's bases,
+    0-3 for ACGT, back to back) and ``row_lengths`` int64 [n]; write them
+    with ``np.savez(path, **windows)``. One random strand is cut into
+    consecutive windows: each base holds a current level for its dwell
+    (``_dwell``, ~7.25 samples per base), the level drawn once per 5-mer
+    (the base and two on each side) from a standard normal, plus Gaussian
+    noise of standard deviation ``noise``. A window's labels are the bases
+    whose first sample lies inside it."""
+    total = n * window
+    levels = rng.normal(0.0, 1.0, 4 ** 5)
+    seq = np.zeros(0, np.int64)
+    base_of = np.zeros(0, np.int64)
+    first = np.zeros(0, bool)
+    while len(base_of) < total:
+        more = int((total - len(base_of)) / 7.25 * 1.1) + 16
+        b, f = _dwell(rng, more)
+        base_of = np.concatenate([base_of, b + len(seq)])
+        first = np.concatenate([first, f])
+        seq = np.concatenate([seq, rng.integers(0, 4, more)])
+    base_of, first = base_of[:total], first[:total]
+    padded = np.concatenate([rng.integers(0, 4, 2), seq,
+                             rng.integers(0, 4, 2)])
+    kmer = sum(padded[j:j + len(seq)] * 4 ** (4 - j) for j in range(5))
+    signal = levels[kmer[base_of]] + rng.normal(0.0, noise, total)
+    first = first.reshape(n, window)
+    starts = seq[base_of].reshape(n, window)
+    return dict(signal=signal.reshape(n, window).astype(np.float32),
+                labels=starts[first].astype(np.int64),
+                row_lengths=first.sum(1).astype(np.int64))
 
 
 def synth_raw_signal(rng: np.random.Generator, n: int) -> np.ndarray:

@@ -119,7 +119,10 @@ def test_both_loaders_give_the_same_tree(tiny):
 
 
 def test_weights_that_are_not_a_bundle_name_a12(tiny, tmp_path):
+    """A directory that holds no checkpoint the port reads (an orbax
+    checkpoint of the JAX trainer, here an empty one) exits naming the
+    converter, ``tools/orbax_to_torch.py`` (ROADMAP A12's tool)."""
     d, reads, _, cfg, _ = tiny
-    with pytest.raises(SystemExit, match="A12"):
+    with pytest.raises(SystemExit, match="orbax_to_torch"):
         torch_main(["call", str(reads), "--weights", str(tmp_path),
                     "--model", str(cfg), "--device", "cpu"])

@@ -39,6 +39,11 @@ MODULES = [
     "poreover_tpu_torch.network.call",
     "poreover_tpu_torch.decoding.fused",
     "poreover_tpu_torch.utils",
+    "poreover_tpu_torch.ops.ctc",
+    "poreover_tpu_torch.network.train",
+    "poreover_tpu_torch.network.checkpoint",
+    "poreover_tpu_torch.io.labeled_data",
+    "poreover_tpu_torch.benchmark",
 ]
 
 
@@ -104,3 +109,24 @@ def test_new_entry_points_need_the_card_or_cpu(monkeypatch, tmp_path):
     assert next(net.parameters()).device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["call", str(tmp_path), "--weights", str(tmp_path)])
+
+
+def test_train_needs_the_card_or_cpu(monkeypatch, tmp_path):
+    """``train`` runs on the card unless asked for the CPU; without a card
+    it raises rather than fall back."""
+    from poreover_tpu_torch.cli import main
+
+    rng = np.random.default_rng(0)
+    data = tmp_path / "training.npz"
+    np.savez(data, signal=rng.normal(size=(4, 20)).astype(np.float32),
+             labels=rng.integers(0, 4, 8), row_lengths=np.full(4, 2))
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["train", "--data", str(data), "--batch_size", "2", "--holdout",
+            "0", "--num_neurons", "4", "--filters", "2", "--kernel_size", "3"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+    assert not list(tmp_path.glob("conv1_bigru3_run_*"))
+    main(argv + ["--device", "cpu"])
+    (run,) = tmp_path.glob("conv1_bigru3_run_*")
+    assert (run / "final").is_file()

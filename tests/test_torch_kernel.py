@@ -524,3 +524,70 @@ def test_acceptor_kernel_matches_plain_on_card(cuda_device, S, band):
         if band == 1000 and len(y) >= len(label):
             # an open band: every label character has its step
             assert "".join("ACGT"[c] for c in path if c < 4) == label
+
+
+def _ctc_batch(rng, T=120):
+    """A CTC batch: seeded logits N(0, 2) and labels with an empty label, a
+    label longer than T, repeated bases, logit lengths below T and 0."""
+    rows = [(rng.integers(0, 4, 30), T), ([], T),
+            (rng.integers(0, 4, T + 9), T), ([1] * 70, T),
+            (rng.integers(0, 4, 20), 55), ([0, 0, 3, 3] * 9, T),
+            (rng.integers(0, 4, 4), 0)]
+    L = max(len(r) for r, _ in rows)
+    labels = np.zeros((len(rows), L), np.int32)
+    for i, (r, _) in enumerate(rows):
+        labels[i, :len(r)] = r
+    logits = rng.normal(0, 2, (len(rows), T, 5)).astype(np.float32)
+    return (logits, labels, np.array([len(r) for r, _ in rows], np.int32),
+            np.array([t for _, t in rows], np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merge", [False, True])
+def test_ctc_kernel_matches_plain_on_card(cuda_device, merge):
+    """The CTC kernels against ``ctc_plain`` on the card: the loss and the
+    gradient in logp bit-equal (the plain version repeats the kernels'
+    float32 operations and the warp's summation order), one launch per
+    pass."""
+    from poreover_tpu_torch.ops import ctc
+
+    logits, labels, lab_len, logit_len = _ctc_batch(
+        np.random.default_rng(7 + merge))
+    args = [torch.as_tensor(a).to(cuda_device)
+            for a in (labels, lab_len, logit_len)]
+    logp = ctc.log_softmax(torch.as_tensor(logits).to(cuda_device))
+    out = []
+    for fn in (ctc.ctc_cuda, ctc.ctc_plain):
+        x = logp.detach().clone().requires_grad_(True)
+        before = (ctc.launch_count, ctc.grad_launch_count)
+        nll = fn(x, *args, merge)
+        g, = torch.autograd.grad(nll.mean(), x)
+        torch.cuda.synchronize()
+        out.append((nll, g, (ctc.launch_count - before[0],
+                             ctc.grad_launch_count - before[1])))
+    (kn, kg, kl), (pn, pg, pl) = out
+    assert kl == (1, 1) and pl == (0, 0)
+    assert torch.equal(kn, pn) and torch.equal(kg, pg)
+    assert torch.isfinite(kg).all() and (kn[2] > 9e4)
+
+
+@pytest.mark.cuda
+def test_ctc_loss_on_card_goes_through_the_kernels(cuda_device):
+    """``ctc_loss`` on CUDA logits launches the kernels and agrees with the
+    CPU's plain route (loss within 1e-5 relative, gradient in the logits
+    within 1e-5)."""
+    from poreover_tpu_torch.ops import ctc
+
+    logits, labels, lab_len, logit_len = _ctc_batch(np.random.default_rng(9))
+    res = []
+    for dev in (cuda_device, torch.device("cpu")):
+        x = torch.as_tensor(logits).to(dev).requires_grad_(True)
+        before = ctc.launch_count
+        loss = ctc.ctc_loss(x, labels, lab_len, logit_len, True).mean()
+        loss.backward()
+        res.append((loss.item(), x.grad.cpu().numpy(),
+                    ctc.launch_count - before))
+    (lc, gc, nc), (lh, gh, nh) = res
+    assert nc == 1 and nh == 0
+    assert abs(lc - lh) <= 1e-5 * abs(lh)
+    np.testing.assert_allclose(gc, gh, rtol=0, atol=1e-5)

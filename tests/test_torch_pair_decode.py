@@ -123,15 +123,23 @@ def test_bonito_and_flipflop_pairs_decode(tmp_path, basecaller, kind):
 
 
 @pytest.mark.parametrize("cmd", [
-    ["train", "--data", "d.npz"],
-    # call runs (ROADMAP A8, A9); weights that are not a TF bundle (the
-    # JAX package's orbax format) wait for the port's trainer
+    ["train", "--data", "d.npz", "--device", "cpu"],
+    # call runs (ROADMAP A8, A9); a directory that is not a TF bundle or a
+    # checkpoint of the port's trainer (the JAX package's orbax format)
+    # exits naming the converter
     ["call", "x.fast5", "--weights", ".", "--device", "cpu"],
     ["call", "x.fast5", "--decode", "beam", "--weights", ".", "--device",
      "cpu"],
     ["benchmark", "--reference", "r.fa"]])
-def test_other_subcommands_exit(cmd):
-    with pytest.raises(SystemExit, match="ROADMAP item A"):
+def test_other_subcommands_exit(cmd, tmp_path, monkeypatch):
+    """The other subcommands are ported (train A12, benchmark A15): each
+    runs and stops on its missing input, in an empty directory."""
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "r.fa").write_text(">chr1\nACGT\n")
+    expect = {"train": (FileNotFoundError, "d.npz"),
+              "call": (SystemExit, "orbax_to_torch"),
+              "benchmark": (SystemExit, "required")}[cmd[0]]
+    with pytest.raises(expect[0], match=expect[1]):
         torch_main(cmd)
 
 
