@@ -10,8 +10,8 @@ Run from a checkout on a machine with one CUDA card:
 Phases (each fails the run if it fails):
   1. build: the C++ host runtime (g++), the six CUDA kernels (nvcc,
      sm_90a; the pair kernels with one template instance per model kind)
-     and the instrumented builds of the first three
-     (``-DPOREOVER_PHASE_CLOCKS``), one process each, all from the
+     and the instrumented builds (``-DPOREOVER_PHASE_CLOCKS``) of the
+     first three and of the CTC kernels, one process each, all from the
      checkout's sources, in parallel; prints build seconds and the
      compiler's register / shared memory / spill report.
   2. kernels vs plain versions on the card.
@@ -186,16 +186,22 @@ Phases (each fails the run if it fails):
      T 1000, the labels of 64 seeded windows, seeded logits) and hand
      cases at T 200 (label length 0, a label longer than T, a repeated
      base that only the merging variant cannot emit, logit lengths below
-     T and 0); the loss bit-equal, the gradient within CTC_GRAD_ULP;
-     each pass timed by CUDA events, the plain version's time, the bound;
-     for merge, ``F.ctc_loss``'s forward and backward time and its loss
-     against the kernel's. (b) ``train`` through the CLI on 64 x 42 seeded
-     windows (``sim.synth_training_windows``), conv1_bigru3 at 256 / 9 /
-     128, ``--batch_size 64 --save_every 20 --loss_every 5 --seed 3``
-     (40 steps, 2 validation batches), launch counts zeroed just before
-     and read just after: every logged loss finite, the last below the
-     first, checkpoint-0 and -1, final, model.json and metrics.jsonl
-     written, the validation edit distance printed. (e) ``call --weights
+     T and 0), the state counts CTC_BOUNDARY_STATES (either side of a
+     warp and of a CTA's 1024 threads, each beside an empty label and
+     logit lengths of 0 and below T) and, merging, a label of
+     CTC_LONG_LABEL bases near MAX_SP; the loss bit-equal, the gradient
+     within CTC_GRAD_ULP; each pass timed by CUDA events, the plain
+     version's time, the bound; for merge, ``F.ctc_loss``'s forward and
+     backward time, the kernel-to-library ratio and its loss against the
+     kernel's; the instrumented build's cycles per step by phase of each
+     pass and a latency floor from them. (b) ``train`` through the CLI on
+     64 x 42 seeded windows (``sim.synth_training_windows``),
+     conv1_bigru3 at 256 / 9 / 128, ``--batch_size 64 --save_every 20
+     --loss_every 5 --seed 3`` (40 steps, 2 validation batches), launch
+     counts zeroed just before and read just after: every logged loss
+     finite, the last below the first, checkpoint-0 and -1, final,
+     model.json and metrics.jsonl written, the validation edit distance
+     printed. (e) ``call --weights
      <run dir> --model <run dir>/model.json`` on two of phase 13's
      signals: the newest checkpoint loaded, finite probabilities. (c) one
      ``train_step`` from the same weights on 8 windows on the card and on
@@ -336,6 +342,15 @@ CTC_GRAD_ULP = 0
 # the class add, then 2 x (sub, exp, mul) and 2 adds
 CTC_OPS = {False: (2 + OPS_LSE, 11),
            True: (2 * OPS_LSE + 1, 2 * OPS_LSE + 6 + 1 + 8)}
+# phase 15(a): state counts on either side of a warp's 32 and of the 1024
+# threads a CTA takes at one state each (K = 2 above; merging: S = 2 L + 1
+# is odd, so no 32), each beside an empty label, a logit length of 0 and
+# one below T; and a merging label near MAX_SP (S = 9601 of 9664: K = 16,
+# the shallowest ring), without repeats so that CTC_LONG_T steps can emit
+# it
+CTC_BOUNDARY_STATES = (31, 32, 33, 1023, 1025)
+CTC_LONG_LABEL = 4800
+CTC_LONG_T = 5000
 
 
 def log(*a):
@@ -1859,7 +1874,9 @@ def ctc_bound_ms(logp, labels, lab_len, logit_len, merge):
     """Least time of one forward and backward: the bytes the function must
     move (logp and the labels read, the loss and the gradient written) over
     HBM bandwidth against its float operations over the float32 peak; and
-    the same with the alpha columns written and read back once."""
+    the same with the design's own traffic: the alpha columns written and
+    read back once, then also the class terms (csrc/ctc.cu: plain two
+    [B, T, SP] arrays, merging one) written and read back once."""
     from poreover_tpu_torch.ops.ctc import padded_states
 
     B, T, C = logp.shape
@@ -1869,12 +1886,15 @@ def ctc_bound_ms(logp, labels, lab_len, logit_len, merge):
     S = 2 * Lb + 1 if merge else Lb + 1
     ops = float((S * Tb).sum()) * sum(CTC_OPS[merge])
     nbytes = 2 * B * T * C * 4 + B * L * 4 + 3 * B * 4
-    alpha_bytes = 2 * B * (T + 1) * padded_states(L, merge) * 4
+    SP = padded_states(L, merge)
+    alpha_bytes = 2 * B * (T + 1) * SP * 4
+    terms_bytes = 2 * (1 if merge else 2) * B * T * SP * 4
     t_ops = ops / F32_FLOPS * 1e3
     t_bytes = nbytes / HBM_BPS * 1e3
     t_alpha = (nbytes + alpha_bytes) / HBM_BPS * 1e3
+    t_design = (nbytes + alpha_bytes + terms_bytes) / HBM_BPS * 1e3
     bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    return bound[0], bound[1], max(t_alpha, t_ops)
+    return bound[0], bound[1], max(t_alpha, t_ops), max(t_design, t_ops)
 
 
 def compare_ctc(name, inputs, merge, timing=False):
@@ -1919,14 +1939,16 @@ def compare_ctc(name, inputs, merge, timing=False):
         out["grad_ms"] = event_ms(lambda: ctc.grad_pass(*inputs, merge,
                                                         alpha, go), 5)
         out["ms"] = out["alpha_ms"] + out["grad_ms"]
-        out["bound_ms"], out["bound_by"], out["bound_ms_with_alpha"] = \
-            ctc_bound_ms(*inputs, merge)
+        (out["bound_ms"], out["bound_by"], out["bound_ms_with_alpha"],
+         out["bound_ms_with_design_traffic"]) = ctc_bound_ms(*inputs, merge)
         out["library_ms"] = None
         msg += (f"; kernel {out['ms']:.3f} ms (alpha {out['alpha_ms']:.3f}, "
                 f"gradient {out['grad_ms']:.3f}), plain version "
                 f"{plain_ms:.0f} ms, bound {out['bound_ms']:.4f} ms "
                 f"({out['bound_by']}; {out['bound_ms_with_alpha']:.4f} ms "
-                f"with the alpha columns' bytes)")
+                f"with the alpha columns' bytes, "
+                f"{out['bound_ms_with_design_traffic']:.4f} ms with the class "
+                "terms' too)")
         if merge:
             lp_tbc = logp.transpose(0, 1)
             tgt = labels.long()
@@ -1944,10 +1966,49 @@ def compare_ctc(name, inputs, merge, timing=False):
             out["library_rel_diff"] = float(
                 (np.abs(lib_nll - kn) / np.abs(kn)).max())
             msg += (f"; F.ctc_loss forward + backward "
-                    f"{out['library_ms']:.3f} ms, its loss against the "
-                    f"kernel's: max abs {out['library_abs_diff']:.3g}, "
+                    f"{out['library_ms']:.3f} ms (kernel / library "
+                    f"{out['ms'] / out['library_ms']:.3f}), its loss against "
+                    f"the kernel's: max abs {out['library_abs_diff']:.3g}, "
                     f"relative {out['library_rel_diff']:.3g}")
     log(msg)
+    return out
+
+
+def ctc_breakdown(name, inputs, merge):
+    """One alpha and one gradient launch of the CTC kernels' instrumented
+    build on ``inputs``: prints the cycles per step of each phase of the
+    alpha pass and of the gradient pass's sequential kernel (thread 0 of
+    each CTA, clock64); returns them by pass and phase."""
+    import ctypes
+
+    import torch
+    from poreover_tpu_torch.ops import ctc
+
+    n = ctc.CLOCK_SLOTS
+    buf = (ctypes.c_ulonglong * n)()
+    go = torch.full((inputs[0].shape[0],), 1.0 / inputs[0].shape[0],
+                    device=inputs[0].device)
+    torch.cuda.synchronize()
+    with instrumented(ctc) as lib:
+        if lib.phase_clocks_read(buf, n, 1):
+            fail(f"{name}: phase_clocks_read failed")
+        _, alpha = ctc.alpha_pass(*inputs, merge)
+        ctc.grad_pass(*inputs, merge, alpha, go)
+        torch.cuda.synchronize()
+        if lib.phase_clocks_read(buf, n, 0):
+            fail(f"{name}: phase_clocks_read failed")
+    c = list(buf)
+    na, ng = len(ctc.CLOCK_ALPHA), len(ctc.CLOCK_GRAD)
+    out = {}
+    for part, phases, first, steps in (
+            ("alpha", ctc.CLOCK_ALPHA, 0, c[na + ng]),
+            ("grad", ctc.CLOCK_GRAD, na, c[na + ng + 1])):
+        per = {ph: c[first + j] / max(steps, 1) for j, ph in enumerate(phases)}
+        out[part] = per
+        log(f"  cycles per step, ctc {'merge' if merge else 'plain'} {part} "
+            f"pass, {name} (thread 0 of each CTA, {steps} steps): "
+            + " ".join(f"{ph} {v:.0f}" for ph, v in per.items())
+            + f"; total {sum(per.values()):.0f}")
     return out
 
 
@@ -1961,6 +2022,38 @@ def ctc_hand_rows(rng, T):
     return [([], T), (rnd(T + 50), T), ([2] * (T * 3 // 5), T),
             (rnd(T // 5), T * 2 // 5 - 3), ([0, 0, 1, 1, 3, 3] * 10, T),
             (rnd(5), 0), (rnd(T // 7), T)]
+
+
+def ctc_boundary_rows(rng, S, merge):
+    """Rows with S states (a label of S - 1 plain, (S - 1) / 2 merging) at
+    T = S + 12, an empty label, a logit length of 0 and one below T;
+    returns (rows, T)."""
+    Lb = (S - 1) // 2 if merge else S - 1
+    T = S + 12
+
+    def lab():
+        return rng.integers(0, 4, Lb).tolist()
+    return [(lab(), T), ([], T), (lab(), 0), (lab(), T // 2)], T
+
+
+def ctc_long_rows(rng):
+    """A label of CTC_LONG_LABEL bases without a base repeated next to
+    itself (so merging can emit it in CTC_LONG_T steps), and a short one."""
+    lab = [int(rng.integers(0, 4))]
+    while len(lab) < CTC_LONG_LABEL:
+        c = int(rng.integers(0, 3))
+        lab.append(c if c < lab[-1] else c + 1)
+    return [(lab, CTC_LONG_T), (rng.integers(0, 4, 30).tolist(), CTC_LONG_T)]
+
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock (nvidia-smi), MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.split()[0])
 
 
 def train_windows(n, seed):
@@ -1979,27 +2072,67 @@ def train_windows(n, seed):
 def ctc_phase(gpu, main_batch):
     """Phase 15(a): the CTC kernels against ``ctc_plain`` on the card, both
     variants, at the trainer's shape (``main_batch``: 64 windows' labels,
-    seeded logits) and on the hand cases, timed at the trainer's shape.
-    Returns {merge: numbers}."""
+    seeded logits), on the hand cases, at the boundary state counts and
+    (merging) on a label near MAX_SP; timed at the trainer's shape beside
+    ``F.ctc_loss``, with the instrumented build's cycles per step and a
+    latency floor from them. Returns {merge: numbers}."""
+    from poreover_tpu_torch.ops import ctc
+
     _, y, ylen = main_batch
     rng = np.random.default_rng(41)
     rows = [(y[i, :ylen[i]].tolist(), TRAIN_WINDOW) for i in range(len(y))]
     main = ctc_case_inputs(rng, rows, TRAIN_WINDOW, DEVICE)
     hand = ctc_case_inputs(rng, ctc_hand_rows(rng, 200), 200, DEVICE)
+    mhz = sm_clock_mhz()
     res = {}
     for merge in (False, True):
-        res[merge] = compare_ctc(f"B {len(y)} T {TRAIN_WINDOW} (labels "
-                                 f"{int(ylen.min())}-{int(ylen.max())})",
-                                 main, merge, timing=True)
-        h = compare_ctc("hand cases T 200", hand, merge)
-        loss = h["loss"]
+        name = (f"B {len(y)} T {TRAIN_WINDOW} (labels {int(ylen.min())}-"
+                f"{int(ylen.max())})")
+        res[merge] = r = compare_ctc(name, main, merge, timing=True)
+        r["clocks"] = ctc_breakdown(name, main, merge)
+        # T dependent steps per pass, each at least the alpha step's
+        # log-add-exp phase (one plain, two merging), at the maximum clock
+        r["latency_floor_ms"] = (2 * TRAIN_WINDOW * r["clocks"]["alpha"]["lse"]
+                                 / (mhz * 1e3))
+        checks = [compare_ctc("hand cases T 200", hand, merge)]
+        loss = checks[0]["loss"]
         if not (loss[1] > 9e4 and (loss[2] > 9e4) == merge
                 and loss[5] > 9e4):
             fail(f"ctc hand cases: the infeasible rows' losses {loss} are "
                  "not near 1e5")
-        res[merge]["max_abs_err"] = max(res[merge]["max_abs_err"],
-                                        h["max_abs_err"])
-        res[merge]["grad_ulp"] = max(res[merge]["grad_ulp"], h["grad_ulp"])
+        for S in CTC_BOUNDARY_STATES:
+            if merge and S % 2 == 0:
+                continue
+            rows_s, T = ctc_boundary_rows(rng, S, merge)
+            inputs = ctc_case_inputs(rng, rows_s, T, DEVICE)
+            SP = ctc.padded_states(inputs[1].shape[1], merge)
+            geo = (ctc.launch_geometry(SP, merge, False)[:2],
+                   ctc.launch_geometry(SP, merge, True)[:3])
+            checks.append(compare_ctc(
+                f"S {S} (SP {SP}, geometry {geo[0]} / {geo[1]}), T {T}",
+                inputs, merge))
+        if merge:
+            inputs = ctc_case_inputs(rng, ctc_long_rows(rng), CTC_LONG_T,
+                                     DEVICE)
+            SP = ctc.padded_states(CTC_LONG_LABEL, True)
+            h = compare_ctc(
+                f"label {CTC_LONG_LABEL} (S {2 * CTC_LONG_LABEL + 1}, SP {SP} "
+                f"of MAX_SP {ctc.MAX_SP}, geometry "
+                f"{ctc.launch_geometry(SP, True, True)[:3]}), T {CTC_LONG_T}",
+                inputs, True)
+            if not h["loss"][0] < 9e4:
+                fail(f"ctc long label: loss {h['loss'][0]} is not feasible")
+            checks.append(h)
+        for h in checks:
+            r["max_abs_err"] = max(r["max_abs_err"], h["max_abs_err"])
+            r["grad_ulp"] = max(r["grad_ulp"], h["grad_ulp"])
+    log(f"  ctc forward + backward at B {len(y)} T {TRAIN_WINDOW} [{gpu}]: "
+        f"plain {res[False]['ms']:.3f} ms, merging {res[True]['ms']:.3f} ms, "
+        f"F.ctc_loss {res[True]['library_ms']:.3f} ms (merging kernel / "
+        f"library {res[True]['ms'] / res[True]['library_ms']:.3f}); latency "
+        f"floor from the clocks (2 T x the alpha step's lse phase at "
+        f"{mhz:.0f} MHz): plain {res[False]['latency_floor_ms']:.3f} ms, "
+        f"merging {res[True]['latency_floor_ms']:.3f} ms")
     log(f"phase 15a ctc [{gpu}]: the kernels equal to the plain version on "
         "both variants")
     return res
@@ -2325,6 +2458,7 @@ def build_all():
            for f in (native.load, pbb.load_kernel, beam1d.load_kernel,
                      bb.load_kernel, tv.load_kernel, ta.load_kernel,
                      ctc.load_kernel,
+                     lambda: ctc.load_kernel(True),
                      lambda: pbb.load_kernel(True),
                      lambda: bb.load_kernel(True),
                      lambda: beam1d.load_kernel(True))]
@@ -2843,10 +2977,15 @@ def main():
         "bound_ms": ctc_res[False]["bound_ms"],
         "bound_by": ctc_res[False]["bound_by"],
         "bound_ms_with_alpha": ctc_res[False]["bound_ms_with_alpha"],
+        "bound_ms_with_design_traffic":
+            ctc_res[False]["bound_ms_with_design_traffic"],
+        "latency_floor_ms": ctc_res[False]["latency_floor_ms"],
         "library_ms": None,
         "merge_repeated": {k: ctc_res[True][k] for k in (
             "ms", "alpha_ms", "grad_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library_abs_diff", "library_rel_diff")},
+            "bound_ms_with_alpha", "bound_ms_with_design_traffic",
+            "latency_floor_ms", "library_ms", "library_abs_diff",
+            "library_rel_diff")},
         "input": f"one train step's batch: B {TRAIN_BATCH}, T "
                  f"{TRAIN_WINDOW}, labels of seeded windows",
         "train_step_ms": tr["step_ms"],
@@ -2861,11 +3000,13 @@ def main():
 def first_look():
     """``--first-look``: a short first check of the CTC kernels and the
     trainer's step on the card (a few minutes), before the whole run: the
-    versions; the CTC kernels' build and ptxas report; the ``cuda``-marked
-    CTC tests of tests/test_torch_kernel.py; phase 15(a) (the kernels
-    against ``ctc_plain`` at the trainer's shape and on the hand cases,
-    timed); phase 15(c) (one train step, the card against the CPU) and
-    15(d) (the step's breakdown). Prints no result line."""
+    versions; the CTC kernels' build (normal and instrumented) and ptxas
+    report; the ``cuda``-marked CTC tests of tests/test_torch_kernel.py;
+    phase 15(a) (the kernels against ``ctc_plain`` at the trainer's shape,
+    on the hand cases, the boundary state counts and the long label,
+    timed, with the cycle breakdown); phase 15(c) (one train step, the
+    card against the CPU) and 15(d) (the step's breakdown). Prints no
+    result line."""
     import importlib.util
 
     import torch
@@ -2881,7 +3022,14 @@ def first_look():
     log(sys.version.split()[0], torch.__version__, torch.version.cuda,
         "h5py" if importlib.util.find_spec("h5py") else "no h5py")
     t0 = time.perf_counter()
+    ths = [threading.Thread(target=ctc.load_kernel, args=(f,))
+           for f in (False, True)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join()
     ctc.load_kernel()
+    ctc.load_kernel(True)
     log(f"ctc build {time.perf_counter() - t0:.1f} s")
     for line in build.ptxas_report("ctc"):
         log("ptxas", line)

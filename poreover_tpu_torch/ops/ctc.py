@@ -10,7 +10,9 @@ gradient by autodiff; here the log-softmax stays in PyTorch autograd and
 the trellis is an autograd function with a forward (alpha) and a backward
 (gamma, the adjoint of the alpha recursion) pass:
 
-- ``ctc_cuda``: the two kernels of ``csrc/ctc.cu`` (one launch each);
+- ``ctc_cuda``: the kernels of ``csrc/ctc.cu``: the alpha pass, and the
+  gradient pass's sequential kernel and its class sums (one launch of the
+  library per pass, geometry from ``launch_geometry``);
 - ``ctc_plain``: the same recursions written step by step in PyTorch over
   [B, SP] columns, with the kernel's float32 operations in the kernel's
   order, including the order in which a warp sums a class's edge
@@ -42,30 +44,51 @@ from ..build import build_kernel
 
 _NEG_INF = -1e5
 C_KERNEL = 5  # classes the kernel takes (4 bases + blank)
-# padded states per sequence the kernel's shared memory holds: 6 float32
-# per state in the backward pass within a CTA's 227 KB
+# padded states per sequence the kernels take (merging: labels of up to
+# 4831 bases); within a CTA's 227 KB the gradient pass needs 3 (plain) or
+# 4 (merging) float32 per state at its shallowest ring
 MAX_SP = 9664
+SMEM_MAX = 232448  # dynamic shared memory one CTA may use (H100)
+STATES_PER_THREAD = (1, 2, 4, 8, 16)  # the kernels' instances (K)
+RING_MAX = 8  # most alpha columns per chunk of the gradient pass's ring
+Y_ROW = 8  # floats per staged log-probability row
+Y_CHUNK = 32  # log-probability rows per chunk of the alpha pass's ring
 
 launch_count = 0
 grad_launch_count = 0
 
-_lib = None
+PHASE_CLOCKS = "POREOVER_PHASE_CLOCKS"  # macro of the instrumented build
+# the instrumented build's phase sums (csrc/ctc.cu: CK_*), in order: the
+# alpha pass's, the gradient pass's; then the two passes' step counts and
+# a sink slot
+CLOCK_ALPHA = ("load", "lse", "wait", "barrier")
+CLOCK_GRAD = ("weights", "barrier1", "gamma", "prefetch", "barrier2")
+CLOCK_SLOTS = len(CLOCK_ALPHA) + len(CLOCK_GRAD) + 3
+
+_libs = {}
 
 
-def load_kernel():
-    """Build (once) and load the kernel library; returns the ctypes lib."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_kernel("ctc")))
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.ctc_alpha_launch.restype = i
-        lib.ctc_alpha_launch.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp,
-                                         vp, vp]
-        lib.ctc_grad_launch.restype = i
-        lib.ctc_grad_launch.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp,
-                                        vp, vp, vp]
-        _lib = lib
-    return _lib
+def load_kernel(phase_clocks: bool = False):
+    """Build (once) and load the kernel library; returns the ctypes lib.
+    With ``phase_clocks`` the instrumented build (a library of its own,
+    with ``phase_clocks_read``)."""
+    if phase_clocks in _libs:
+        return _libs[phase_clocks]
+    lib = ctypes.CDLL(str(build_kernel(
+        "ctc", (PHASE_CLOCKS,) if phase_clocks else ())))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.ctc_alpha_launch.restype = i
+    lib.ctc_alpha_launch.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i,
+                                     i, i, vp, vp, vp]
+    lib.ctc_grad_launch.restype = i
+    lib.ctc_grad_launch.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, i,
+                                    i, vp, vp, vp, vp, vp]
+    if phase_clocks:
+        lib.phase_clocks_read.restype = i
+        lib.phase_clocks_read.argtypes = [
+            ctypes.POINTER(ctypes.c_ulonglong), i, i]
+    _libs[phase_clocks] = lib
+    return lib
 
 
 def log_softmax(logits: torch.Tensor) -> torch.Tensor:
@@ -80,6 +103,32 @@ def padded_states(L: int, merge: bool) -> int:
     up to a multiple of 32 (one warp's round)."""
     S = 2 * L + 1 if merge else L + 1
     return 32 * ((S + 31) // 32)
+
+
+def launch_geometry(SP: int, merge: bool, grad: bool):
+    """One CTA's geometry for SP padded states: (threads, states per thread
+    K, ring, dynamic shared bytes), the one source both launchers follow
+    (``csrc/ctc.cu`` checks it).
+
+    K is the smallest instance that needs at most 1024 threads; state s
+    belongs to thread s % threads. Each pass stages its inputs in two
+    chunks of a ring: the alpha pass Y_CHUNK log-probability rows per
+    chunk (besides two columns of SP floats); the gradient pass ``ring``
+    alpha columns per chunk (plain: each with its row), as many as the
+    shared memory left allows up to RING_MAX, besides one (plain) or two
+    (merging) arrays of SP floats."""
+    K = next((k for k in STATES_PER_THREAD if -(-SP // k) <= 1024), None)
+    if K is None or SP <= 0 or SP % 32:
+        raise ValueError(f"ctc: no launch geometry for SP = {SP}")
+    threads = 32 * -(-SP // (32 * K))
+    if not grad:
+        return threads, K, Y_CHUNK, (2 * SP + 2 * Y_CHUNK * Y_ROW) * 4
+    fixed = (2 if merge else 1) * SP * 4
+    slot = (SP if merge else SP + Y_ROW) * 4
+    ring = min(RING_MAX, (SMEM_MAX - fixed) // (2 * slot))
+    if ring < 1:
+        raise ValueError(f"ctc: SP = {SP} leaves no room for the ring")
+    return threads, K, ring, fixed + 2 * ring * slot
 
 
 def _check(logp, labels, label_lengths, logit_lengths):
@@ -131,7 +180,8 @@ def alpha_pass(logp, labels, label_lengths, logit_lengths,
         err = lib.ctc_alpha_launch(
             logp.data_ptr(), labels.data_ptr(), label_lengths.data_ptr(),
             logit_lengths.data_ptr(), B, T, L, SP, int(merge),
-            alpha.data_ptr(), nll.data_ptr(), stream)
+            *launch_geometry(SP, merge, grad=False), alpha.data_ptr(),
+            nll.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"ctc alpha kernel launch failed: CUDA error "
                            f"{err}")
@@ -141,7 +191,7 @@ def alpha_pass(logp, labels, label_lengths, logit_lengths,
 
 def grad_pass(logp, labels, label_lengths, logit_lengths, merge, alpha,
               grad_out):
-    """The backward kernel on the current stream: the gradient float32
+    """The backward kernels on the current stream: the gradient float32
     [B, T, C] of ``sum(grad_out * nll)`` in ``logp``, from
     ``alpha_pass``'s alpha, without synchronising."""
     global grad_launch_count
@@ -153,13 +203,17 @@ def grad_pass(logp, labels, label_lengths, logit_lengths, merge, alpha,
                          f"{tuple(labels.shape)}")
     go = grad_out.to(torch.float32).contiguous()
     grad = torch.empty_like(logp)
+    # each step's class terms, summed by the second kernel
+    terms = torch.empty(((1 if merge else 2) * B, T, SP), dtype=torch.float32,
+                        device=logp.device)
     dev = logp.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = load_kernel().ctc_grad_launch(
             logp.data_ptr(), labels.data_ptr(), label_lengths.data_ptr(),
             logit_lengths.data_ptr(), B, T, L, SP, int(merge),
-            alpha.data_ptr(), go.data_ptr(), grad.data_ptr(), stream)
+            *launch_geometry(SP, merge, grad=True), alpha.data_ptr(),
+            go.data_ptr(), terms.data_ptr(), grad.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"ctc gradient kernel launch failed: CUDA error "
                            f"{err}")

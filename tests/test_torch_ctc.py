@@ -205,3 +205,45 @@ def test_fold_is_the_warp_order():
     y[0, 0], y[0, 32], y[0, 16] = 1.0, 2.0 ** 24, -(2.0 ** 24)
     # lane 0: 1 + 2^24 = 2^24 (rounded); then + lane 16's -2^24 = 0
     assert ctc._fold(y).item() == 0.0
+
+
+# ---- the kernels' launch geometry (ops/ctc.py:launch_geometry)
+
+
+@pytest.mark.parametrize("merge", [False, True])
+@pytest.mark.parametrize("grad", [False, True])
+def test_launch_geometry_fits_every_padded_state_count(merge, grad):
+    """For every SP the kernels take: at most 1024 threads (768 for the
+    K = 16 instance), a CTA's dynamic shared memory, each state owned by
+    exactly one thread (s = k * threads + tid), a ring of at least one
+    column per chunk (the alpha pass: Y_CHUNK rows), and the shared bytes
+    the kernel's layout needs."""
+    for SP in range(32, ctc.MAX_SP + 1, 32):
+        threads, K, ring, smem = ctc.launch_geometry(SP, merge, grad)
+        assert K in ctc.STATES_PER_THREAD
+        assert threads % 32 == 0
+        assert threads <= (768 if K == 16 else 1024)
+        assert smem <= ctc.SMEM_MAX
+        owner = np.zeros(SP, np.int64)
+        for k in range(K):
+            s = k * threads + np.arange(threads)
+            np.add.at(owner, s[s < SP], 1)
+        assert np.all(owner == 1), SP
+        if grad:
+            assert 1 <= ring <= ctc.RING_MAX
+            slot = SP if merge else SP + ctc.Y_ROW
+            need = ((2 if merge else 1) * SP + 2 * ring * slot) * 4
+        else:
+            assert ring == ctc.Y_CHUNK
+            need = (2 * SP + 2 * ring * ctc.Y_ROW) * 4
+        assert smem == need
+
+
+def test_launch_geometry_at_the_trainers_shapes():
+    """A train step's labels (~120-160 bases): one state per thread, the
+    deepest ring."""
+    assert ctc.launch_geometry(160, False, False)[:3] == (160, 1, 32)
+    assert ctc.launch_geometry(160, False, True)[:3] == (160, 1, 8)
+    assert ctc.launch_geometry(320, True, True)[:3] == (320, 1, 8)
+    with pytest.raises(ValueError):
+        ctc.launch_geometry(ctc.MAX_SP + 32 * 200, True, True)

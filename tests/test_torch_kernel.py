@@ -572,6 +572,48 @@ def test_ctc_kernel_matches_plain_on_card(cuda_device, merge):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("merge,S", [(False, 31), (False, 32), (False, 33),
+                                     (False, 1023), (False, 1025),
+                                     (True, 31), (True, 33), (True, 1023),
+                                     (True, 1025)])
+def test_ctc_kernel_state_counts_bit_equal(cuda_device, merge, S):
+    """State counts S on either side of a warp's 32 and of the 1024 threads
+    a CTA holds (merging: S = 2 L + 1 is odd): the loss and the gradient
+    bit-equal to ``ctc_plain``, beside rows with an empty label, a logit
+    length of 0 and one below T."""
+    from poreover_tpu_torch.ops import ctc
+
+    rng = np.random.default_rng(S + 100 * merge)
+    Lb = (S - 1) // 2 if merge else S - 1
+    T = S + 12
+    rows = [(rng.integers(0, 4, Lb), T), ([], T), (rng.integers(0, 4, Lb), 0),
+            (rng.integers(0, 4, Lb), T // 2)]
+    labels = np.zeros((len(rows), Lb), np.int32)
+    for i, (r, _) in enumerate(rows):
+        labels[i, :len(r)] = r
+    args = [torch.as_tensor(a).to(cuda_device) for a in (
+        labels, np.array([len(r) for r, _ in rows], np.int32),
+        np.array([t for _, t in rows], np.int32))]
+    logits = rng.normal(0, 2, (len(rows), T, 5)).astype(np.float32)
+    logp = ctc.log_softmax(torch.as_tensor(logits).to(cuda_device))
+    assert ctc.padded_states(Lb, merge) == 32 * -(-S // 32)
+    out = []
+    for fn in (ctc.ctc_cuda, ctc.ctc_plain):
+        x = logp.detach().clone().requires_grad_(True)
+        before = (ctc.launch_count, ctc.grad_launch_count)
+        nll = fn(x, *args, merge)
+        g, = torch.autograd.grad(nll.mean(), x)
+        torch.cuda.synchronize()
+        out.append((nll, g, (ctc.launch_count - before[0],
+                             ctc.grad_launch_count - before[1])))
+    (kn, kg, kl), (pn, pg, pl) = out
+    assert kl == (1, 1) and pl == (0, 0)
+    assert torch.equal(kn, pn) and torch.equal(kg, pg)
+    assert torch.isfinite(kg).all()
+    assert torch.all(kg[2] == 0) and torch.all(kg[3, T // 2:] == 0)
+
+
+@pytest.mark.cuda
 def test_ctc_loss_on_card_goes_through_the_kernels(cuda_device):
     """``ctc_loss`` on CUDA logits launches the kernels and agrees with the
     CPU's plain route (loss within 1e-5 relative, gradient in the logits

@@ -20,6 +20,7 @@ T 40), on ``tests/test_network.py``'s square-wave data.
   gives the JAX ``call``'s probabilities through the port's ``call
   --device cpu`` within 1e-5 (``chip_smoke.py`` phase 13's tolerance).
 """
+import datetime
 import json
 import os
 import types
@@ -199,6 +200,15 @@ def runs(data, tmp_path_factory):
     d = tmp_path_factory.mktemp("runs")
     cwd = os.getcwd()
     out = {}
+    # both trainers name their run directory by the minute they start: one
+    # clock for both, so that a minute turning between the two runs cannot
+    # name their directories apart
+    start = datetime.datetime.now()
+    clock = types.SimpleNamespace(
+        datetime=types.SimpleNamespace(now=lambda: start))
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jtrain, "datetime", clock)
+    mp.setattr(ttrain, "datetime", clock)
     try:
         for who in ("jax", "port"):
             os.makedirs(d / who)
@@ -219,6 +229,7 @@ def runs(data, tmp_path_factory):
             out[who] = (str(d / who / run), err.getvalue())
     finally:
         os.chdir(cwd)
+        mp.undo()
     return out
 
 
