@@ -10,10 +10,10 @@ Run from a checkout on a machine with one CUDA card:
 Phases (each fails the run if it fails):
   1. build: the C++ host runtime (g++), the six CUDA kernels (nvcc,
      sm_90a; the pair kernels with one template instance per model kind)
-     and the instrumented builds (``-DPOREOVER_PHASE_CLOCKS``) of the
-     first three and of the CTC kernels, one process each, all from the
-     checkout's sources, in parallel; prints build seconds and the
-     compiler's register / shared memory / spill report.
+     and their instrumented builds (``-DPOREOVER_PHASE_CLOCKS``), and the
+     latency probe ``csrc/latency.cu`` (phases 10 and 12), one process
+     each, all from the checkout's sources, in parallel; prints build
+     seconds and the compiler's register / shared memory / spill report.
   2. kernels vs plain versions on the card.
      Pair beam (``pair_beam_cuda`` against ``planned_scan``): the five
      envelope cases of tests/test_pallas.py at B=1, 4 and 8, the anchor
@@ -49,13 +49,19 @@ Phases (each fails the run if it fails):
      box kernel on the anchored boxes of two ~600-base pairs of the kind
      (plans of at most BOX_PLAIN_STEPS steps) at 3 CTAs and at the default
      grid, as above. The Viterbi kernel (``viterbi_path_masked_batch``)
-     against its plain version ``_viterbi_masked_padded`` on flip-flop
-     reads of mixed lengths (a T = 1 read among them), additive and hard
+     against its plain version ``_viterbi_masked_padded`` on reads of
+     VITERBI_LENGTHS in one launch (T = 1 and 2, the forward's 32-step
+     chunks and the traceback's 512-step segments +- 1, 5000), S = 8 (the
+     flip-flop mask) and S = 1..7 (a seeded 0/1 mask), additive and hard
      masks: every path equal. The acceptor kernel (``acceptor_cuda``
-     against ``acceptor_plain``) on the CPU tests' shapes (ACCEPTOR_READS:
-     a full 2002-step window, T < 2 * band, a band narrower than T / L,
-     L = 0, L = 1, T = 1, T < L) in one launch, S = 5 and 8, bands 1000
-     and 10: pointer bytes and paths equal.
+     against ``acceptor_plain``) on ACCEPTOR_READS (a full 2002-step
+     window, T < 2 * band, a band narrower than T / L, L = 0, L = 1, T = 1,
+     T < L, windows at 8, 16 and a warp slot's 32 cells, at a 128-cell
+     row of pointer bits and at a warp's 256 cells +- 1, W = 2001, labels
+     at the walk's 32-row batches +- 1)
+     in one launch, S = 5 and 8, bands 1000, 10 and 1023 (the widest
+     window, 2048 cells): pointer bytes (the kernel's bits unpacked) and
+     paths equal.
   3. pair-decode at full size, through the CLI entry point
      (``poreover_tpu_torch.cli.main``): 8 simulated pairs (seed 7,
      5200-8200 bases, ~36k-58k steps per read) decoded with
@@ -142,7 +148,15 @@ Phases (each fails the run if it fails):
      phase (the instrumented builds, as in phases 5 and 9); two ~300-base
      pairs on the card byte-identical to ``--device cpu``.
      Flip-flop stage 1: the Viterbi kernel per pair, on all 16 reads, and
-     on one read against the old loop (the plain version on the card).
+     on one read through the wrapper and alone on device tensors, against
+     the old loop (the plain version on the card), with the instrumented
+     build's cycles per step (forward: broadcast, chain, store, load;
+     pointer pass; traceback: maps, compose, fill) and the latency floor
+     (T - 1 steps of the least dependent chain, worked out from the
+     latencies ``csrc/latency.cu`` measures, at the card's maximum SM
+     clock); with
+     ``--parent DIR``, the parent tree's kernel on the same read in turns
+     with this one, and per pair.
  11. a pairs file under ``--basecaller poreover`` with one CTC ``.npy`` pair
      and one 8-column CSV pair: both decode, one pair-kernel launch per
      kind.
@@ -155,7 +169,11 @@ Phases (each fails the run if it fails):
      ``1d_basecall`` split into ``beam_1d`` and ``acceptor``; the
      acceptor kernel against its plain version on pair 0's two reads with
      the labels the 1D beam wrote (pointers and paths equal), timed per
-     pair launch and per read, with its bound; 3 small bonito and 3 small
+     pair launch and per read, with its bound, the instrumented build's
+     cycles per row (load, emit, scan, bar1, store, bar2, ptr; the walk's
+     stage and walk) and the latency floor (rows x the least dependent
+     chain of a row, from the same latencies); with ``--parent DIR``, the parent tree's kernel on the
+     same pair in turns with this one; 3 small bonito and 3 small
      flip-flop pairs byte-identical to ``--device cpu`` (the JAX package
      skips some of those pairs, and so does the port), their stage 1
      strings and paths equal on the card and the CPU.
@@ -218,7 +236,13 @@ Phases (each fails the run if it fails):
      calls, as the JAX package's does); wall times.
 
 ``python3 chip_smoke.py --first-look`` runs only a short first check of
-the CTC kernels and the train step (``first_look``) and prints no result.
+the CTC kernels and the train step (``first_look``), ``--first-look dp``
+one of the Viterbi and acceptor kernels (``first_look_dp``: builds,
+``cuda`` tests, phase 2's cases, phase 10's and 12's full-size timings,
+clocks and latency floors); neither prints a
+result. ``--parent DIR`` (a ``git archive`` of the parent commit,
+unpacked) has phases 10 and 12, or ``--first-look dp``, time that tree's
+Viterbi and acceptor kernels in turns with this checkout's.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each kernel instance with the model kinds it ran, and with
@@ -232,6 +256,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -268,6 +293,8 @@ BEAM1D_PLAIN_STEPS = 10000  # phase 7: steps per read of the 1D wave
 REAL_BOX_STEPS = 2048  # phase 2: boxes.npz boxes held to the plain version
 BOX_PLAIN_STEPS = 1000  # phases 2, 8, 10: plan steps of a compared box
 DEVICE = "cuda"
+PARENT = None  # --parent DIR: a tree of the parent commit (the command line)
+LATENCIES = None  # instruction_latencies(), measured once a run
 IDENTITY_FLOOR = 0.9  # a decoded simulated read against its true sequence
 ANCHORED_FLOOR = 0.95  # a pair's anchored consensus against its full one
 # phase 10, flip-flop under --reverse_complement: each consensus against
@@ -285,10 +312,6 @@ FEW_CTAS = 3  # grid cap that makes boxes run back to back in a CTA
 OPS_LSE = 6
 BEAM1D_UPDATE_OPS = {0: 2 + OPS_LSE, 1: 2 * (2 + OPS_LSE) + 2 * OPS_LSE,
                      2: 2 * (2 + OPS_LSE) + 2 * OPS_LSE}
-# the phase sums of csrc/pair_search.cuh's instrumented build (CK_*)
-CLOCK_PHASES = ("prune", "expand", "permute", "loads", "layers", "refresh",
-                "score", "scan", "wait")
-CK_STEPS, CK_SWEEPS, CK_LAYER_N, CK_NARROW, CK_N = 9, 10, 11, 12, 13
 MIXED_LENGTHS = {"ctc": (300, 257, 512, 100, 421, 380, 256, 64, 1),
                  "ctc_merge_repeats": (300, 257, 512, 100, 401, 77, 1),
                  "ctc_flipflop": (300, 257, 512, 100, 401, 77, 1)}
@@ -298,7 +321,10 @@ BASECALLER = {"poreover": "poreover", "bonito": "bonito",
               "flipflop": "flappie"}
 KIND_MODEL = {"poreover": "ctc", "bonito": "ctc_merge_repeats",
               "flipflop": "ctc_flipflop"}
-VITERBI_LENGTHS = (300, 1, 257, 64, 65, 2, 1000, 129)  # phase 2's reads
+# phase 2's Viterbi reads, in one launch: T = 1 and 2, the forward's
+# register chunks (32 steps) and the traceback's segments (512 steps) +- 1
+VITERBI_LENGTHS = (300, 1, 257, 64, 65, 2, 1000, 129, 32, 33, 34, 512, 513,
+                   514, 1024, 1025, 1026, 5000)
 BEAM1D_WAVES = (264, 1056)  # larger 1D waves (phases 2 and 7)
 CALL_READS = 32  # phases 13-14: raw signals through call
 CALL_SAMPLES = (50_000, 80_000)  # their lengths, drawn in [lo, hi)
@@ -645,58 +671,81 @@ def pair_kinds_phase2(kstats, kstats_box):
                  "memory and global scratch")
 
 
+def viterbi_mask(S, seed):
+    """A seeded 0/1 transition mask over S states (every state may stay),
+    or the flip-flop mask for S = 8."""
+    from poreover_tpu_torch.models.transducer import flipflop_transition_mask
+
+    if S == 8:
+        return flipflop_transition_mask()
+    rng = np.random.default_rng(seed)
+    return np.maximum(rng.integers(0, 2, (S, S)), np.eye(S, dtype=int))
+
+
 def compare_viterbi():
     """Phase 2: the Viterbi kernel against its plain version, both on the
-    card, on flip-flop reads of VITERBI_LENGTHS (a T = 1 read among them)
-    under both mask modes: every path equal. Returns (kernel ms, plain
-    ms) of the additive mode's run."""
+    card, on reads of VITERBI_LENGTHS in one launch, for S = 1..8 states
+    (S = 8: the flip-flop mask; else a seeded 0/1 mask) under both mask
+    modes: every path equal. Returns (kernel ms, plain ms) of the flip-flop
+    additive run."""
     import torch
-    from poreover_tpu_torch.models.transducer import flipflop_transition_mask
     from poreover_tpu_torch.ops import viterbi as tv
 
-    rng = np.random.default_rng(17)
-    ys = [softmax_log(rng, T, 8) for T in VITERBI_LENGTHS]
-    lens = [len(y) for y in ys]
-    yb = np.zeros((len(ys), max(lens), 8), np.float32)
-    for i, y in enumerate(ys):
-        yb[i, :len(y)] = y
-    yb = torch.as_tensor(yb, device=DEVICE)
-    mask = flipflop_transition_mask()
     out = None
-    for mode in ("additive", "hard"):
-        trans = tv._trans(mask, mode, torch.float32, yb.device)
-        got, t_k = timed(lambda: tv.viterbi_path_masked_batch(
-            ys, mask, mode, device=DEVICE))
-        want, t_p = timed(lambda: tv._viterbi_masked_padded(yb, lens, trans))
-        bad = [i for i, (a, b) in enumerate(zip(got, want))
-               if not np.array_equal(a, b[:lens[i]])]
-        if bad:
-            fail(f"viterbi ({mode} mask): kernel paths differ from the plain "
-                 f"version's at reads {bad}")
-        log(f"  viterbi, {mode} mask: {len(ys)} reads (lengths {lens}) paths "
-            f"equal to the plain version; kernel {t_k:.1f} ms, plain "
-            f"{t_p:.1f} ms")
-        out = out or (t_k, t_p)
+    for S in (8, 1, 2, 3, 4, 5, 6, 7):
+        rng = np.random.default_rng(17 + S)
+        ys = [softmax_log(rng, T, S) for T in VITERBI_LENGTHS]
+        lens = [len(y) for y in ys]
+        yb = np.zeros((len(ys), max(lens), S), np.float32)
+        for i, y in enumerate(ys):
+            yb[i, :len(y)] = y
+        yb = torch.as_tensor(yb, device=DEVICE)
+        mask = viterbi_mask(S, S)
+        for mode in ("additive", "hard"):
+            trans = tv._trans(mask, mode, torch.float32, yb.device)
+            got, t_k = timed(lambda: tv.viterbi_path_masked_batch(
+                ys, mask, mode, device=DEVICE))
+            want, t_p = timed(lambda: tv._viterbi_masked_padded(yb, lens,
+                                                                trans))
+            bad = [i for i, (a, b) in enumerate(zip(got, want))
+                   if not np.array_equal(a, b[:lens[i]])]
+            if bad:
+                fail(f"viterbi (S={S}, {mode} mask): kernel paths differ "
+                     f"from the plain version's at reads {bad}")
+            out = out or (t_k, t_p)
+        log(f"  viterbi, S={S}, additive and hard masks: {len(ys)} reads "
+            f"(lengths {lens}) in one launch, paths equal to the plain "
+            f"version; kernel {t_k:.1f} ms, plain {t_p:.1f} ms (hard)")
     return out
 
 
-# the acceptor's phase 2 reads: (T, label length) at band 1000 and 10 (the
-# CPU tests' shapes: a full 2002-step window, T < 2 * band, a band narrower
-# than T / L, L = 0, L = 1, T = 1, T < L)
+# the acceptor's phase 2 reads: (T, label length) at bands 1000, 10 and 1023
+# (the CPU tests' shapes: a full 2002-step window, T < 2 * band, a band
+# narrower than T / L, L = 0, L = 1, T = 1, T < L; at band 1000 windows of
+# W = T + 2 steps at 8 and 16 cells +- 1, at a warp slot's 32 cells +- 1,
+# at 16-byte rows of pointer bits (128 cells) +- 1, at a warp's 256 cells
+# +- 1 and W = 2001, labels at the walk's batches of 32 rows +- 1; at band
+# 1023 the widest window, 2048 cells)
 ACCEPTOR_READS = ((3000, 420), (700, 90), (50, 0), (50, 1), (1, 1), (5, 9),
-                  (300, 41))
+                  (300, 41), (6, 2), (7, 3), (13, 4), (14, 5), (15, 3),
+                  (29, 6), (30, 7), (31, 8), (125, 31), (126, 32),
+                  (127, 33), (253, 20), (254, 64), (255, 65), (1999, 300),
+                  (2100, 360))
 ACCEPTOR_OPS_PER_CELL = 6  # emit add, H subtract, scan max, v add, stay
 # add, the pointer's compare
 
 
 def acceptor_bound_ms(packed) -> tuple[float, str]:
     """Least time for an acceptor launch: bytes (the planes, G and the row
-    table read once; the pointer band and the path written once) over HBM
+    table read once; the pointer bits and the path written once) over HBM
     bandwidth, vs ACCEPTOR_OPS_PER_CELL float ops per writable cell (from
     the row table) over f32 peak."""
+    from poreover_tpu_torch.ops.acceptor import row_bytes
+
     rows, meta = packed["rows"], packed["meta"]
     n_bytes = (packed["y"].nbytes + packed["G"].nbytes + rows.nbytes
-               + int((meta[:, 3] * meta[:, 4]).sum()) + int(meta[:, 1].sum()))
+               + int((meta[:, 3] * row_bytes(meta[:, 4])).sum())
+               + int(meta[:, 1].sum()))
     cells = int(np.maximum(rows[:, 2] - rows[:, 1] + 1, 0).sum())
     t_bytes = n_bytes / HBM_BPS * 1e3
     t_ops = cells * ACCEPTOR_OPS_PER_CELL / F32_FLOPS * 1e3
@@ -705,15 +754,17 @@ def acceptor_bound_ms(packed) -> tuple[float, str]:
 
 def compare_acceptor(name, packed):
     """The acceptor kernel against its plain version, both on the card, on
-    one packed launch: pointer bytes and paths equal (tolerance 0, they
-    are integers; the row table with each row's window offset is the
-    input both read). Returns (kernel ms, plain ms)."""
+    one packed launch: pointer bytes (the kernel's bits unpacked after the
+    timed launch) and paths equal (tolerance 0, they are integers; the row
+    table with each row's window offset is the input both read). Returns
+    (kernel ms, plain ms)."""
     import torch
     from poreover_tpu_torch.ops import acceptor as ta
 
     args = ta.upload(packed, torch.device(DEVICE))
-    (k_ptr, k_path), t_k = timed(lambda: ta.acceptor_cuda(
+    (k_bits, k_path), t_k = timed(lambda: ta.acceptor_cuda(
         *args, packed["meta"], 4))
+    k_ptr = ta.unpack_pointers(k_bits, packed["meta"])
     (p_ptr, p_path), t_p = timed(lambda: ta.acceptor_plain(
         *args, packed["meta"], 4))
     if not (torch.equal(k_ptr, p_ptr) and torch.equal(k_path, p_path)):
@@ -730,11 +781,11 @@ def compare_acceptor(name, packed):
 def compare_acceptor_cases():
     """Phase 2: the acceptor kernel against its plain version on
     ACCEPTOR_READS, all in one launch, for S = 5 and 8 columns and bands
-    1000 and 10."""
+    1000, 10 and 1023."""
     from poreover_tpu_torch.ops import acceptor as ta
 
     for S in (5, 8):
-        for band in (1000, 10):
+        for band in (1000, 10, 1023):
             rng = np.random.default_rng(23)
             ys = [softmax_log(rng, T, S) for T, _ in ACCEPTOR_READS]
             labels = ["".join("ACGT"[i] for i in rng.integers(0, 4, L))
@@ -794,34 +845,60 @@ def instrumented(mod):
         mod._libs[False] = normal
 
 
-def phase_breakdown(name, mod, launch):
-    """One ``launch`` of ``mod``'s instrumented build (``instrumented``):
-    prints the cycles per plan step of each phase of the search step,
-    summed over thread 0 of every CTA (clock64), and the layers per sweep;
-    returns the cycles per step by phase."""
+def clock_parts(mod, c) -> dict:
+    """The phase-clock slots ``c`` of ``mod``'s instrumented build, laid
+    out as ``mod.CLOCK_PARTS`` says (each part's phases, then one count
+    per part, in order), as {part: {phase: cycles per counted unit, ...,
+    "total": their sum, "count": the count}}."""
+    first = sum(len(ph) for _, ph, _ in mod.CLOCK_PARTS)
+    out, i = {}, 0
+    for j, (part, phases, _) in enumerate(mod.CLOCK_PARTS):
+        count = c[first + j]
+        per = {ph: c[i + k] / max(count, 1) for k, ph in enumerate(phases)}
+        i += len(phases)
+        out[part] = dict(per, total=sum(per.values()), count=count)
+    return out
+
+
+def clock_breakdown(name, mod, launch):
+    """One ``launch`` (of one or more of ``mod``'s kernels) under ``mod``'s
+    instrumented build (``instrumented``): prints the cycles per counted
+    unit of each phase of each part (``clock_parts``; thread 0 of each
+    CTA, clock64, summed over the CTAs); returns (those, the raw slots)."""
     import ctypes
 
     import torch
 
-    buf = (ctypes.c_ulonglong * CK_N)()
+    n = mod.CLOCK_SLOTS
+    buf = (ctypes.c_ulonglong * n)()
     torch.cuda.synchronize()
     with instrumented(mod) as lib:
-        if lib.phase_clocks_read(buf, CK_N, 1):
+        if lib.phase_clocks_read(buf, n, 1):
             fail(f"{name}: phase_clocks_read failed")
         launch()
         torch.cuda.synchronize()
-        if lib.phase_clocks_read(buf, CK_N, 0):
+        if lib.phase_clocks_read(buf, n, 0):
             fail(f"{name}: phase_clocks_read failed")
     c = list(buf)
-    steps, sweeps = max(c[CK_STEPS], 1), max(c[CK_SWEEPS], 1)
-    per = {ph: c[i] / steps for i, ph in enumerate(CLOCK_PHASES)}
-    log(f"  cycles per plan step, {name} (thread 0 of each CTA, "
-        f"{c[CK_STEPS]} steps): "
-        + " ".join(f"{ph} {v:.0f}" for ph, v in per.items())
-        + f"; total {sum(per.values()):.0f}; {c[CK_LAYER_N] / sweeps:.2f} "
-        f"layers per sweep over {c[CK_SWEEPS]} sweeps ({c[CK_NARROW]} "
-        "narrow)")
-    return per
+    parts = clock_parts(mod, c)
+    for part, _, unit in mod.CLOCK_PARTS:
+        per = parts[part]
+        log(f"  cycles per {unit}, {mod.__name__.split('.')[-1]} {part}, "
+            f"{name} (thread 0 of each CTA, {per['count']} {unit}s): "
+            + " ".join(f"{ph} {v:.1f}" for ph, v in per.items()
+                       if ph not in ("total", "count"))
+            + f"; total {per['total']:.1f}")
+    return parts, c
+
+
+def pair_breakdown(name, mod, launch):
+    """``clock_breakdown`` of the pair search (``ops.pair_beam_batch`` or
+    ``ops.box_beam``), then the layers per sweep from the slots after the
+    step count (sweeps, layers, narrow sweeps of both groups)."""
+    _, c = clock_breakdown(name, mod, launch)
+    sweeps, layers, narrow = c[-3:]
+    log(f"  {name}: {layers / max(sweeps, 1):.2f} layers per sweep over "
+        f"{sweeps} sweeps ({narrow} narrow)")
 
 
 def event_ms(fn, reps):
@@ -947,34 +1024,6 @@ def beam1d_cases(stats):
             compare_beam1d(f"beam1d {model} W=25, {B} reads", prep, stats)
 
 
-def beam1d_breakdown(name, launch):
-    """One ``launch`` of the 1D kernel's instrumented build: prints the
-    cycles per step of each phase of its step (thread 0 of each CTA,
-    clock64); returns them by phase."""
-    import ctypes
-
-    import torch
-    from poreover_tpu_torch.ops import beam1d
-
-    n = len(beam1d.CLOCK_PHASES) + 1
-    buf = (ctypes.c_ulonglong * n)()
-    torch.cuda.synchronize()
-    with instrumented(beam1d) as lib:
-        if lib.phase_clocks_read(buf, n, 1):
-            fail(f"{name}: phase_clocks_read failed")
-        launch()
-        torch.cuda.synchronize()
-        if lib.phase_clocks_read(buf, n, 0):
-            fail(f"{name}: phase_clocks_read failed")
-    c = list(buf)
-    steps = max(c[-1], 1)
-    per = {ph: c[i] / steps for i, ph in enumerate(beam1d.CLOCK_PHASES)}
-    log(f"  cycles per step, {name} (thread 0 of each CTA, {c[-1]} steps): "
-        + " ".join(f"{ph} {v:.0f}" for ph, v in per.items())
-        + f"; total {sum(per.values()):.0f}")
-    return per
-
-
 def beam1d_timing(wave1d, gpu):
     """Phase 7's timing part: the 1D kernel with CUDA events on the 32-read
     wave, its bound and its cycle breakdown. Returns (prep, ms, us per
@@ -992,7 +1041,8 @@ def beam1d_timing(wave1d, gpu):
         f"{b4_bound:.4f} ms ({b4_by}); {32 / (b4_ms / 1e3):.1f} reads/s "
         f"(kernel)")
     log(f"  bound terms: {b4_terms}")
-    beam1d_breakdown("decode wave", lambda: beam1d.launch_beam1d(prep))
+    clock_breakdown("decode wave", beam1d,
+                    lambda: beam1d.launch_beam1d(prep))
     return prep, b4_ms, b4_us, b4_bound, b4_by
 
 
@@ -1262,15 +1312,7 @@ def pair_kind_full(kind, gpu, stats, stats_box):
                  f"{ANCHORED_FLOOR}")
         anchored = [anchored_boxes_of(d, r1, r2, kind) for r1, r2 in files]
         if kind == "flipflop":
-            from poreover_tpu_torch.io.trace import model_from_trace
-
-            reads = []
-            for r1, r2 in files:
-                m1 = model_from_trace(os.path.join(d, r1), bc)
-                m2 = model_from_trace(os.path.join(d, r2), bc)
-                m2.reverse_complement()
-                reads += [m1.log_prob.astype(np.float32),
-                          m2.log_prob.astype(np.float32)]
+            reads = pair_reads(d, files, bc)
 
     # ---- the pair kernel on the wave: time, bound, storage, plain version
     prep = pbb.prepare_pairs(wave, device=DEVICE, model=model)
@@ -1284,7 +1326,7 @@ def pair_kind_full(kind, gpu, stats, stats_box):
         f"{pbb.storage_path(prep)} memory; plan steps per pair "
         f"{steps.tolist()}")
     log(f"  bound terms: {wave_terms}")
-    phase_breakdown(f"{kind} pair wave", pbb, lambda: pbb._launch(
+    pair_breakdown(f"{kind} pair wave", pbb, lambda: pbb._launch(
         *prep["dev"], prep["meta"], prep["W"], prep["A"],
         model_id=prep["model_id"]))
     plans = [build_plan(env, len(y1), len(y2)) for y1, y2, env in wave]
@@ -1330,7 +1372,7 @@ def pair_kind_full(kind, gpu, stats, stats_box):
         f"{bprep['info']['smem_bytes']} B storage; "
         f"{box_ms * 1e3 / bsteps.max():.2f} us per step of the longest box; "
         f"bound {box_bound:.4f} ms ({box_by})")
-    phase_breakdown(f"{kind} anchored wave", bb, lambda: bb.box_beam_cuda(
+    pair_breakdown(f"{kind} anchored wave", bb, lambda: bb.box_beam_cuda(
         *bprep["dev"], bprep["meta"], bprep["W"], bprep["A"],
         model_id=bprep["model_id"]))
     # pair 0's boxes through the kernels (the box kernel, the pair kernel
@@ -1424,12 +1466,59 @@ def pair_kind_full(kind, gpu, stats, stats_box):
     return out
 
 
+def pair_reads(d, files, basecaller):
+    """The float32 log-probabilities of each pair's reads in ``files``
+    (read 2 reverse-complemented, as pair-decode takes it), in order."""
+    from poreover_tpu_torch.io.trace import model_from_trace
+
+    reads = []
+    for r1, r2 in files:
+        m1 = model_from_trace(os.path.join(d, r1), basecaller)
+        m2 = model_from_trace(os.path.join(d, r2), basecaller)
+        m2.reverse_complement()
+        reads += [m1.log_prob.astype(np.float32),
+                  m2.log_prob.astype(np.float32)]
+    return reads
+
+
+def parent_module(name):
+    """The module ``poreover_tpu_torch.ops.<name>`` of the ``--parent``
+    tree, imported under another package name (its kernels build from its
+    own sources into its own ``_build/``)."""
+    import importlib
+    import importlib.util
+
+    pkg = "poreover_parent"
+    if pkg not in sys.modules:
+        root = os.path.join(PARENT, "poreover_tpu_torch")
+        spec = importlib.util.spec_from_file_location(
+            pkg, os.path.join(root, "__init__.py"),
+            submodule_search_locations=[root])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[pkg] = mod
+        spec.loader.exec_module(mod)
+    return importlib.import_module(f"{pkg}.ops.{name}")
+
+
+def turns_ms(new, old, reps):
+    """Two launches timed in turns new, old, old, new (``event_ms`` of
+    ``reps`` launches each); returns (new ms, old ms), each the mean of its
+    two turns."""
+    a = [event_ms(new, reps)]
+    b = [event_ms(old, reps), event_ms(old, reps)]
+    a.append(event_ms(new, reps))
+    return float(np.mean(a)), float(np.mean(b))
+
+
 def flipflop_stage1(reads, launches, gpu):
     """Flip-flop stage 1 at full size: the Viterbi kernel per pair (both
     reads in one launch, as pair-decode calls it) and on all 16 reads of
-    the wave in one launch, then the kernel and the old loop (the plain
-    version, on the card) on read 1 of pair 0. Returns the kernels-line
-    entry."""
+    the wave in one launch, then on read 1 of pair 0: through the wrapper
+    (upload and fetch included) and alone on device tensors
+    (``viterbi_cuda``), against the old loop (the plain version, on the
+    card), with the instrumented build's cycles per step; with
+    ``--parent``, the parent tree's kernel on the same read and pairs, in
+    turns with this one, its path equal. Returns the kernels-line entry."""
     import torch
     from poreover_tpu_torch.models.transducer import flipflop_transition_mask
     from poreover_tpu_torch.ops import viterbi as tv
@@ -1451,25 +1540,120 @@ def flipflop_stage1(reads, launches, gpu):
     if not np.array_equal(got, want[0]):
         fail("flip-flop stage 1: the kernel's path of read 1 of pair 0 "
              "differs from the old loop's")
+    meta = torch.tensor([[0, len(y0)]], dtype=torch.int64, device=DEVICE)
+    trans_c = trans.contiguous()
+    kern_ms = event_ms(lambda: tv.viterbi_cuda(y_d[0], meta, trans_c),
+                       reps=3)
     bound, by = viterbi_bound_ms([len(y0)])
+    floor_ms, floor_cyc, lat, clocks = viterbi_floor_ms(y0, mask, len(y0))
     lens = [len(y) for y in reads]
     log(f"  [{gpu}] flip-flop stage 1 (viterbi_dp): per pair launch (2 "
         f"reads) " + " ".join(f"{x:.2f}" for x in per_pair) + " ms; all 16 "
         f"reads in one launch {all_ms:.2f} ms; read 1 of pair 0 "
-        f"({len(y0)} steps): kernel {one_ms:.2f} ms "
-        f"({one_ms * 1e3 / len(y0):.3f} us per step, bound {bound:.4f} ms, "
-        f"{by}), the old loop {plain_ms:.1f} ms, path equal; reads "
-        f"{min(lens)}-{max(lens)} steps")
-    return {
+        f"({len(y0)} steps): {one_ms:.2f} ms through the wrapper, kernel "
+        f"alone {kern_ms:.3f} ms ({kern_ms * 1e3 / len(y0):.4f} us per "
+        f"step; bound {bound:.4f} ms, {by}; latency floor {floor_ms:.3f} "
+        f"ms: {floor_cyc:.1f} cycles a step, the shared-memory broadcast "
+        f"{lat['warp_rt']:.1f}, two adds of {lat['add']:.1f} and a max tree "
+        f"of depth {math.ceil(math.log2(y0.shape[1]))} at {lat['max']:.1f}; "
+        f"clocked: the chain phase {clocks['forward']['chain']:.1f} cycles "
+        f"with its clock reads), the old loop {plain_ms:.1f} ms, path "
+        f"equal; reads {min(lens)}-{max(lens)} steps")
+    entry = {
         "name": "viterbi", "kinds": ["ctc_flipflop"], "route": "cuda",
         "source": "poreover_tpu_torch/csrc/viterbi.cu",
         "replaces": "poreover_tpu/ops/viterbi.py:27 (a lax.scan, not a "
                     "Pallas kernel)",
         "launches": launches, "max_abs_err": 0.0, "ms": one_ms,
-        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-        "library_ms": None, "ms_per_pair": per_pair,
+        "kernel_ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": by, "latency_floor_ms": floor_ms,
+        "latency_floor_cycles": floor_cyc, "latencies": lat,
+        "library_ms": None, "ms_per_pair": per_pair, "cycles": clocks,
         "plain_input": "read 1 of pair 0 of the flip-flop wave, as for ms",
     }
+    if PARENT:
+        pv = parent_module("viterbi")
+        if not np.array_equal(pv.viterbi_path_masked(y0, mask,
+                                                     device=DEVICE), got):
+            fail("flip-flop stage 1: the parent tree's kernel gives another "
+                 "path of read 1 of pair 0")
+        new_ms, old_ms = turns_ms(
+            lambda: tv.viterbi_cuda(y_d[0], meta, trans_c),
+            lambda: pv.viterbi_cuda(y_d[0], meta, trans_c), reps=3)
+        old_pair = [event_ms(lambda: pv.viterbi_path_masked_batch(
+            reads[i:i + 2], mask, device=DEVICE), reps=1)
+            for i in range(0, len(reads), 2)]
+        log(f"  [{gpu}] the parent tree's Viterbi kernel, in turns with "
+            f"this one on read 1 of pair 0: kernel alone {old_ms:.3f} ms "
+            f"against {new_ms:.3f} ms ({old_ms / new_ms:.2f}x); per pair "
+            "launch " + " ".join(f"{x:.2f}" for x in old_pair) + " ms")
+        entry.update(old_kernel_ms=old_ms, kernel_ms_in_turns=new_ms,
+                     old_ms_per_pair=old_pair)
+    return entry
+
+
+def instruction_latencies() -> dict:
+    """The probe ``csrc/latency.cu`` on the card (built once): cycles of
+    one dependent round of each kind: ``add``, ``max`` (an add then a max,
+    less the add), ``shfl_max`` (a shuffle then a max), ``warp_rt`` and
+    ``cta_rt`` (a store, ``__syncwarp`` / ``__syncthreads`` of 256
+    threads, a load of another thread's word)."""
+    import ctypes
+
+    from poreover_tpu_torch import build
+
+    global LATENCIES
+    if LATENCIES is None:
+        lib = ctypes.CDLL(str(build.build_kernel("latency")))
+        lib.latency_probe.restype = ctypes.c_int
+        lib.latency_probe.argtypes = [ctypes.POINTER(ctypes.c_double),
+                                      ctypes.c_int]
+        out = (ctypes.c_double * 5)()
+        if lib.latency_probe(out, 4096):
+            fail("the latency probe failed")
+        add, add_max, shfl_max, warp_rt, cta_rt = out
+        LATENCIES = dict(add=add, max=add_max - add, shfl_max=shfl_max,
+                         warp_rt=warp_rt, cta_rt=cta_rt)
+        if min(LATENCIES.values()) < 1:
+            fail(f"the latency probe's rounds were folded: {LATENCIES}")
+    return LATENCIES
+
+
+def viterbi_floor_cycles(lat, S) -> float:
+    """The least dependent chain of one Viterbi step (csrc/viterbi.cu's
+    forward) at the latencies ``lat``: v to the warp through shared
+    memory, the from-state add, the max tree of depth ceil(log2 S), the
+    emission's add."""
+    return (lat["warp_rt"] + 2 * lat["add"]
+            + math.ceil(math.log2(S)) * lat["max"])
+
+
+def acceptor_floor_cycles(lat, W) -> float:
+    """The least dependent chain of one acceptor row over a window of W
+    cells with one CTA barrier a row, at the latencies ``lat``: the row
+    above through shared memory and the barrier, the emission's add and
+    the subtraction of G, the max-scan's ceil(log2 W) levels (up to 5 of
+    them across a warp's lanes by shuffles, the rest in registers), the
+    add of G."""
+    levels = math.ceil(math.log2(W))
+    across = min(levels, 5)
+    return (lat["cta_rt"] + 3 * lat["add"] + across * lat["shfl_max"]
+            + (levels - across) * lat["max"])
+
+
+def viterbi_floor_ms(y0, mask, T):
+    """The instrumented build's cycles per step on ``y0``
+    (``clock_breakdown``) and the latency floor: T - 1 steps of the least
+    dependent chain (``viterbi_floor_cycles``) at the card's maximum SM
+    clock. Returns (ms, floor cycles per step, latencies, clocks)."""
+    from poreover_tpu_torch.ops import viterbi as tv
+
+    clocks, _ = clock_breakdown(
+        f"read 1 of pair 0 ({T} steps)", tv,
+        lambda: tv.viterbi_path_masked(y0, mask, device=DEVICE))
+    lat = instruction_latencies()
+    cyc = viterbi_floor_cycles(lat, y0.shape[1])
+    return (T - 1) * cyc / (sm_clock_mhz() * 1e3), cyc, lat, clocks
 
 
 def mixed_pairs_file():
@@ -1516,7 +1700,6 @@ def single_beam_phase(gpu, truth, cons_viterbi):
     small bonito and flip-flop pairs of the CPU tests byte-identical to
     ``--device cpu``, and their stage 1 paths on the card equal to the
     CPU's. Returns the acceptor's entry of the kernels line."""
-    import torch
     from poreover_tpu_torch import native
     from poreover_tpu_torch.io.trace import model_from_trace
     from poreover_tpu_torch.models.transducer import beam_acceptor_batch
@@ -1568,25 +1751,7 @@ def single_beam_phase(gpu, truth, cons_viterbi):
         f"{np.mean(ids_vit):.4f}")
 
     # the acceptor kernel on pair 0's reads, with the 1D beam's labels
-    packed = ta.pack_acceptor([m1.log_prob, m2.log_prob], calls[:2], 1000)
-    _, p_ms = compare_acceptor("pair 0 at full size, the 1D beam's labels",
-                               packed)
-    args = ta.upload(packed, torch.device(DEVICE))
-    pair_ms = event_ms(lambda: ta.acceptor_cuda(*args, packed["meta"], 4),
-                       reps=3)
-    bound, by = acceptor_bound_ms(packed)
-    per_read = []
-    for y, label in ((m1.log_prob, calls[0]), (m2.log_prob, calls[1])):
-        one = ta.pack_acceptor([y], [label], 1000)
-        a1 = ta.upload(one, torch.device(DEVICE))
-        per_read.append((len(y), len(label), event_ms(
-            lambda: ta.acceptor_cuda(*a1, one["meta"], 4), reps=3),
-            acceptor_bound_ms(one)[0]))
-    log(f"  acceptor [{gpu}]: {pair_ms:.2f} ms per pair launch (bound "
-        f"{bound:.4f} ms, {by}); per read "
-        + "; ".join(f"T={T} L={L}: {ms:.2f} ms ({ms * 1e3 / L:.2f} us per "
-                    f"row, bound {b:.4f} ms)" for T, L, ms, b in per_read)
-        + f"; plain version {p_ms:.1f} ms per pair")
+    acc = acceptor_full_size([m1.log_prob, m2.log_prob], calls[:2], gpu)
     log(f"  1d_basecall {tm['1d_basecall']:.3f} s = beam_1d "
         f"{tm['beam_1d']:.3f} s + acceptor {tm['acceptor']:.3f} s + the "
         "sequence maps")
@@ -1624,20 +1789,89 @@ def single_beam_phase(gpu, truth, cons_viterbi):
             f"byte-identical to --device cpu ({n_ok} decoded, the others "
             "skipped as in the JAX package); stage 1 strings and paths "
             "equal on both")
-    return {
+    acc["launches"] = launches["acceptor"]
+    return acc
+
+
+def acceptor_full_size(ys, labels, gpu):
+    """The acceptor kernel on a full-size pair (``ys``, the 1D beam's
+    ``labels``): held to its plain version (``compare_acceptor``), timed per
+    pair launch and per read with its bound and latency floor, the cycles
+    per row of the instrumented build; with ``--parent``, the parent
+    tree's kernel on the same reads in turns with this one, its path equal.
+    Returns the kernels-line entry (without ``launches``)."""
+    import torch
+    from poreover_tpu_torch.ops import acceptor as ta
+
+    packed = ta.pack_acceptor(ys, labels, 1000)
+    _, p_ms = compare_acceptor("pair 0 at full size, the 1D beam's labels",
+                               packed)
+    args = ta.upload(packed, torch.device(DEVICE))
+
+    def launch():
+        return ta.acceptor_cuda(*args, packed["meta"], 4)
+
+    pair_ms = event_ms(launch, reps=3)
+    bound, by = acceptor_bound_ms(packed)
+    per_read = []
+    for y, label in zip(ys, labels):
+        one = ta.pack_acceptor([y], [label], 1000)
+        a1 = ta.upload(one, torch.device(DEVICE))
+        per_read.append((len(y), len(label), event_ms(
+            lambda: ta.acceptor_cuda(*a1, one["meta"], 4), reps=3),
+            acceptor_bound_ms(one)[0]))
+    longer = int(np.argmax(packed["meta"][:, 3]))
+    rows, W = (int(x) for x in packed["meta"][longer, [3, 4]])
+    clocks, _ = clock_breakdown(
+        f"pair 0 at full size ({rows} rows in the longer read)", ta, launch)
+    lat = instruction_latencies()
+    floor_cyc = acceptor_floor_cycles(lat, W)
+    floor_ms = rows * floor_cyc / (sm_clock_mhz() * 1e3)
+    log(f"  acceptor [{gpu}]: {pair_ms:.2f} ms per pair launch (bound "
+        f"{bound:.4f} ms, {by}; latency floor {floor_ms:.3f} ms: {rows} "
+        f"rows x {floor_cyc:.1f} cycles, the row above through shared "
+        f"memory and a barrier {lat['cta_rt']:.1f}, three adds of "
+        f"{lat['add']:.1f}, a max-scan over {W} cells of "
+        f"{math.ceil(math.log2(W))} levels (shuffle and max "
+        f"{lat['shfl_max']:.1f}, max {lat['max']:.1f}); clocked: emit, "
+        f"scan and bar1 "
+        f"{sum(clocks['rows'][p] for p in ('emit', 'scan', 'bar1')):.1f} "
+        f"cycles a row with their clock reads); per read "
+        + "; ".join(f"T={T} L={L}: {ms:.2f} ms ({ms * 1e3 / L:.3f} us per "
+                    f"row, bound {b:.4f} ms)" for T, L, ms, b in per_read)
+        + f"; plain version {p_ms:.1f} ms per pair")
+    entry = {
         "name": "acceptor", "kinds": ["ctc", "ctc_merge_repeats",
                                       "ctc_flipflop"], "route": "cuda",
         "source": "poreover_tpu_torch/csrc/acceptor.cu",
         "replaces": "poreover_tpu/ops/acceptor.py:60 (a lax.scan, not a "
                     "Pallas kernel)",
-        "launches": launches["acceptor"],
         "max_abs_err": 0.0,  # pointers and paths are integers, held equal
         "ms": pair_ms, "plain_ms": p_ms,
-        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "bound_ms": bound, "bound_by": by, "latency_floor_ms": floor_ms,
+        "latency_floor_cycles": floor_cyc, "library_ms": None,
         "ms_per_read": [ms for _, _, ms, _ in per_read],
         "us_per_row": [ms * 1e3 / L for _, L, ms, _ in per_read],
+        "cycles": clocks,
         "plain_input": "pair 0 of the --single beam wave, both reads",
     }
+    if PARENT:
+        pa = parent_module("acceptor")
+        old = pa.pack_acceptor(ys, labels, 1000)
+        old_args = pa.upload(old, torch.device(DEVICE))
+
+        def old_launch():
+            return pa.acceptor_cuda(*old_args, old["meta"], 4)
+
+        if not torch.equal(old_launch()[1], launch()[1]):
+            fail("acceptor: the parent tree's kernel gives other paths of "
+                 "pair 0")
+        new_ms, old_ms = turns_ms(launch, old_launch, reps=3)
+        log(f"  acceptor [{gpu}]: the parent tree's kernel, in turns with "
+            f"this one on pair 0: {old_ms:.2f} ms per pair launch against "
+            f"{new_ms:.2f} ms ({old_ms / new_ms:.2f}x)")
+        entry.update(old_ms=old_ms, ms_in_turns=new_ms)
+    return entry
 
 
 def call_and_fused_phases(gpu):
@@ -1975,41 +2209,21 @@ def compare_ctc(name, inputs, merge, timing=False):
 
 
 def ctc_breakdown(name, inputs, merge):
-    """One alpha and one gradient launch of the CTC kernels' instrumented
-    build on ``inputs``: prints the cycles per step of each phase of the
-    alpha pass and of the gradient pass's sequential kernel (thread 0 of
-    each CTA, clock64); returns them by pass and phase."""
-    import ctypes
-
+    """``clock_breakdown`` of one alpha and one gradient launch of the CTC
+    kernels on ``inputs``: the cycles per step of each phase of the alpha
+    pass and of the gradient pass's sequential kernel."""
     import torch
     from poreover_tpu_torch.ops import ctc
 
-    n = ctc.CLOCK_SLOTS
-    buf = (ctypes.c_ulonglong * n)()
     go = torch.full((inputs[0].shape[0],), 1.0 / inputs[0].shape[0],
                     device=inputs[0].device)
-    torch.cuda.synchronize()
-    with instrumented(ctc) as lib:
-        if lib.phase_clocks_read(buf, n, 1):
-            fail(f"{name}: phase_clocks_read failed")
+
+    def launch():
         _, alpha = ctc.alpha_pass(*inputs, merge)
         ctc.grad_pass(*inputs, merge, alpha, go)
-        torch.cuda.synchronize()
-        if lib.phase_clocks_read(buf, n, 0):
-            fail(f"{name}: phase_clocks_read failed")
-    c = list(buf)
-    na, ng = len(ctc.CLOCK_ALPHA), len(ctc.CLOCK_GRAD)
-    out = {}
-    for part, phases, first, steps in (
-            ("alpha", ctc.CLOCK_ALPHA, 0, c[na + ng]),
-            ("grad", ctc.CLOCK_GRAD, na, c[na + ng + 1])):
-        per = {ph: c[first + j] / max(steps, 1) for j, ph in enumerate(phases)}
-        out[part] = per
-        log(f"  cycles per step, ctc {'merge' if merge else 'plain'} {part} "
-            f"pass, {name} (thread 0 of each CTA, {steps} steps): "
-            + " ".join(f"{ph} {v:.0f}" for ph, v in per.items())
-            + f"; total {sum(per.values()):.0f}")
-    return out
+
+    return clock_breakdown(f"{'merge' if merge else 'plain'}, {name}", ctc,
+                           launch)[0]
 
 
 def ctc_hand_rows(rng, T):
@@ -2434,9 +2648,10 @@ def benchmark_phase(gpu, keep, truth3, truth6):
 
 
 def build_all():
-    """Phase 1: the host runtime, the six kernels and the instrumented
-    builds of the first three, one compiler process each, in parallel; prints
-    the compiler's register / spill report."""
+    """Phase 1: the host runtime, the six kernels and their instrumented
+    builds, and the latency probe (``csrc/latency.cu``), one compiler
+    process each, in parallel; prints the compiler's register / spill
+    report."""
     from poreover_tpu_torch import build, native
     from poreover_tpu_torch.ops import acceptor as ta
     from poreover_tpu_torch.ops import beam1d
@@ -2461,7 +2676,10 @@ def build_all():
                      lambda: ctc.load_kernel(True),
                      lambda: pbb.load_kernel(True),
                      lambda: bb.load_kernel(True),
-                     lambda: beam1d.load_kernel(True))]
+                     lambda: beam1d.load_kernel(True),
+                     lambda: tv.load_kernel(True),
+                     lambda: ta.load_kernel(True),
+                     lambda: build.build_kernel("latency"))]
     for th in ths:
         th.start()
     for th in ths:
@@ -2637,7 +2855,7 @@ def main():
         f"{one_ms * 1e3 / steps[0]:.2f} us per step (bound "
         f"{one_bound:.4f} ms, {one_by}); {one_terms}")
     wave_steps, one_steps = int(steps.max()), int(steps[0])
-    phase_breakdown("pair wave", pbb, lambda: pbb._launch(
+    pair_breakdown("pair wave", pbb, lambda: pbb._launch(
         *prep["dev"], prep["meta"], prep["W"], prep["A"]))
     # the plain version is far too slow for the whole wave (~10 ms per
     # plan step), so both run the wave's first PLAIN_STEPS plan steps per
@@ -2869,7 +3087,7 @@ def main():
         f"{8 / anch_timers['consensus_2d']:.2f} pairs/s (stage 4 wall)")
     log(f"  bound terms: {box_terms}")
     box_steps = int(bsteps.max())
-    phase_breakdown("anchored wave", bb, lambda: bb.box_beam_cuda(
+    pair_breakdown("anchored wave", bb, lambda: bb.box_beam_cuda(
         *prep["dev"], prep["meta"], prep["W"], prep["A"]))
     in_kernel = [all_boxes[i] for i in prep["order"]]
     as_pairs = pbb.prepare_pairs(in_kernel, device=DEVICE)
@@ -3049,8 +3267,89 @@ def first_look():
         + " ".join(f"{k}={v:.3f}" for k, v in parts.items()))
 
 
+def first_look_dp():
+    """``--first-look dp``: a short check of the Viterbi and acceptor
+    kernels on the card (a few minutes): their builds (normal and
+    instrumented) and ptxas report; their ``cuda``-marked tests of
+    tests/test_torch_kernel.py; phase 2's cases (``compare_viterbi``,
+    ``compare_acceptor_cases``); phase 10's flip-flop stage 1 on the 16
+    full-size reads (``flipflop_stage1``) and phase 12's acceptor on pair 0
+    with the 1D beam's labels (``acceptor_full_size``), timed, with the
+    cycle breakdowns and latency floors and, with ``--parent``, the parent
+    tree's kernels in turns. Prints no result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, HERE)
+    from poreover_tpu_torch import build
+    from poreover_tpu_torch.io.trace import model_from_trace
+    from poreover_tpu_torch.models.transducer import beam_acceptor_batch
+    from poreover_tpu_torch.ops import acceptor as ta
+    from poreover_tpu_torch.ops import beam1d
+    from poreover_tpu_torch.ops import viterbi as tv
+    from poreover_tpu_torch.sim import write_pairs
+
+    gpu = gpu_line()
+    log(gpu)
+    log(sys.version.split()[0], torch.__version__, torch.version.cuda)
+    t0 = time.perf_counter()
+    loads = [tv.load_kernel, ta.load_kernel, beam1d.load_kernel,
+             lambda: tv.load_kernel(True), lambda: ta.load_kernel(True),
+             lambda: build.build_kernel("latency")]
+    if PARENT:
+        loads += [parent_module("viterbi").load_kernel,
+                  parent_module("acceptor").load_kernel]
+    ths = [threading.Thread(target=f) for f in loads]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join()
+    for f in loads:  # raises here if a build failed in its thread
+        f()
+    log(f"build {time.perf_counter() - t0:.1f} s")
+    for kernel in ("viterbi", "acceptor"):
+        for line in build.ptxas_report(kernel):
+            log(f"ptxas {kernel}: {line}")
+    tests = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
+         "-k", "viterbi or acceptor", "-p", "no:cacheprovider",
+         os.path.join(HERE, "tests", "test_torch_kernel.py")],
+        capture_output=True, text=True, cwd=HERE)
+    log(tests.stdout.strip().splitlines()[-1])
+    if tests.returncode != 0:
+        fail(f"the Viterbi / acceptor tests: {tests.stdout[-3000:]}"
+             f"{tests.stderr[-2000:]}")
+    compare_viterbi()
+    compare_acceptor_cases()
+    with tempfile.TemporaryDirectory() as d:
+        pairs_txt, _ = write_pairs(d, 8, seed=7, lo=5200, hi=8200,
+                                   kind="flipflop")
+        reads = pair_reads(d, pair_files(pairs_txt), "flappie")
+    flipflop_stage1(reads, 0, gpu)
+    with tempfile.TemporaryDirectory() as d:
+        pairs_txt, _ = write_pairs(d, 1, seed=7, lo=5200, hi=8200)
+        r1, r2 = pair_files(pairs_txt)[0]
+        ms = [model_from_trace(os.path.join(d, r), "poreover")
+              for r in (r1, r2)]
+    ms[1].reverse_complement()
+    labels = [s for s, _ in beam_acceptor_batch(ms, device=DEVICE)]
+    ys = [m.log_prob for m in ms]
+    acceptor_full_size(ys, labels, gpu)
+
+
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--first-look"]:
+    argv = sys.argv[1:]
+    if "--parent" in argv:  # a tree of the parent commit, whose Viterbi and
+        # acceptor kernels phases 10 and 12 time in turns with this one's
+        i = argv.index("--parent")
+        PARENT = os.path.abspath(argv[i + 1])
+        del argv[i:i + 2]
+    if argv == ["--first-look"]:
         first_look()
+    elif argv == ["--first-look", "dp"]:
+        first_look_dp()
+    elif argv:
+        fail(f"unknown arguments {argv}")
     else:
         main()

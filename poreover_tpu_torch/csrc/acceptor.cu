@@ -18,176 +18,324 @@
 // where G is the gap column's prefix sum (an input) and the seed is y[c, 0]
 // for row 1 when off == 1, else -inf.
 //
-// Design. One CTA of 1024 threads per read; thread i owns window cells 2i
-// and 2i + 1. A row is: the cells' emissions against the previous row
-// (double-buffered in shared memory, indexed by step - (off - 1), so the
-// shift from one row's window to the next is an offset), a block-wide
-// max-scan (a warp-shuffle scan, then each warp reduces the 32 warp totals
-// before it: two barriers per row), the row written to the other buffer,
-// and the pointer bytes to global memory as [L, W] int8. The emission
-// planes are [S, sum T] (one plane per column), so a window's loads are
-// contiguous; each row's loads, and the row table two rows ahead, are
-// issued one row early so that their latency hides behind the row before.
-// After the last row the block's warp 0 walks the pointers: per row a
-// __ballot_sync over 32 steps at a time finds the last emitting step at or
-// before the current one, so the walk costs O(L + T / 32) warp steps; the
-// path was filled with the gap character beforehand.
+// What bounds it: the rows' dependency, per row a max-scan over the window
+// (2002 cells at band 1000) between two CTA barriers; the bytes (planes,
+// G, the row table, the pointer bits and the path) take microseconds.
+// Clocked (thread 0, cycles per label row of a full-size pair, H100), the
+// kernel before this design (1024 threads of 2 cells) spent 2940 a row: 816 on loads not
+// hidden, 589 on the emissions, 427 on the warp scan, 484 on barrier 1 and
+// the warp totals, 230 on the row store and barrier 2, 395 on the pointer
+// bytes; and its walk 853 more a row, a dependent global load of byte
+// pointers per row. 18.5 ms a pair.
 //
-// What bounds it: the latency of one row (the loads that were not hidden,
-// the two barriers of 32 warps, two shuffle chains); the bytes (y and G
-// read once, the pointers written once) take microseconds.
+// Design. One CTA of NT threads per read, IPT cells each: warp w owns
+// cells [32 IPT w, 32 IPT (w + 1)), its lane l the cells 32 IPT w + 32 k +
+// l (slot k), so that loads are coalesced, shared accesses free of bank
+// conflicts and slot k one 32-bit word (a ballot) of the row's pointer
+// bits. A row: the inputs (loaded a row ahead, two buffers alternating),
+// the emissions against the row above (two row buffers, padded so that no
+// read needs a bounds test), the warp's max-scan over its cells in order
+// (transposed through a padded scratch: IPT consecutive cells a lane, one
+// warp scan of the lanes' totals), barrier 1, the warps before from their
+// totals (broadcast loads), the row stored, barrier 2, the pointer bits.
+// After the last row warp 0 walks: the rows' bits and entries copied into
+// shared memory RB rows at a time a batch ahead (cp.async), per row the
+// last set bit at or before the current step from one word. Clocked: 2338
+// cycles a row and 250 of walk (1.19 us a row, 12.8 ms a pair, 1.45x
+// faster); no phase dominates, and taking any one out in a scratch build
+// saves a share: the SM's instruction throughput with NT / 32 warps, not
+// one latency, sets the row. Tried and slower (PERF.md): 8 contiguous
+// cells a thread, per-slot warp scans, 128 and 512 threads, a wavefront
+// of a row per warp.
+
 //
 // Interface (plain C, loaded with ctypes; see ops/acceptor.py): y float32
 // [S, ystride], G float32 [ystride], rows int32 [sum L, 4] = (off, first
 // and last writable step, character), meta int64 [B, 8] = (first step, T,
-// first row, L, W, first pointer byte, band, 0); out ptr int8 [sum L * W],
-// path int8 [ystride].
+// first row, L, W, first pointer byte of the plain version's byte band,
+// band, first byte of this kernel's pointer bits); out ptr uint8 [sum L *
+// WB(W)]: row l-1 of a read at meta[7] + (l - 1) * WB(W), bit w of it
+// (byte w / 8, bit w % 8) the pointer of window cell w, WB(W) = 16 *
+// ceil(W / 128) bytes; path int8 [ystride].
+
+#include <cuda_pipeline.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int NT = 1024;             // threads per CTA
-constexpr int IPT = 2;               // window cells per thread
-constexpr int WMAX = NT * IPT;       // widest window
-constexpr int NW = NT / 32;          // warps per CTA
+constexpr int NT = 256;           // threads per CTA (one read per CTA)
+constexpr int WMAX = 2048;        // widest window
+constexpr int IPT = WMAX / NT;    // window cells per thread
+constexpr int NW = NT / 32;       // warps per CTA
+constexpr int RB = 32;            // walk: label rows per staged batch
+constexpr int WBMAX = WMAX / 8;   // bytes of a row's pointer bits
 constexpr unsigned FULL = 0xffffffffu;
+static_assert(NW % 4 == 0 && IPT <= 32, "warp totals as float4, a word per slot");
 
-// One row's inputs for this thread's cells, loaded ahead of the row.
+// Phase clocks (common.cuh; -DPOREOVER_PHASE_CLOCKS only) of thread 0 of
+// each read's CTA. Per label row: the row's inputs (loaded a row ahead)
+// waited for and the next row's loads issued, the cells' emissions, the
+// warp's scan, barrier 1 with the warp totals, the row store, barrier 2,
+// the pointer bits. The walk, per row walked: the batches' copies waited
+// for, the walk itself. CK_ROWS and CK_WALK_ROWS count rows.
+#ifdef POREOVER_PHASE_CLOCKS
+enum { CK_LOAD, CK_EMIT, CK_SCAN, CK_BAR1, CK_STORE, CK_BAR2, CK_PTR,
+       CK_STAGE, CK_WALK, CK_ROWS, CK_WALK_ROWS, CK_SINK, CK_N };
+__device__ unsigned long long g_phase_clocks[CK_N];
+#endif
+
+// Bytes of a row's pointer bits for a window of W cells.
+__device__ __forceinline__ int row_bytes(int W) {
+  return 16 * ((W + 127) / 128);
+}
+
+// Window cell of slot k of a thread: warp w owns cells [32 IPT w, 32 IPT
+// (w + 1)), its lane l cells 32 IPT w + 32 k + l, so that a warp's loads
+// are coalesced and its shared-memory accesses free of bank conflicts, and
+// slot k of a warp is one 32-bit word of the row's pointer bits.
+__device__ __forceinline__ int cell(int tid, int k) {
+  return 32 * IPT * (tid >> 5) + 32 * k + (tid & 31);
+}
+
+// One row's inputs for this thread's cells, loaded ahead of the row. Steps
+// are clamped into the read (t >= 1 always), so every load is in bounds;
+// a cell that is not writable ignores its values.
 struct Cells {
   float yc[IPT], g[IPT], yg[IPT];
 };
 
-__device__ __forceinline__ void load_cells(Cells& x, const int4 r, int tid,
-                                           const float* yr, long long ys,
-                                           const float* gb, const float* gp) {
+__device__ __forceinline__ void load_cells(Cells& x, const int4 r, int T,
+                                           int tid, const float* yr,
+                                           long long ys, const float* gb,
+                                           const float* gp) {
+  const float* yc = yr + (long long)r.w * ys;
 #pragma unroll
   for (int k = 0; k < IPT; ++k) {
-    const int t = r.x + IPT * tid + k;
-    if (t >= r.y && t <= r.z) {
-      x.yc[k] = yr[(long long)r.w * ys + t];
-      x.g[k] = gb[t];
-      x.yg[k] = gp[t];
-    }
+    const int t = min(r.x + cell(tid, k), T - 1);
+    x.yc[k] = yc[t];
+    x.g[k] = gb[t];
+    x.yg[k] = gp[t];
   }
 }
+
+// Index of warp-local cell x in a warp's scan scratch: one pad word per 32,
+// so that both a warp's slot-major writes and its lane-major reads (IPT
+// consecutive cells per lane) are free of bank conflicts.
+__device__ __forceinline__ int pad(int x) { return x + (x >> 5); }
+
+// The walk's shared memory reuses the rows' value buffers.
+union Smem {
+  float vbuf[2][WMAX + 4];
+  unsigned char bits[2][RB][WBMAX];
+};
 
 __global__ void __launch_bounds__(NT, 1)
 acceptor_kernel(const float* __restrict__ y, long long ys, int S,
                 const float* __restrict__ G, const int4* __restrict__ rows,
                 const long long* __restrict__ meta, int gap_char,
-                signed char* __restrict__ ptr,
+                unsigned char* __restrict__ ptr,
                 signed char* __restrict__ path) {
-  __shared__ float vbuf[2][WMAX + 1];
-  __shared__ float wtot[NW];
+  __shared__ __align__(16) Smem sm;
+  __shared__ __align__(16) float wtot[NW];
+  __shared__ float hs[NW][32 * IPT + IPT];  // the warps' scan scratch
+  __shared__ int4 rbuf[2][RB];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long* m = meta + 8 * blockIdx.x;
-  const long long toff = m[0], loff = m[2], pofs = m[5];
+  const long long toff = m[0], loff = m[2], pbits = m[7];
   const int T = (int)m[1], L = (int)m[3], W = (int)m[4], band = (int)m[6];
+  const int WB = row_bytes(W);
   const float* yr = y + toff;                          // plane 0 of the read
   const float* gp = y + (long long)(S - 1) * ys + toff;  // the gap plane
   const float* gb = G + toff;
   const int4* rw = rows + loff;
 
   for (int t = tid; t < T; t += NT) path[toff + t] = (signed char)gap_char;
-  if (L > 0) {
-    // row 0: G on [0, band], over positions off_1 - 1 .. off_1 + W - 1
-    const int base0 = rw[0].x - 1;
-    for (int i = tid; i <= W; i += NT) {
-      const int p = base0 + i;
-      vbuf[0][i] = (p <= band && p < T) ? gb[p] : -INFINITY;
-    }
+  // row 0: G on [0, band], over positions off_1 - 1 .. off_1 + W - 1; -inf
+  // past W, where every row leaves -inf too (its cells past W are not
+  // writable), and in the padding a read past the window is clamped to
+  const int base0 = L > 0 ? rw[0].x - 1 : 0;
+  for (int i = tid; i < WMAX + 4; i += NT) {
+    const int p = base0 + i;
+    sm.vbuf[0][i] = (i <= W && p <= band && p < T) ? gb[p] : -INFINITY;
+    sm.vbuf[1][i] = -INFINITY;
   }
   __syncthreads();
 
-  int base = L > 0 ? rw[0].x - 1 : 0;  // position of the previous row's [0]
-  int4 rn = L > 0 ? rw[0] : make_int4(0, 1, 0, 0);  // the next row
-  int4 rnn = L > 1 ? rw[1] : make_int4(0, 1, 0, 0);  // the one after
-  Cells nx;
-  load_cells(nx, rn, tid, yr, ys, gb, gp);
-  for (int l = 1; l <= L; ++l) {
+  int base = base0;  // position of the previous row's [0]
+  int4 rn = L > 0 ? rw[0] : make_int4(1, 1, 0, 0);  // the next row
+  int4 rnn = L > 1 ? rw[1] : make_int4(1, 1, 0, 0);  // the one after
+  float* hw = hs[warp];
+  CLK_INIT();
+  // row l from the inputs cu (loaded a row ahead), loading the next row's
+  // into nx
+  auto row = [&](int l, const Cells& cu, Cells& nx) {
     const int4 r = rn;
-    const Cells cu = nx;
+#ifdef POREOVER_PHASE_CLOCKS
+    for (int k = 0; k < IPT; ++k) {
+      CLK_DEP(cu.yc[k]);
+      CLK_DEP(cu.g[k]);
+      CLK_DEP(cu.yg[k]);
+    }
+#endif
     rn = rnn;
     if (l + 1 < L) rnn = rw[l + 1];
-    if (l < L) load_cells(nx, rn, tid, yr, ys, gb, gp);
+    if (l < L) load_cells(nx, rn, T, tid, yr, ys, gb, gp);
+    CLK(CK_LOAD);
 
-    const float* vp = vbuf[(l - 1) & 1];
-    float* vc = vbuf[l & 1];
-    float emit[IPT], h[IPT];
+    const float* vp = sm.vbuf[(l - 1) & 1];
+    float* vc = sm.vbuf[l & 1];
+    // cell c reads the previous row at c + d (>= 0: off never decreases),
+    // -inf past its window; it is writable for c in [r.y - off, r.z - off]
+    const int d = r.x - 1 - base, lo = r.y - r.x;
+    const unsigned nwr = (unsigned)max(r.z - r.y + 1, 0);
+    float emit[IPT];
     bool wr[IPT];
 #pragma unroll
     for (int k = 0; k < IPT; ++k) {
-      const int t = r.x + IPT * tid + k;
-      wr[k] = t >= r.y && t <= r.z;
-      emit[k] = -INFINITY;
-      h[k] = -INFINITY;
-      if (wr[k]) {
-        const int i = t - 1 - base;
-        const float v = (i >= 0 && i <= W) ? vp[i] : -INFINITY;
-        emit[k] = cu.yc[k] + v;
-        h[k] = emit[k] - cu.g[k];
-      }
+      const int c = cell(tid, k);
+      wr[k] = (unsigned)(c - lo) < nwr;
+      emit[k] = wr[k] ? cu.yc[k] + vp[min(c + d, WMAX + 1)] : -INFINITY;
+      hw[pad(32 * k + lane)] = wr[k] ? emit[k] - cu.g[k] : -INFINITY;
     }
-    // inclusive max-scan: the thread's cells, the warp, the warps before
-    float incl = fmaxf(h[0], h[1]);
+    __syncwarp();
+    CLK(CK_EMIT);
+    // the warp's inclusive max-scan over its cells in order: each lane's
+    // IPT consecutive cells, then the lanes' totals; written back in place
+    float pf[IPT];
+    pf[0] = hw[pad(IPT * lane)];
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const float o = __shfl_up_sync(FULL, incl, d);
-      if (lane >= d) incl = fmaxf(incl, o);
-    }
+    for (int j = 1; j < IPT; ++j)
+      pf[j] = fmaxf(pf[j - 1], hw[pad(IPT * lane + j)]);
+    float incl = pf[IPT - 1];
+#pragma unroll
+    for (int dd = 1; dd < 32; dd <<= 1)
+      incl = fmaxf(incl, __shfl_up_sync(FULL, incl, dd));
     if (lane == 31) wtot[warp] = incl;
     float excl = __shfl_up_sync(FULL, incl, 1);
     if (lane == 0) excl = -INFINITY;
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < IPT; ++j) hw[pad(IPT * lane + j)] = fmaxf(excl, pf[j]);
+    __syncwarp();
+    float pfx[IPT];
+#pragma unroll
+    for (int k = 0; k < IPT; ++k) pfx[k] = hw[pad(32 * k + lane)];
     const bool seeded = l == 1 && r.x == 1;
     const float seed = seeded ? yr[(long long)r.w * ys] : -INFINITY;
     const float h0 = seeded ? seed - gb[0] : -INFINITY;
+    CLK_DEP(pfx[IPT - 1]);
+    CLK(CK_SCAN);
     __syncthreads();
-    float pre = lane < warp ? wtot[lane] : -INFINITY;
+    // the warps before this one: their totals, read as broadcasts
+    float pre = -INFINITY;
 #pragma unroll
-    for (int d = 16; d > 0; d >>= 1)
-      pre = fmaxf(pre, __shfl_xor_sync(FULL, pre, d));
-    float chain = fmaxf(fmaxf(h0, pre), excl);
-#pragma unroll
-    for (int k = 0; k < IPT; ++k) {
-      const int w = IPT * tid + k;
-      chain = fmaxf(chain, h[k]);
-      if (w < W) vc[w + 1] = wr[k] ? cu.g[k] + chain : -INFINITY;
+    for (int q = 0; q < NW; q += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(&wtot[q]);
+      if (q < warp) pre = fmaxf(pre, x.x);
+      if (q + 1 < warp) pre = fmaxf(pre, x.y);
+      if (q + 2 < warp) pre = fmaxf(pre, x.z);
+      if (q + 3 < warp) pre = fmaxf(pre, x.w);
     }
+    CLK_DEP(pre);
+    CLK(CK_BAR1);
+    const float carry = fmaxf(h0, pre);
+#pragma unroll
+    for (int k = 0; k < IPT; ++k)
+      vc[cell(tid, k) + 1] =
+          wr[k] ? cu.g[k] + fmaxf(carry, pfx[k]) : -INFINITY;
     if (tid == 0) vc[0] = seed;
+    CLK(CK_STORE);
     __syncthreads();
-    // pointers: emit >= the stay move from the cell before
-    signed char* pr = ptr + pofs + (long long)(l - 1) * W;
+    CLK(CK_BAR2);
+    // pointer bits: emit >= the stay move from the cell before; slot k of
+    // warp w is word IPT w + k of the row's bits, stored by lane k
+    unsigned word = 0;
 #pragma unroll
     for (int k = 0; k < IPT; ++k) {
-      const int w = IPT * tid + k;
-      if (w < W)
-        pr[w] = (signed char)(wr[k] && emit[k] >= vc[w] + cu.yg[k]);
+      const unsigned b = __ballot_sync(
+          FULL, wr[k] & (emit[k] >= vc[cell(tid, k)] + cu.yg[k]));
+      if (lane == k) word = b;
     }
+    if (lane < IPT && 32 * (IPT * warp + lane) < 8 * WB)
+      reinterpret_cast<unsigned*>(ptr + pbits + (long long)(l - 1) * WB)
+          [IPT * warp + lane] = word;
     base = r.x - 1;
+    CLK(CK_PTR);
+  };
+  Cells ca, cb;
+  if (L > 0) load_cells(ca, rn, T, tid, yr, ys, gb, gp);
+  int l = 1;
+  for (; l + 1 <= L; l += 2) {  // two rows a turn: the buffers swap roles
+    row(l, ca, cb);
+    row(l + 1, cb, ca);
   }
-  __syncthreads();  // the pointer bytes and the gap fill, for the walk
+  if (l <= L) row(l, ca, cb);
+  CLK_ADD(CK_ROWS, L);
+  __syncthreads();  // the pointer bits and the gap fill, for the walk
 
+  // ---- the walk, on warp 0: batches of RB rows (their pointer bits and
+  // row entries) are copied into shared memory one batch ahead; per row
+  // from row L and step T - 1, the last emitting step at or before the
+  // current one (row 1 emits at step 0 at the latest); the steps in
+  // between stay gaps. Every lane walks (the same loads, broadcast), lane
+  // 0 writes the path.
   if (warp != 0) return;
-  int l = L, t = T - 1;
-  while (l > 0 && t >= 0) {
-    const int4 r = rw[l - 1];
-    const signed char* pr = ptr + pofs + (long long)(l - 1) * W;
-    int found = -1;
-    for (int top = min(t, r.x + W - 1); top >= r.x && found < 0;
-         top -= 32) {
-      const int tt = top - lane;
-      const unsigned hit = __ballot_sync(FULL, tt >= r.x && pr[tt - r.x]);
-      if (hit) found = top - (__ffs(hit) - 1);
+  // rows [hi - RB + 1, hi] (1-based, >= 1) of batch k, hi = L - k * RB
+  auto stage = [&](int k) {
+    const int hi = L - k * RB, n = min(RB, hi);
+    const int c = lane & 15;  // 16-byte chunk; a row's are WB / 16 <= 16
+    for (int i = lane >> 4; i < n; i += 2)
+      if (16 * c < WB)
+        __pipeline_memcpy_async(
+            &sm.bits[k & 1][i][16 * c],
+            ptr + pbits + (long long)(hi - 1 - i) * WB + 16 * c, 16);
+    if (lane < n)
+      __pipeline_memcpy_async(&rbuf[k & 1][lane], &rw[hi - 1 - lane], 16);
+    __pipeline_commit();
+  };
+  int t = T - 1;
+  l = L;
+  const int nb = (L + RB - 1) / RB;
+  if (nb > 0) stage(0);
+  CLK(CK_STAGE);
+  for (int k = 0; k < nb && t >= 0; ++k) {
+    if (k + 1 < nb) stage(k + 1);
+    else __pipeline_commit();
+    __pipeline_wait_prior(1);
+    __syncwarp();
+    CLK(CK_STAGE);
+    const int hi = L - k * RB, lo = max(1, hi - RB + 1);
+    const int4* rb = rbuf[k & 1];
+    int4 r = rb[0];
+    for (; l >= lo; --l) {
+      const int i = hi - l;
+      const int4 rnext = rb[min(i + 1, RB - 1)];  // the next row's, early
+      const unsigned* word = reinterpret_cast<const unsigned*>(
+          sm.bits[k & 1][i]);
+      // the highest cell at or before t, and its word
+      const int top = min(t - r.x, W - 1);
+      int wi = max(top, 0) >> 5;
+      unsigned x = top >= 0 ? word[wi] & (FULL >> (31 - (top & 31))) : 0;
+      while (x == 0 && wi > 0) x = word[--wi];
+      int found = x ? r.x + 32 * wi + 31 - __clz(x) : -1;
+      if (found < 0) {
+        if (l != 1) {  // no emitting step left: the rest are gaps
+          t = -1;
+          break;
+        }
+        found = 0;  // row 1 emits at step 0 at the latest
+      }
+      if (lane == 0) path[toff + found] = (signed char)r.w;
+      t = found - 1;
+      r = rnext;
+      CLK_ADD(CK_WALK_ROWS, 1);
+      if (t < 0) break;
     }
-    if (found < 0) {
-      if (l != 1) break;  // no emitting step left: the rest are gaps
-      found = 0;          // row 1 emits at step 0 at the latest
-    }
-    if (lane == 0) path[toff + found] = (signed char)r.w;
-    --l;
-    t = found - 1;
+    __syncwarp();  // the batch's buffer is refilled two batches on
+    CLK(CK_WALK);
   }
+  CLK_FLUSH(threadIdx.x == 0);
 }
 
 }  // namespace
@@ -198,7 +346,7 @@ extern "C" {
 // the wrapper checks). Returns a cudaError_t.
 int acceptor_launch(const float* y, long long ys, int S, const float* G,
                     const int* rows, const long long* meta, int B,
-                    int gap_char, signed char* ptr, signed char* path,
+                    int gap_char, unsigned char* ptr, signed char* path,
                     void* stream) {
   if (B <= 0) return 0;
   acceptor_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(
@@ -206,5 +354,12 @@ int acceptor_launch(const float* y, long long ys, int S, const float* G,
       path);
   return (int)cudaGetLastError();
 }
+
+#ifdef POREOVER_PHASE_CLOCKS
+// The phase sums (common.cuh: phase_clocks_copy).
+int phase_clocks_read(unsigned long long* out, int n, int reset) {
+  return poreover::phase_clocks_copy(g_phase_clocks, out, n, reset);
+}
+#endif
 
 }  // extern "C"

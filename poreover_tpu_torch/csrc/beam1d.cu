@@ -95,35 +95,12 @@ typedef unsigned long long u64;
 constexpr u64 EMPTY = ~0ull;          // key of an empty bucket
 constexpr int NO_SLOT = 0x7fffffff;   // first slot of an empty bucket
 
-// Per-phase cycle sums of thread 0 of every CTA (clock64, summed in
-// registers and added once per CTA), compiled only with
-// -DPOREOVER_PHASE_CLOCKS (build.py: build_kernel(..., defines)): the
-// normal build has none of this code. Slot CK_STEPS counts steps.
+// Phase clocks (common.cuh; -DPOREOVER_PHASE_CLOCKS only) of thread 0 of
+// every CTA, per phase of the step. Slot CK_STEPS counts steps.
 #ifdef POREOVER_PHASE_CLOCKS
 enum { CK_REFILL, CK_DEDUP, CK_RANK, CK_PUBLISH, CK_GATHER, CK_JOIN,
        CK_UPDATE, CK_LINK, CK_BARRIER, CK_STEPS, CK_N };
 __device__ unsigned long long g_phase_clocks[CK_N];
-#define CLK_INIT()                       \
-  long long clk_t_ = clock64();          \
-  unsigned long long clk_acc_[CK_N] = {}
-#define CLK(p)                                        \
-  do {                                                \
-    const long long n_ = clock64();                   \
-    clk_acc_[p] += (unsigned long long)(n_ - clk_t_); \
-    clk_t_ = n_;                                      \
-  } while (0)
-#define CLK_STEP() ++clk_acc_[CK_STEPS]
-#define CLK_FLUSH()                                   \
-  do {                                                \
-    if (threadIdx.x == 0)                             \
-      for (int p_ = 0; p_ < CK_N; ++p_)               \
-        atomicAdd(&g_phase_clocks[p_], clk_acc_[p_]); \
-  } while (0)
-#else
-#define CLK_INIT()
-#define CLK(p)
-#define CLK_STEP()
-#define CLK_FLUSH()
 #endif
 
 // Both 32-bit hash keys of a prefix as one word (k1 low, k2 high).
@@ -657,10 +634,10 @@ beam1d_kernel(const float* __restrict__ y, const float* __restrict__ root,
     CLK(CK_LINK);
     __syncthreads();
     CLK(CK_BARRIER);
-    CLK_STEP();
+    CLK_ADD(CK_STEPS, 1);
     cur = nxt;
   }
-  CLK_FLUSH();
+  CLK_FLUSH(threadIdx.x == 0);
 
   // ---- final table; sh.src[0] is its best slot
   if (tid < C) {
@@ -810,17 +787,9 @@ int beam1d_hash_bits(int B, int model) {
 }
 
 #ifdef POREOVER_PHASE_CLOCKS
-// Copies the phase sums to out[n] (blocking) and, with reset, zeroes them;
-// returns a cudaError_t (cudaErrorInvalidValue unless n is CK_N).
+// The phase sums (common.cuh: phase_clocks_copy).
 int phase_clocks_read(unsigned long long* out, int n, int reset) {
-  if (n != CK_N) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaMemcpyFromSymbol(out, g_phase_clocks,
-                                         sizeof(g_phase_clocks));
-  if (err == cudaSuccess && reset) {
-    const unsigned long long zero[CK_N] = {};
-    err = cudaMemcpyToSymbol(g_phase_clocks, zero, sizeof(zero));
-  }
-  return (int)err;
+  return poreover::phase_clocks_copy(g_phase_clocks, out, n, reset);
 }
 #endif
 

@@ -106,46 +106,18 @@ constexpr unsigned FULL = 0xffffffffu;
 
 using poreover::lse;
 
-// Per-phase cycle sums (clock64, summed in registers and added once per
-// CTA), compiled only with -DPOREOVER_PHASE_CLOCKS (build.py:
-// build_kernel(..., defines)): the normal build has none of this code.
-// Thread 0 of each CTA marks the alpha pass's phases (the loads of a
+// Phase clocks (common.cuh; -DPOREOVER_PHASE_CLOCKS only). Thread 0 of
+// each CTA marks the alpha pass's phases (the loads of a
 // step's inputs, the log-add-exps and stores, the chunk's cp.async wait,
 // the barrier) and the gradient pass's sequential kernel (phase A's
 // weights and products, barrier 1, phase B's gamma, the chunk's copies and
 // wait, barrier 2). CLK_DEP(x) waits for a loaded value before the next
 // mark. The *_STEPS slots count steps.
 #ifdef POREOVER_PHASE_CLOCKS
-enum { CK_A_LOAD, CK_A_LSE, CK_A_WAIT, CK_A_BAR, CK_G_WEIGHTS, CK_G_BAR1,
-       CK_G_GAMMA, CK_G_PREFETCH, CK_G_BAR2, CK_A_STEPS, CK_G_STEPS, CK_SINK,
-       CK_N };
+enum { CK_A_LOAD, CK_A_LSE, CK_A_WAIT, CK_A_BARRIER, CK_G_WEIGHTS,
+       CK_G_BARRIER1, CK_G_GAMMA, CK_G_PREFETCH, CK_G_BARRIER2, CK_A_STEPS,
+       CK_G_STEPS, CK_SINK, CK_N };
 __device__ unsigned long long g_phase_clocks[CK_N];
-#define CLK_INIT()                       \
-  long long clk_t_ = clock64();          \
-  unsigned long long clk_acc_[CK_N] = {}
-#define CLK(p)                                        \
-  do {                                                \
-    const long long n_ = clock64();                   \
-    clk_acc_[p] += (unsigned long long)(n_ - clk_t_); \
-    clk_t_ = n_;                                      \
-  } while (0)
-#define CLK_DEP(x)                                              \
-  do {                                                          \
-    if (__float_as_uint(x) == 0x7fbfffffu) ++clk_acc_[CK_SINK]; \
-  } while (0)
-#define CLK_STEP(p) ++clk_acc_[p]
-#define CLK_FLUSH(who)                                \
-  do {                                                \
-    if (who)                                          \
-      for (int p_ = 0; p_ < CK_N; ++p_)               \
-        atomicAdd(&g_phase_clocks[p_], clk_acc_[p_]); \
-  } while (0)
-#else
-#define CLK_INIT()
-#define CLK(p)
-#define CLK_DEP(x)
-#define CLK_STEP(p)
-#define CLK_FLUSH(who)
 #endif
 
 __device__ __forceinline__ int label_class(int x) {
@@ -285,8 +257,8 @@ ctc_alpha(const float* __restrict__ logp, const int* __restrict__ labels,
     }
     CLK(CK_A_WAIT);
     __syncthreads();
-    CLK(CK_A_BAR);
-    CLK_STEP(CK_A_STEPS);
+    CLK(CK_A_BARRIER);
+    CLK_ADD(CK_A_STEPS, 1);
   }
   CLK_FLUSH(tid == 0);
   if (tid == 0) {
@@ -435,7 +407,7 @@ ctc_grad(const float* __restrict__ logp, const int* __restrict__ labels,
     }
     CLK(CK_G_WEIGHTS);
     __syncthreads();
-    CLK(CK_G_BAR1);
+    CLK(CK_G_BARRIER1);
     // phase B: gamma before step t from this thread's and its neighbours'
     // products
     if (!MERGE || t > 0) {
@@ -466,8 +438,8 @@ ctc_grad(const float* __restrict__ logp, const int* __restrict__ labels,
     }
     CLK(CK_G_PREFETCH);
     __syncthreads();
-    CLK(CK_G_BAR2);
-    CLK_STEP(CK_G_STEPS);
+    CLK(CK_G_BARRIER2);
+    CLK_ADD(CK_G_STEPS, 1);
   }
   CLK_FLUSH(tid == 0);
 }
@@ -616,17 +588,9 @@ int ctc_grad_launch(const float* logp, const int* labels, const int* lab_len,
 }
 
 #ifdef POREOVER_PHASE_CLOCKS
-// Copies the phase sums to out[n] (blocking) and, with reset, zeroes them;
-// returns a cudaError_t (cudaErrorInvalidValue unless n is CK_N).
+// The phase sums (common.cuh: phase_clocks_copy).
 int phase_clocks_read(unsigned long long* out, int n, int reset) {
-  if (n != CK_N) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaMemcpyFromSymbol(out, g_phase_clocks,
-                                         sizeof(g_phase_clocks));
-  if (err == cudaSuccess && reset) {
-    const unsigned long long zero[CK_N] = {};
-    err = cudaMemcpyToSymbol(g_phase_clocks, zero, sizeof(zero));
-  }
-  return (int)err;
+  return poreover::phase_clocks_copy(g_phase_clocks, out, n, reset);
 }
 #endif
 

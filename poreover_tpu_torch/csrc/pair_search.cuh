@@ -87,36 +87,26 @@ enum { MAIN = 0, C0RUN = 1, C1RUN = 2 };
 enum { M_T1, M_L1, M_Y1, M_T2, M_L2, M_Y2, M_PLAN, M_N, M_WST0, M_WST1,
        M_SCR, META_COLS = 12 };
 
-// Per-phase cycle sums of thread 0 of every CTA (clock64; thread 0 sweeps
-// read 0, so the score phase holds its wait for read 1; layers are the
-// rows' loads and stores, scan their lse trees, wait the group barriers),
-// and counts of the sweeps and layers of both groups, compiled only with
-// -DPOREOVER_PHASE_CLOCKS (build.py: build_kernel(..., defines)): the
-// normal build has none of this code. Slots CK_STEPS.. are counts.
+// Phase clocks (common.cuh; -DPOREOVER_PHASE_CLOCKS only) of thread 0 of
+// every CTA (thread 0 sweeps read 0, so the score phase holds its wait for
+// read 1; layers are the rows' loads and stores, scan their lse trees,
+// wait the group barriers), and counts of the sweeps and layers of both
+// groups (CLK_COUNT: added at once by each group's first thread). Slots
+// CK_STEPS.. are counts. The helpers a step calls take the clock mark and
+// sums by reference (CLK_PARAM, CLK_ARG).
 #ifdef POREOVER_PHASE_CLOCKS
 enum { CK_PRUNE, CK_EXPAND, CK_PERMUTE, CK_LOADS, CK_LAYERS, CK_REFRESH,
        CK_SCORE, CK_SCAN, CK_WAIT, CK_STEPS, CK_SWEEPS, CK_LAYER_N,
        CK_NARROW, CK_N };
 __device__ unsigned long long g_phase_clocks[CK_N];
-#define CLK_INIT() long long clk_t_ = clock64()
-#define CLK(p)                                                          \
-  do {                                                                  \
-    if (threadIdx.x == 0) {                                             \
-      const long long n_ = clock64();                                   \
-      atomicAdd(&g_phase_clocks[p], (unsigned long long)(n_ - clk_t_)); \
-      clk_t_ = n_;                                                      \
-    }                                                                   \
+#define CLK_COUNT(p, v)                                       \
+  do {                                                        \
+    if (threadIdx.x % GT == 0)                                \
+      atomicAdd(&g_phase_clocks[p], (unsigned long long)(v)); \
   } while (0)
-#define CLK_COUNT(p, v)                                                 \
-  do {                                                                  \
-    if (threadIdx.x % GT == 0)                                          \
-      atomicAdd(&g_phase_clocks[p], (unsigned long long)(v));           \
-  } while (0)
-#define CLK_PARAM , long long &clk_t_
-#define CLK_ARG , clk_t_
+#define CLK_PARAM , long long &clk_t_, unsigned long long (&clk_acc_)[CK_N]
+#define CLK_ARG , clk_t_, clk_acc_
 #else
-#define CLK_INIT()
-#define CLK(p)
 #define CLK_COUNT(p, v)
 #define CLK_PARAM
 #define CLK_ARG
@@ -1339,6 +1329,7 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
     CLK(CK_SCORE);
     if (tid == 0) CLK_COUNT(CK_STEPS, 1);
   }
+  CLK_FLUSH(tid == 0);
   __syncthreads();
   return cur;
 }
@@ -1347,18 +1338,10 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
 }  // namespace poreover
 
 #ifdef POREOVER_PHASE_CLOCKS
-// Copies the phase sums to out[n] (blocking) and, with reset, zeroes them;
-// returns a cudaError_t (cudaErrorInvalidValue unless n is CK_N).
+// The phase sums (common.cuh: phase_clocks_copy).
 extern "C" int phase_clocks_read(unsigned long long* out, int n,
                                  int reset) {
-  using poreover::pair_search::g_phase_clocks;
-  if (n != poreover::pair_search::CK_N) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaMemcpyFromSymbol(out, g_phase_clocks,
-                                         sizeof(g_phase_clocks));
-  if (err == cudaSuccess && reset) {
-    const unsigned long long zero[poreover::pair_search::CK_N] = {};
-    err = cudaMemcpyToSymbol(g_phase_clocks, zero, sizeof(zero));
-  }
-  return (int)err;
+  return poreover::phase_clocks_copy(poreover::pair_search::g_phase_clocks,
+                                     out, n, reset);
 }
 #endif

@@ -35,9 +35,13 @@ plane per column, reads back to back along time; the gap column is the
 last plane), ``G`` [sum T], per label row ``rows`` int32 [sum L, 4] = (the
 window's first step off, the first and last writable step, the label's
 character), ``meta`` int64 [B, 8] = (first step, T, first row, L, W, first
-pointer byte, band, 0). Outputs: the pointer band ``ptr`` int8 [sum L * W]
-(row l-1's window of read b at ``meta[b, 5] + (l-1) * W``: 1 where the
-cell emits) and the path int8 [sum T].
+pointer byte, band, first pointer-bits byte). Outputs: the path int8 [sum
+T] and the pointers, in the plain version a byte band ``ptr`` int8 [sum L
+* W] (row l-1's window of read b at ``meta[b, 5] + (l-1) * W``: 1 where
+the cell emits), in the kernel the same pointers as bits, uint8 [sum L *
+row_bytes(W)] (row l-1 at ``meta[b, 7] + (l-1) * row_bytes(W)``, window
+cell w at bit w % 8 of byte w // 8), which ``unpack_pointers`` turns into
+the byte band.
 
 The gap column must be finite (a softmax output is): with a -inf gap
 log-prob, G is -inf and emit - G is NaN, which the reference's
@@ -55,23 +59,38 @@ from ..device import resolve_device
 
 launch_count = 0
 
-WMAX = 2048  # the kernel's widest window: 1024 threads, two cells each
+WMAX = 2048  # the kernel's widest window
 META_COLS = 8
 
-_lib = None
+PHASE_CLOCKS = "POREOVER_PHASE_CLOCKS"  # macro of the instrumented build
+# the instrumented build's phase sums (csrc/acceptor.cu: CK_*), in order:
+# per part its name, its phases and the unit its count slot counts; the
+# count slots follow the phases, in the parts' order, then a sink slot
+CLOCK_PARTS = (("rows", ("load", "emit", "scan", "bar1", "store", "bar2",
+                         "ptr"), "row"),
+               ("walk", ("stage", "walk"), "row"))
+CLOCK_SLOTS = sum(len(p) + 1 for _, p, _ in CLOCK_PARTS) + 1
+
+_libs = {}
 
 
-def load_kernel():
-    """Build (once) and load the kernel library; returns the ctypes lib."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_kernel("acceptor")))
-        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.acceptor_launch.restype = i
-        lib.acceptor_launch.argtypes = [vp, ll, i, vp, vp, vp, i, i, vp, vp,
-                                        vp]
-        _lib = lib
-    return _lib
+def load_kernel(phase_clocks: bool = False):
+    """Build (once) and load the kernel library; returns the ctypes lib.
+    With ``phase_clocks`` the instrumented build (a library of its own,
+    with ``phase_clocks_read``)."""
+    if phase_clocks in _libs:
+        return _libs[phase_clocks]
+    lib = ctypes.CDLL(str(build_kernel(
+        "acceptor", (PHASE_CLOCKS,) if phase_clocks else ())))
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.acceptor_launch.restype = i
+    lib.acceptor_launch.argtypes = [vp, ll, i, vp, vp, vp, i, i, vp, vp, vp]
+    if phase_clocks:
+        lib.phase_clocks_read.restype = i
+        lib.phase_clocks_read.argtypes = [
+            ctypes.POINTER(ctypes.c_ulonglong), i, i]
+    _libs[phase_clocks] = lib
+    return lib
 
 
 def _band_tables(T: int, L: int, band: int):
@@ -118,6 +137,12 @@ def gap_prefix(y: np.ndarray) -> np.ndarray:
     return np.cumsum(np.asarray(y)[:, -1].astype(np.float64)).astype(y.dtype)
 
 
+def row_bytes(W: int) -> int:
+    """Bytes of one label row's pointer bits in the kernel's output: W
+    bits, in whole 16-byte chunks (csrc/acceptor.cu: row_bytes)."""
+    return 16 * ((W + 127) // 128)
+
+
 def label_ints(label: str, alphabet: str = "ACGT") -> np.ndarray:
     lut = {c: i for i, c in enumerate(alphabet)}
     return np.array([lut[c] for c in label], dtype=np.int32)
@@ -138,16 +163,17 @@ def pack_acceptor(ys, labels, band_size: int = 1000, alphabet: str = "ACGT",
     if Gs is None:
         Gs = [gap_prefix(y) for y in ys]
     rows, meta = [], []
-    toff = loff = pofs = 0
+    toff = loff = pofs = bofs = 0
     for y, label in zip(ys, labels):
         T = len(y)
         li = label_ints(label, alphabet)
         W = window(T, band_size)
         rows.append(row_table(T, li, band_size))
-        meta.append([toff, T, loff, len(li), W, pofs, band_size, 0])
+        meta.append([toff, T, loff, len(li), W, pofs, band_size, bofs])
         toff += T
         loff += len(li)
         pofs += len(li) * W
+        bofs += len(li) * row_bytes(W)
     return dict(
         y=np.ascontiguousarray(np.concatenate(ys).T),
         G=np.concatenate([np.asarray(g, dtype=dtype) for g in Gs]),
@@ -170,7 +196,8 @@ def _check(name, t, dtype, dim, device):
 
 def _check_inputs(y, G, rows, meta, meta_h, gap_char: int):
     """Shape, type and layout checks shared by the kernel's wrapper and the
-    plain version; returns (total steps, total pointer bytes)."""
+    plain version; returns (total steps, total pointer bytes, total
+    pointer-bits bytes)."""
     dev = y.device
     _check("y", y, None, 2, dev)
     if y.dtype not in (torch.float32, torch.float64):
@@ -184,11 +211,12 @@ def _check_inputs(y, G, rows, meta, meta_h, gap_char: int):
                          f"{meta_h.shape}: bad shape")
     n = int(meta_h[:, 1].sum())
     n_ptr = int((meta_h[:, 3] * meta_h[:, 4]).sum())
+    bits = meta_h[:, 3] * row_bytes(meta_h[:, 4])
     starts = [np.concatenate([[0], np.cumsum(v)[:-1]]) for v in (
-        meta_h[:, 1], meta_h[:, 3], meta_h[:, 3] * meta_h[:, 4])]
+        meta_h[:, 1], meta_h[:, 3], meta_h[:, 3] * meta_h[:, 4], bits)]
     if len(meta_h) and (meta_h[:, 1].min() < 1 or any(
             not np.array_equal(meta_h[:, col], s)
-            for col, s in zip((0, 2, 5), starts))):
+            for col, s in zip((0, 2, 5, 7), starts))):
         raise ValueError("meta: reads must be non-empty and back to back")
     if len(meta_h) and meta_h[:, 4].min() < 1:
         raise ValueError("meta: a window of no steps")
@@ -198,16 +226,17 @@ def _check_inputs(y, G, rows, meta, meta_h, gap_char: int):
                          f"{tuple(rows.shape)} do not match meta")
     if not 0 <= gap_char < 128:
         raise ValueError(f"gap_char {gap_char} does not fit an int8")
-    return n, n_ptr
+    return n, n_ptr, int(bits.sum())
 
 
 def acceptor_cuda(y, G, rows, meta, meta_h, gap_char: int):
     """Launch the kernel on the current stream: ``y`` float32 [S, n], ``G``
     float32 [n], ``rows`` int32 [sum L, 4], ``meta`` int64 [B, 8] (and its
-    host copy ``meta_h``), all on one CUDA device. Returns (ptr int8
-    [sum L * W], path int8 [n]) without synchronising."""
+    host copy ``meta_h``), all on one CUDA device. Returns (the pointer
+    bits uint8 [sum L * row_bytes(W)], path int8 [n]) without
+    synchronising."""
     global launch_count
-    n, n_ptr = _check_inputs(y, G, rows, meta, meta_h, gap_char)
+    n, _, n_bits = _check_inputs(y, G, rows, meta, meta_h, gap_char)
     if len(meta_h) and np.asarray(meta_h)[:, 4].max() > WMAX:
         raise ValueError(f"the kernel takes windows of <= {WMAX} steps "
                          f"(band <= {(WMAX - 2) // 2}); got W "
@@ -218,7 +247,7 @@ def acceptor_cuda(y, G, rows, meta, meta_h, gap_char: int):
     if y.dtype != torch.float32:
         raise TypeError(f"acceptor_cuda: float32 tables only, got {y.dtype}")
     lib = load_kernel()
-    ptr = torch.empty(max(n_ptr, 1), dtype=torch.int8, device=dev)
+    ptr = torch.empty(max(n_bits, 1), dtype=torch.uint8, device=dev)
     path = torch.empty(max(n, 1), dtype=torch.int8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -229,7 +258,20 @@ def acceptor_cuda(y, G, rows, meta, meta_h, gap_char: int):
     if err != 0:
         raise RuntimeError(f"acceptor kernel launch failed: CUDA error {err}")
     launch_count += 1
-    return ptr[:n_ptr], path[:n]
+    return ptr[:n_bits], path[:n]
+
+
+def unpack_pointers(bits, meta_h) -> torch.Tensor:
+    """The kernel's pointer bits as the plain version's byte band, int8
+    [sum L * W], on the bits' device."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=bits.device)
+    out = []
+    for _, _, _, L, W, _, _, b0 in np.asarray(meta_h).tolist():
+        rb = row_bytes(W)
+        rows = bits[b0:b0 + L * rb].view(L, rb)
+        cells = (rows[:, :, None] >> shifts) & 1  # [L, rb, 8]: cell 8i + k
+        out.append(cells.reshape(L, 8 * rb)[:, :W].reshape(-1))
+    return (torch.cat(out) if out else bits[:0]).to(torch.int8)
 
 
 def acceptor_plain(y, G, rows, meta, meta_h, gap_char: int):
@@ -238,8 +280,9 @@ def acceptor_plain(y, G, rows, meta, meta_h, gap_char: int):
     closed-form stay chain with the seed cell, the writable mask, the
     l == 1, t == 0 cell), then the traceback row by row (as the kernel
     walks it: per row, the last emitting step at or before the current
-    one). Returns (ptr, path) as ``acceptor_cuda`` does."""
-    n, n_ptr = _check_inputs(y, G, rows, meta, meta_h, gap_char)
+    one). Returns (ptr, path): the pointers as a byte band int8 [sum L *
+    W], the path int8 [n]."""
+    n, n_ptr, _ = _check_inputs(y, G, rows, meta, meta_h, gap_char)
     dev, dt = y.device, y.dtype
     S = y.shape[0]
     ninf = torch.tensor(float("-inf"), dtype=dt, device=dev)
@@ -304,8 +347,9 @@ def _walk(ptr, rows, meta, n: int, gap_char: int) -> np.ndarray:
 
 
 def acceptor(y, G, rows, meta, meta_h, gap_char: int):
-    """The kernel for tensors on a CUDA device, the plain version for
-    tensors on the CPU."""
+    """(pointers, path): from the kernel for tensors on a CUDA device (the
+    pointers as its bits; ``unpack_pointers`` gives the byte band), from
+    the plain version for tensors on the CPU (the byte band)."""
     run = acceptor_cuda if y.device.type == "cuda" else acceptor_plain
     return run(y, G, rows, meta, meta_h, gap_char)
 

@@ -48,9 +48,11 @@ SMAX = 8    # widest emission row the kernel stages
 
 PHASE_CLOCKS = "POREOVER_PHASE_CLOCKS"  # macro of the instrumented build
 # the instrumented build's phase sums (csrc/beam1d.cu: CK_*), in order; then
-# the count of steps
+# the count of steps (CLOCK_PARTS: one part, as ops/viterbi.py lays them out)
 CLOCK_PHASES = ("refill", "dedup", "rank", "publish", "gather", "join",
                 "update", "link", "barrier")
+CLOCK_PARTS = (("step", CLOCK_PHASES, "step"),)
+CLOCK_SLOTS = len(CLOCK_PHASES) + 1
 
 _libs = {}
 

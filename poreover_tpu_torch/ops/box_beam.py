@@ -50,9 +50,11 @@ from .beam2d_planned import (
     pack_pairs, plan_wst, planned_scan, walk_provenance,
 )
 from .pair_beam_batch import (
-    CMAX, KERNEL_A, PHASE_CLOCKS, _check, bind_phase_clocks, fetch_prepared,
-    launch_prepared, prepare_pairs, storage_bytes,
+    CLOCK_PARTS, CLOCK_SLOTS, CMAX, KERNEL_A, PHASE_CLOCKS, _check,
+    bind_phase_clocks, fetch_prepared, launch_prepared, prepare_pairs,
+    storage_bytes,
 )
+# CLOCK_PARTS, CLOCK_SLOTS: the box kernel runs the same search step
 
 box_launch_count = 0  # launches of the box kernel
 

@@ -63,6 +63,7 @@ PHASE_CLOCKS = "POREOVER_PHASE_CLOCKS"  # macro of the instrumented build
 # a sink slot
 CLOCK_ALPHA = ("load", "lse", "wait", "barrier")
 CLOCK_GRAD = ("weights", "barrier1", "gamma", "prefetch", "barrier2")
+CLOCK_PARTS = (("alpha", CLOCK_ALPHA, "step"), ("grad", CLOCK_GRAD, "step"))
 CLOCK_SLOTS = len(CLOCK_ALPHA) + len(CLOCK_GRAD) + 3
 
 _libs = {}

@@ -52,6 +52,13 @@ NARROW_MAX = 31
 SMEM_STORAGE_LIMIT = 216 * 1024
 
 PHASE_CLOCKS = "POREOVER_PHASE_CLOCKS"  # macro of the instrumented build
+# the instrumented build's slots (csrc/pair_search.cuh: CK_*), in order: per
+# part its name, its phases and the unit its count slot counts; the count
+# follows the phases, then the sweeps, the layers and the narrow sweeps of
+# both groups
+CLOCK_PARTS = (("step", ("prune", "expand", "permute", "loads", "layers",
+                         "refresh", "score", "scan", "wait"), "plan step"),)
+CLOCK_SLOTS = 9 + 1 + 3
 
 _libs = {}
 

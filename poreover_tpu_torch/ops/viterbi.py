@@ -3,9 +3,9 @@ and its plain PyTorch version.
 
 Port of ``poreover_tpu/ops/viterbi.py``, whose DP is a ``lax.scan`` over
 time, not a Pallas kernel. For tables on a CUDA device the masked DP and
-its traceback run in the port's own kernel (one warp per read, many reads
-per launch, S <= 8 states), which raises if it does not build or launch;
-there is no fallback. For tables on the CPU they run in the plain version
+its traceback run in the port's own kernel (a CTA per read, many reads
+per launch, S <= 8 states; scratch for v and the back-pointers), which
+raises if it does not build or launch; there is no fallback. For tables on the CPU they run in the plain version
 ``_viterbi_masked_padded``: a Python loop over time on a dense [B, S] value
 matrix, batched over padded reads, back-pointers kept as [T-1, B, S] uint8
 and walked in numpy. Both compute in the same float32 order, so their
@@ -31,21 +31,37 @@ from ..utils.logspace import LOG_0
 
 launch_count = 0
 
-_lib = None
+PHASE_CLOCKS = "POREOVER_PHASE_CLOCKS"  # macro of the instrumented build
+# the instrumented build's phase sums (csrc/viterbi.cu: CK_*), in order:
+# per part its name, its phases and the unit its count slot counts; the
+# count slots follow the phases, in the parts' order, then a sink slot
+CLOCK_PARTS = (("forward", ("bcast", "chain", "store", "load"), "step"),
+               ("pointers", ("pointers",), "step"),
+               ("traceback", ("maps", "compose", "fill"), "step"))
+CLOCK_SLOTS = sum(len(p) + 1 for _, p, _ in CLOCK_PARTS) + 1
+
+_libs = {}
 
 
-def load_kernel():
-    """Build (once) and load the kernel library; returns the ctypes lib."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_kernel("viterbi")))
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.viterbi_launch.restype = i
-        lib.viterbi_launch.argtypes = [vp, vp, vp, i, i, vp, vp, vp]
-        lib.viterbi_max_states.restype = i
-        lib.viterbi_max_states.argtypes = []
-        _lib = lib
-    return _lib
+def load_kernel(phase_clocks: bool = False):
+    """Build (once) and load the kernel library; returns the ctypes lib.
+    With ``phase_clocks`` the instrumented build (a library of its own,
+    with ``phase_clocks_read``)."""
+    if phase_clocks in _libs:
+        return _libs[phase_clocks]
+    lib = ctypes.CDLL(str(build_kernel(
+        "viterbi", (PHASE_CLOCKS,) if phase_clocks else ())))
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.viterbi_launch.restype = i
+    lib.viterbi_launch.argtypes = [vp, vp, vp, i, i, ll, vp, vp, vp]
+    lib.viterbi_max_states.restype = i
+    lib.viterbi_max_states.argtypes = []
+    if phase_clocks:
+        lib.phase_clocks_read.restype = i
+        lib.phase_clocks_read.argtypes = [
+            ctypes.POINTER(ctypes.c_ulonglong), i, i]
+    _libs[phase_clocks] = lib
+    return lib
 
 
 def viterbi_cuda(y, meta, trans):
@@ -70,13 +86,14 @@ def viterbi_cuda(y, meta, trans):
         raise ValueError(f"kernel takes 1..{lib.viterbi_max_states()} "
                          f"states; got y [*, {S}], trans "
                          f"{tuple(trans.shape)}")
-    ptrs = torch.empty(max(n * S, 1), dtype=torch.uint8, device=dev)
+    # v as float32 [n, 8], then the back-pointers as uint8 [n, 8]
+    scratch = torch.empty(max(n * 40, 1), dtype=torch.uint8, device=dev)
     path = torch.empty(max(n, 1), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.viterbi_launch(y.data_ptr(), meta.data_ptr(),
-                                 trans.data_ptr(), meta.shape[0], S,
-                                 ptrs.data_ptr(), path.data_ptr(), stream)
+                                 trans.data_ptr(), meta.shape[0], S, n,
+                                 scratch.data_ptr(), path.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"viterbi kernel launch failed: CUDA error {err}")
     launch_count += 1

@@ -14,8 +14,10 @@ in float64 (x64 on).
 
 Cases: ``tests/test_acceptor.py:17``'s toy lattice (and its numpy replica
 of the reference DP), band 1000 with T < 2 * band, a band narrower than
-T / L, L = 0, L = 1, T = 1, and the 1D beam's string of simulated reads of
-all three model kinds (``poreover_tpu_torch/sim.py``; flip-flop's last
+T / L, L = 0, L = 1, T = 1, the kernel's edges (windows at a warp slot's
+32 cells and at a 128-cell row of pointer bits +- 1, W = 2001, the widest
+window of 2048 cells, labels at the walk's 32-row batches +- 1), and the
+1D beam's string of simulated reads of all three model kinds (``poreover_tpu_torch/sim.py``; flip-flop's last
 column, the flop of T, is the gap as in the reference).
 """
 import jax
@@ -71,6 +73,18 @@ CASES = {
     "L1": lambda: random_case(5, 50, 1, 1000),
     "T1": lambda: random_case(6, 1, 1, 1000),
     "T_lt_L": lambda: random_case(7, 5, 9, 1000),
+    # the kernel's edges: windows of W = T + 2 cells at a warp slot's 32
+    # cells +- 1 and at 16-byte rows of pointer bits (128 cells) +- 1,
+    # W = 2001, the widest window (band 1023: 2048 cells); labels at the
+    # walk's 32-row batches +- 1
+    "W31": lambda: random_case(9, 29, 6, 1000),
+    "W32": lambda: random_case(10, 30, 7, 1000),
+    "W33": lambda: random_case(11, 31, 8, 1000),
+    "W127_L31": lambda: random_case(12, 125, 31, 1000),
+    "W128_L32": lambda: random_case(13, 126, 32, 1000),
+    "W129_L33": lambda: random_case(14, 127, 33, 1000),
+    "W2001": lambda: random_case(15, 1999, 300, 1000),
+    "W2048_widest": lambda: random_case(16, 2100, 360, 1023),
     **{f"sim_{k}{s}": (lambda k=k, s=s: sim_case(k, s))
        for k in ("poreover", "bonito", "flipflop") for s in (0, 1)},
 }
@@ -208,3 +222,42 @@ def test_kernel_refuses_cpu_tensors_and_wide_bands():
     _, path = ta.acceptor_plain(*wide_args, wide["meta"], 4)
     want, _, _ = jax_reference(y2, label2, 1500, alphabet, False)
     assert np.array_equal(path.numpy(), want)
+
+
+def test_pointer_bits_unpack_to_the_byte_band():
+    """The kernel's pointer bits (row l-1 of a read at meta[:, 7] + (l-1) *
+    row_bytes(W), cell w at bit w % 8 of byte w // 8), written here from
+    the plain version's byte band, unpack to that band exactly; windows at
+    16-byte rows of bits (128 cells) +- 1, at a thread's 8 cells, the
+    widest window, a narrow band and L = 0 in one call."""
+    bands, bits, meta, b0 = [], [], [], 0
+    for i, (T, L, band) in enumerate(((126, 20, 1000), (127, 33, 1000),
+                                      (6, 2, 1000), (300, 41, 10),
+                                      (50, 0, 1000), (2100, 40, 1023))):
+        y, label, _, alphabet = random_case(30 + i, T, L, band)
+        ptr, _ = port(y, label, band, alphabet, np.float32)
+        W = ta.window(T, band)
+        rb = ta.row_bytes(W)
+        assert rb % 16 == 0 and 8 * (rb - 16) < W <= 8 * rb
+        rows = np.zeros((L, 8 * rb), np.uint8)
+        rows[:, :W] = ptr.reshape(L, W)
+        bands.append(ptr)
+        bits.append(np.packbits(rows, axis=1, bitorder="little").reshape(-1))
+        meta.append([0, T, 0, L, W, 0, band, b0])
+        b0 += L * rb
+    got = ta.unpack_pointers(torch.from_numpy(np.concatenate(bits)),
+                             np.array(meta))
+    assert got.dtype == torch.int8
+    assert np.array_equal(got.numpy(), np.concatenate(bands))
+
+
+def test_pack_gives_the_kernels_pointer_offsets():
+    """meta[:, 7] is each read's first byte of pointer bits: the rows of
+    the reads before it, row_bytes(W) bytes each."""
+    cases = [random_case(40 + i, T, L, 1000)
+             for i, (T, L) in enumerate(((126, 20), (700, 90), (5, 9)))]
+    meta = ta.pack_acceptor([c[0] for c in cases], [c[1] for c in cases],
+                            1000)["meta"]
+    sizes = [len(c[1]) * ta.row_bytes(ta.window(len(c[0]), 1000))
+             for c in cases]
+    assert meta[:, 7].tolist() == [0, sizes[0], sizes[0] + sizes[1]]

@@ -297,26 +297,33 @@ def test_kind_entries_count_their_launches(cuda_device, model, S):
 @pytest.mark.parametrize("mask_mode", ["additive", "hard"])
 def test_viterbi_kernel_matches_plain_on_card(cuda_device, mask_mode):
     """The Viterbi kernel's paths equal its plain version's, on the card
-    and on the CPU, for reads of mixed lengths (T = 1 among them) in one
-    launch."""
+    and on the CPU, for reads of mixed lengths in one launch (T = 1 and 2,
+    the forward's 32-step register chunks and the traceback's 512-step
+    segments +- 1), for S = 8 (the flip-flop mask) and S = 1..7 (a seeded
+    0/1 mask)."""
     from poreover_tpu_torch.models.transducer import flipflop_transition_mask
     from poreover_tpu_torch.ops import viterbi as tv
 
-    rng = np.random.default_rng(4)
-    ys = [np.log(rng.dirichlet(np.ones(8), size=T)).astype(np.float32)
-          for T in (1, 2, 63, 64, 65, 300)]
-    mask = flipflop_transition_mask()
-    before = tv.launch_count
-    got = tv.viterbi_path_masked_batch(ys, mask, mask_mode,
-                                       device=cuda_device)
-    assert tv.launch_count == before + 1
-    want = tv.viterbi_path_masked_batch(ys, mask, mask_mode, device="cpu")
-    for y, g, w in zip(ys, got, want):
-        np.testing.assert_array_equal(g, w)
-        yd = torch.as_tensor(y, device=cuda_device)[None]
-        trans = tv._trans(mask, mask_mode, torch.float32, yd.device)
-        np.testing.assert_array_equal(
-            g, tv._viterbi_masked_padded(yd, [len(y)], trans)[0])
+    lengths = (1, 2, 31, 32, 33, 34, 63, 64, 65, 300, 512, 513, 514, 1025,
+               3000)
+    for S in range(1, 9):
+        rng = np.random.default_rng(4 + S)
+        ys = [np.log(rng.dirichlet(np.ones(S), size=T)).astype(np.float32)
+              for T in lengths]
+        mask = flipflop_transition_mask() if S == 8 else np.maximum(
+            rng.integers(0, 2, (S, S)), np.eye(S, dtype=int))
+        before = tv.launch_count
+        got = tv.viterbi_path_masked_batch(ys, mask, mask_mode,
+                                           device=cuda_device)
+        assert tv.launch_count == before + 1
+        want = tv.viterbi_path_masked_batch(ys, mask, mask_mode,
+                                            device="cpu")
+        for y, g, w in zip(ys, got, want):
+            np.testing.assert_array_equal(g, w)
+            yd = torch.as_tensor(y, device=cuda_device)[None]
+            trans = tv._trans(mask, mask_mode, torch.float32, yd.device)
+            np.testing.assert_array_equal(
+                g, tv._viterbi_masked_padded(yd, [len(y)], trans)[0])
 
 
 def _small_boxes():
@@ -476,7 +483,11 @@ def test_beam1d_kernel_edge_cases_on_card(cuda_device, model, S, case):
 def _acceptor_reads(S, seed=23):
     """Reads and labels for the acceptor kernel: a full 2002-step window
     (band 1000, T > 2002), T < 2 * band, a band narrower than T / L (band
-    10, through the ``band`` argument), L = 0, L = 1, T = 1 and T < L."""
+    10, through the ``band`` argument), L = 0, L = 1, T = 1 and T < L; at
+    band 1000 windows of W = T + 2 cells at 8, 16 and a warp slot's 32
+    cells +- 1, at a 16-byte row of pointer bits (128 cells) and a warp's
+    256 cells +- 1 and W = 2001, labels at the walk's 32-row batches +- 1;
+    at band 1023 the widest window (2048 cells)."""
     rng = np.random.default_rng(seed)
 
     def lp(T):
@@ -489,16 +500,19 @@ def _acceptor_reads(S, seed=23):
 
     return [(lp(T), label(L)) for T, L in
             ((3000, 420), (700, 90), (50, 0), (50, 1), (1, 1), (5, 9),
-             (300, 41))]
+             (300, 41), (6, 2), (7, 3), (13, 4), (14, 5), (15, 3),
+             (29, 6), (30, 7), (31, 8), (125, 31), (126, 32), (127, 33),
+             (253, 20), (254, 64), (255, 65), (1999, 300), (2100, 360))]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [5, 8])
-@pytest.mark.parametrize("band", [1000, 10])
+@pytest.mark.parametrize("band", [1000, 10, 1023])
 def test_acceptor_kernel_matches_plain_on_card(cuda_device, S, band):
     """The acceptor kernel against its plain version on the card, all
-    reads in one launch: pointer bytes and paths equal (tolerance 0), the
-    launch counted once; and the CPU's plain version gives the same."""
+    reads in one launch: pointer bytes (the kernel's bits unpacked) and
+    paths equal (tolerance 0), the launch counted once; and the CPU's plain
+    version gives the same."""
     from poreover_tpu_torch.ops import acceptor as ta
 
     reads = _acceptor_reads(S)
@@ -506,9 +520,10 @@ def test_acceptor_kernel_matches_plain_on_card(cuda_device, S, band):
                               band)
     on_card = ta.upload(packed, cuda_device)
     before = ta.launch_count
-    k_ptr, k_path = ta.acceptor_cuda(*on_card, packed["meta"], 4)
+    k_bits, k_path = ta.acceptor_cuda(*on_card, packed["meta"], 4)
     torch.cuda.synchronize()
     assert ta.launch_count == before + 1
+    k_ptr = ta.unpack_pointers(k_bits, packed["meta"])
     p_ptr, p_path = ta.acceptor_plain(*on_card, packed["meta"], 4)
     assert torch.equal(k_ptr, p_ptr) and torch.equal(k_path, p_path)
     c_ptr, c_path = ta.acceptor_plain(*ta.upload(packed, torch.device("cpu")),

@@ -86,7 +86,7 @@ def test_kernel_build_failure_raises(tmp_path, monkeypatch):
     pairs, _ = write_pairs(str(tmp_path), 1, seed=13, lo=30, hi=40,
                            kind="flipflop")
     monkeypatch.setattr(build, "find_tool", no_compiler)
-    monkeypatch.setattr(tv, "_lib", None)
+    monkeypatch.setattr(tv, "_libs", {})
     # stage 1 takes the kernel's route, as for tensors on the card
     monkeypatch.setattr(tv, "resolve_device",
                         lambda device=None: torch.device("cuda"))

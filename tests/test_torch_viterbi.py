@@ -168,3 +168,88 @@ def test_cuda_route_takes_float32_tables_only(monkeypatch):
     with pytest.raises(ValueError, match="length 0"):
         tvit.viterbi_path_masked_batch([y[:0].astype(np.float32)], MASK,
                                        device="cuda")
+
+
+@pytest.mark.parametrize("mask_mode", ["additive", "hard"])
+@pytest.mark.parametrize("T", [32, 33, 34, 512, 513, 514])
+def test_chunk_and_segment_edges_equal_jax(mask_mode, T):
+    """Lengths at the kernel's edges (32-step register chunks of the
+    forward, 512-step segments of the traceback, +- 1): the plain version's
+    path equals the JAX package's."""
+    y = dirichlet_log(T, 8, T)
+    want = np.asarray(jvit.viterbi_path_masked(y, MASK, mask_mode))
+    got = tvit.viterbi_path_masked(y, MASK, mask_mode, device="cpu")
+    np.testing.assert_array_equal(got, want)
+
+
+def small_mask(S, seed):
+    """A seeded 0/1 transition mask over S states, every state may stay."""
+    rng = np.random.default_rng(seed)
+    return np.maximum(rng.integers(0, 2, (S, S)),
+                      np.eye(S, dtype=int)).astype(np.float32)
+
+
+@pytest.mark.parametrize("mask_mode", ["additive", "hard"])
+@pytest.mark.parametrize("S", range(1, 9))
+def test_state_counts_and_mixed_lengths_equal_jax(mask_mode, S):
+    """Every state count the kernel takes (S = 1..8; S = 8 the flip-flop
+    mask), reads of very different lengths in one batch: each path equals
+    the JAX package's."""
+    mask = MASK if S == 8 else small_mask(S, S)
+    ys = [dirichlet_log(T, S, 10 * S + k)
+          for k, T in enumerate((1, 2, 33, 513, 1200))]
+    want = jvit.viterbi_path_masked_batch(ys, mask, mask_mode)
+    got = tvit.viterbi_path_masked_batch(ys, mask, mask_mode, device="cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+
+
+def segmented_traceback(ptr, end, K=16, lanes=32):
+    """The kernel's traceback (csrc/viterbi.cu) in numpy: from step T - 1
+    down, segments of lanes * K steps; lane q maps each state at its last
+    step to the state before its first (steps before the read keep the
+    state), the maps are composed across the lanes from the segment's end
+    state, and each lane fills its K steps from the state that gave it.
+    ``ptr`` [T, S]: row t >= 1 the from-state of each state at step t."""
+    T, S = ptr.shape
+    path = np.full(T, -1, np.int64)
+    state, te = end, T - 1
+    while te >= 1:
+        his = [te - (lanes - 1 - q) * K for q in range(lanes)]
+        maps = []
+        for hi in his:
+            m = []
+            for e in range(S):
+                s = e
+                for t in range(hi, hi - K, -1):
+                    s = ptr[t, s] if t >= 1 else s
+                m.append(s)
+            maps.append(m)
+        mine = [0] * lanes
+        for q in range(lanes - 1, -1, -1):
+            mine[q] = state
+            state = maps[q][state]
+        for hi, s in zip(his, mine):
+            for t in range(hi, hi - K, -1):
+                if t >= 0:
+                    path[t] = s
+                s = ptr[t, s] if t >= 1 else s
+        te -= lanes * K
+    if te == 0:
+        path[0] = state
+    return path
+
+
+@pytest.mark.parametrize("S", [1, 3, 8])
+@pytest.mark.parametrize("T", [1, 2, 16, 17, 511, 512, 513, 1025, 1100])
+def test_segmented_traceback_equals_the_sequential_walk(S, T):
+    """Composing per-lane maps of back-pointers is exact (integers): the
+    kernel's traceback order gives the sequential walk's path."""
+    rng = np.random.default_rng(T * 10 + S)
+    ptr = rng.integers(0, S, (T, S))
+    end = int(rng.integers(0, S))
+    want = np.empty(T, np.int64)
+    want[T - 1] = end
+    for t in range(T - 1, 0, -1):
+        want[t - 1] = ptr[t, want[t]]
+    np.testing.assert_array_equal(segmented_traceback(ptr, end), want)

@@ -21,10 +21,14 @@ checkout's simulator and stages:
   the 8 simulated pairs (seed 7, 5200-8200 bases,
   ``--reverse_complement``) with their envelopes, and their anchored boxes
   (``--skip_matches --skip_threshold 10``);
-- ``e2e``: the same 8 pairs and 32 reads as files, through each tree's
-  CLI end to end (phases 3, 8 and 6): ``pair-decode --reverse_complement
-  --threads 8``, the same with ``--skip_matches --skip_threshold 10``,
-  and ``decode --algorithm beam|viterbi --beam_width 25 --threads 32``;
+- ``e2e``: the same 8 pairs and 32 reads as files, and the 8 pairs and
+  the 32 reads as flip-flop traces, through each tree's CLI end to end
+  (phases 3, 8, 12, 10 and 6): ``pair-decode --reverse_complement
+  --threads 8``, the same with ``--skip_matches --skip_threshold 10`` and
+  with ``--single beam``, the flip-flop pairs under ``--basecaller
+  flappie``, ``decode --algorithm beam|viterbi --beam_width 25 --threads
+  32``, and the flip-flop reads through ``decode --basecaller flappie
+  --algorithm viterbi --threads 32`` (the Viterbi kernel);
   wall seconds of each of ``--reps`` runs after a warm-up run (which
   builds the kernels), and the last run's stage timers.
 
@@ -51,16 +55,25 @@ import numpy as np
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-# the e2e runs: name -> CLI arguments after the input files' directory
+# the e2e runs: name -> (inputs, basecaller, CLI arguments after them)
+PAIR_FLAGS = ["--reverse_complement", "--threads", "8"]
 E2E_RUNS = {
-    "pair-decode": ["--reverse_complement", "--threads", "8"],
-    "pair-decode --skip_matches": ["--reverse_complement", "--threads", "8",
-                                   "--skip_matches", "--skip_threshold",
-                                   "10"],
-    "decode beam": ["--algorithm", "beam", "--beam_width", "25",
-                    "--threads", "32"],
-    "decode viterbi": ["--algorithm", "viterbi", "--beam_width", "25",
-                       "--threads", "32"],
+    "pair-decode": ("pairs", "poreover", PAIR_FLAGS),
+    "pair-decode --skip_matches": ("pairs", "poreover", PAIR_FLAGS + [
+        "--skip_matches", "--skip_threshold", "10"]),
+    "pair-decode --single beam": ("pairs", "poreover", PAIR_FLAGS + [
+        "--single", "beam"]),
+    "pair-decode flip-flop": ("pairs_ff", "flappie", PAIR_FLAGS),
+    "decode beam": ("reads", "poreover", ["--algorithm", "beam",
+                                          "--beam_width", "25",
+                                          "--threads", "32"]),
+    "decode viterbi": ("reads", "poreover", ["--algorithm", "viterbi",
+                                             "--beam_width", "25",
+                                             "--threads", "32"]),
+    # flip-flop reads: the Viterbi kernel (csrc/viterbi.cu), one launch
+    # per wave; the CTC kinds' viterbi decode is an argmax on the host
+    "decode viterbi flip-flop": ("reads_ff", "flappie", [
+        "--algorithm", "viterbi", "--threads", "32"]),
 }
 
 
@@ -71,10 +84,14 @@ def make_inputs(waves: str, d: str) -> None:
     if waves == "e2e":
         from poreover_tpu_torch.sim import write_pairs, write_reads
 
-        os.makedirs(os.path.join(d, "pairs"))
-        os.makedirs(os.path.join(d, "reads"))
+        for sub in ("pairs", "pairs_ff", "reads", "reads_ff"):
+            os.makedirs(os.path.join(d, sub))
         write_pairs(os.path.join(d, "pairs"), 8, seed=7, lo=5200, hi=8200)
+        write_pairs(os.path.join(d, "pairs_ff"), 8, seed=7, lo=5200,
+                    hi=8200, kind="flipflop")
         write_reads(os.path.join(d, "reads"), 32, seed=11, lo=5200, hi=8200)
+        write_reads(os.path.join(d, "reads_ff"), 32, seed=11, lo=5200,
+                    hi=8200, kind="flipflop")
         return
     if waves == "beam1d":
         from poreover_tpu_torch.io.trace import model_from_trace
@@ -136,14 +153,18 @@ def e2e_tree(d: str, reps: int) -> dict:
 
     out = {}
     with tempfile.TemporaryDirectory() as o:
-        for name, flags in E2E_RUNS.items():
-            pairs = name.startswith("pair")
-            src = os.path.join(d, "pairs" if pairs else "reads")
+        for name, (inputs, basecaller, flags) in E2E_RUNS.items():
+            src = os.path.join(d, inputs)
             dest = os.path.join(o, name.replace(" ", "_"))
             argv = (["pair-decode",
                      glob.glob(os.path.join(src, "*.txt"))[0], "--dir", src,
-                     "--basecaller", "poreover"] if pairs else
-                    ["decode", src, "--basecaller", "poreover"])
+                     "--basecaller", basecaller]
+                    if name.startswith("pair") else
+                    # flip-flop traces are .csv files, which decode takes
+                    # by name (a directory it globs for .hdf5)
+                    ["decode", *(sorted(glob.glob(os.path.join(
+                        src, "*.csv"))) or [src]), "--basecaller",
+                     basecaller])
             argv += [*flags, "--out", dest]
             walls = []
             for _ in range(reps + 1):
