@@ -234,13 +234,35 @@ Phases (each fails the run if it fails):
      identities, phase 6's 32 calls all mapped; phase 3's mapped counts
      printed (the built-in aligner misses some of those insertion-heavy
      calls, as the JAX package's does); wall times.
+ 17. exact mode (``pair-decode --exact``, the pair kernel's graveyard
+     instance). (a) per kind, the graveyard instance against the plain
+     graveyard engine on the card (provenance, score bits, validity):
+     tests/test_exact.py's three cases at EXACT_GRACES (CTC; the other
+     kinds the first and last), in shared memory and in global scratch;
+     the same cases on plans that step back (EXACT_STUTTER); the first
+     EXACT_PLAIN_STEPS steps of two full-size pairs (phase 3's; phase 10's
+     for bonito and flip-flop), timed both; the plain version's counts
+     must show rows turned away from a full graveyard, resumed graveyard
+     rows, and a row resumed after it moved back while buried. (b) phase
+     3's 8 pairs through the CLI with ``--exact`` (launch counts zeroed
+     just before, read just after; the windowed instance must not run):
+     8 records; the wave's kernel time by CUDA events, us per step of the
+     longest plan, bound; each consensus against the reference's
+     unbounded trie (f64, on the host): ``trie_match k/8``, identities
+     (gates: EXACT_TRIE_FLOOR, set from the runs, and each pair no further
+     from the trie than its phase 3 windowed consensus); pair 0 through the
+     single-pair entry equal to its string in the wave. (c) the same pairs
+     with ``--exact --skip_matches``: 8 records, no box-kernel launch, the
+     exact box waves' count and time. (d) phase 10's bonito and flip-flop
+     pairs with ``--exact``: 8 records each, the wave's kernel time.
 
 ``python3 chip_smoke.py --first-look`` runs only a short first check of
 the CTC kernels and the train step (``first_look``), ``--first-look dp``
 one of the Viterbi and acceptor kernels (``first_look_dp``: builds,
 ``cuda`` tests, phase 2's cases, phase 10's and 12's full-size timings,
-clocks and latency floors); neither prints a
-result. ``--parent DIR`` (a ``git archive`` of the parent commit,
+clocks and latency floors), ``--first-look exact`` phase 17 alone
+(``first_look_exact``: the pair kernel's build and ``cuda`` exact tests
+first, ~4 minutes); none prints a result. ``--parent DIR`` (a ``git archive`` of the parent commit,
 unpacked) has phases 10 and 12, or ``--first-look dp``, time that tree's
 Viterbi and acceptor kernels in turns with this checkout's.
 
@@ -289,6 +311,23 @@ OPS_PER_CELL = {0: 3 + 2 * 6, 1: 6 + 2 + 12 + 2 + 12 + 2 + 6,
 PLAIN_STEPS = 1000  # phase 5: plan steps per pair of the CTC wave
 PLAIN_STEPS_SINGLE = 500  # phases 5 and 10: pair 0 alone
 PLAIN_STEPS_KINDS = 1000  # phase 10: the bonito and flip-flop waves
+# phase 17 (exact mode): plan steps of the two full-size pairs per kind held
+# to the plain graveyard engine; the graces of the CTC cases (those of
+# tests/test_exact.py; the other kinds take the first and last); plans that
+# step back: every EXACT_STUTTER[0]-th step is followed by the step
+# EXACT_STUTTER[1] before it again, so the windows (and the buried rows
+# with them) move back and forth. Each exact consensus is held against the
+# reference's unbounded trie twice: no further from it than phase 3's
+# windowed consensus of the same pair, and at EXACT_TRIE_FLOOR, set from
+# the runs: on seed 7's 8 pairs the grace oracle needs 154-171 graveyard
+# rows, over the JAX engine's EXACT_G = 128, so exact mode lands
+# 0.998-0.9998 from the trie: the JAX exact engine on the CPU
+# 0.998192-0.999157 on the pairs measured (tools/exact_trie_check.py), the
+# card 0.998192-0.999780
+EXACT_PLAIN_STEPS = 500
+EXACT_GRACES = (2, 4, 8, 20)
+EXACT_STUTTER = (7, 2)
+EXACT_TRIE_FLOOR = 0.998
 BEAM1D_PLAIN_STEPS = 10000  # phase 7: steps per read of the 1D wave
 REAL_BOX_STEPS = 2048  # phase 2: boxes.npz boxes held to the plain version
 BOX_PLAIN_STEPS = 1000  # phases 2, 8, 10: plan steps of a compared box
@@ -523,29 +562,41 @@ def upload(packed):
                              for k in ("planes1", "planes2", "plan", "meta")])
 
 
-def compare(name, prep, stats, also_global=False):
+def compare(name, prep, stats, also_global=False, grace=None):
     """Kernel vs plain version on one packed batch, both on the card. With
     ``also_global`` the kernel runs a second time with its storage forced
-    into global scratch, and must give the same outputs. Returns (kernel
-    ms, plain ms), each one run timed with CUDA events."""
+    into global scratch, and must give the same outputs. A batch packed
+    with graveyard rows (``G``) runs the graveyard instance and its plain
+    version, with eviction at ``grace`` (default EXACT_GRACE), and adds the
+    plain version's GY_COUNTS to ``stats``. Returns (kernel ms, plain ms),
+    each one run timed with CUDA events."""
     import torch
     from poreover_tpu_torch.ops import pair_beam_batch as pbb
-    from poreover_tpu_torch.ops.beam2d_planned import planned_scan, tracebacks
+    from poreover_tpu_torch.ops.beam2d_planned import (
+        EXACT_GRACE, GY_COUNTS, planned_scan, scan_outputs, tracebacks,
+    )
 
-    mid = prep["model_id"]
+    mid, G = prep["model_id"], prep["G"]
+    grace = grace or (EXACT_GRACE if G else 1)
     k, t_k = timed(lambda: pbb.pair_beam_cuda(
-        *prep["dev"], prep["meta"], prep["W"], prep["A"], model_id=mid))
+        *prep["dev"], prep["meta"], prep["W"], prep["A"], model_id=mid,
+        G=G, grace=grace))
     where = [pbb.storage_path(prep)]
     if also_global:
         kg = pbb._launch(*prep["dev"], prep["meta"], prep["W"], prep["A"],
-                         in_smem=False, model_id=mid)
+                         in_smem=False, model_id=mid, G=G, grace=grace)
         if not all(torch.equal(a.view(torch.int8), b.view(torch.int8))
                    for a, b in zip(k, kg)):
             fail(f"{name}: the kernel with its storage in global scratch "
                  "differs from its run in shared memory")
         where.append("global")
     p, t_p = timed(lambda: planned_scan(*prep["dev"], prep["W"], prep["A"],
-                                        model_id=mid))
+                                        model_id=mid, G=G, grace=grace,
+                                        return_state=bool(G)))
+    if G:
+        for c in GY_COUNTS:
+            stats[c] = stats.get(c, 0) + int(p[c].sum())
+        p = scan_outputs(p, prep["meta"], prep["W"])
     k = [x.cpu().numpy() for x in k]
     p = [x.cpu().numpy() for x in p]
     fin = np.isfinite(k[1]) & np.isfinite(p[1])
@@ -572,7 +623,9 @@ def compare(name, prep, stats, also_global=False):
     stats["general"] = stats.get("general", 0) + general
     stats.setdefault("paths", set()).update(where)
     log(f"  {name}: B={len(prep['meta'])} steps={len(prep['plan'])} (max "
-        f"{int(prep['meta'][:, 7].max())} per pair; sweeps {narrow} narrow, "
+        f"{int(prep['meta'][:, 7].max())} per pair; "
+        + (f"graveyard {G} rows, grace {grace}; " if G else "")
+        + f"sweeps {narrow} narrow, "
         f"{general} general; storage in {' and '.join(where)} memory) "
         f"strings, provenance and validity equal, scores bit-equal; kernel "
         f"{t_k:.1f} ms, plain {t_p:.1f} ms")
@@ -1213,6 +1266,7 @@ def zero_counts():
     from poreover_tpu_torch.ops import viterbi as tv
 
     pbb.launch_count = pbb.single_launch_count = 0
+    pbb.exact_launch_count = 0
     bb.box_launch_count = 0
     tv.launch_count = 0
     beam1d.launch_count = 0
@@ -2647,6 +2701,229 @@ def benchmark_phase(gpu, keep, truth3, truth6):
     return wall, counts
 
 
+def exact_kernel_cases(full_pairs):
+    """Phase 17(a): the graveyard instance of each kind against the plain
+    graveyard engine on the card (``compare``: provenance, scores bits,
+    validity): tests/test_exact.py's cases at EXACT_GRACES (CTC) or the
+    first and last of them, with the storage in shared memory and in
+    global scratch; the same cases on plans that step back
+    (EXACT_STUTTER); the first EXACT_PLAIN_STEPS steps of ``full_pairs``
+    (two full-size pairs per kind) at their full storage widths. Fails
+    unless the runs turned rows away from a full graveyard, resumed
+    graveyard rows, and resumed one that had moved back while buried
+    (the plain version's GY_COUNTS). Returns per kind its stats, with
+    (kernel ms, plain ms, bound ms) of the truncated pairs."""
+    from poreover_tpu_torch.ops.beam2d_planned import (
+        EXACT_G, GY_COUNTS, build_plan, pack_pairs, plan_wst,
+    )
+    from poreover_tpu_torch.sim import exact_style_cases, stuttered
+
+    out = {}
+    for kind in ("poreover", "bonito", "flipflop"):
+        model = KIND_MODEL[kind]
+        stats = {"max_abs_err": 0.0}
+        cs = exact_style_cases(8 if kind == "flipflop" else 5)
+        graces = EXACT_GRACES if kind == "poreover" else (
+            EXACT_GRACES[0], EXACT_GRACES[-1])
+        for g in graces:
+            compare(f"{kind} exact: cases B=3, grace {g}",
+                    upload(pack_pairs(cs, model=model, G=EXACT_G)), stats,
+                    also_global=g == graces[-1], grace=g)
+        pl, ws = stuttered(cs, *EXACT_STUTTER)
+        compare(f"{kind} exact: cases B=3, plans stepping back",
+                upload(pack_pairs(cs, model=model, G=EXACT_G, plans=pl,
+                                  wst=ws)), stats)
+        plans = [build_plan(env, len(y1), len(y2))
+                 for y1, y2, env in full_pairs[kind]]
+        short = upload(pack_pairs(
+            full_pairs[kind], model=model, G=EXACT_G,
+            plans=[{k: v[:EXACT_PLAIN_STEPS] for k, v in p.items()}
+                   for p in plans], wst=[plan_wst(p) for p in plans]))
+        t_k, t_p = compare(f"{kind} exact: two full-size pairs, first "
+                           f"{EXACT_PLAIN_STEPS} steps", short, stats)
+        stats["short"] = (t_k, t_p, bound_ms(short)[0])
+        log(f"  {kind} exact, the plain version's counts over these runs: "
+            + ", ".join(f"{c} {stats[c]}" for c in GY_COUNTS))
+        if not stats["gfull"] or not stats["gresume"]:
+            fail(f"{kind} exact: no row turned away from a full graveyard "
+                 "or no graveyard row resumed")
+        out[kind] = stats
+    if not sum(st["gresume_back"] for st in out.values()):
+        fail("exact: no graveyard row resumed after a backward re-anchor")
+    return out
+
+
+def exact_phase(gpu, kstats, cons_windowed):
+    """Phase 17: exact mode (``pair-decode --exact``) at full size, after
+    ``exact_kernel_cases`` (``kstats``). (b) phase 3's 8 CTC pairs through
+    the CLI with ``--exact``: 8 records, the graveyard instance launched
+    and the windowed one not; the wave's kernel time by CUDA events; each
+    consensus beside the reference's unbounded trie
+    (``native.pair_beam_row_col_cpu``, f64 on the host, one thread per
+    pair): ``trie_match``, every identity >= EXACT_TRIE_FLOOR and >= that
+    of phase 3's windowed consensus (``cons_windowed``) to the trie; pair
+    0 through the single-pair entry byte-identical to its string in the
+    wave. (c) the same pairs with ``--exact --skip_matches``: 8 records,
+    no box-kernel launch, the exact box waves' launches and time. (d) 8
+    bonito and 8 flip-flop pairs (phase 10's) with ``--exact``: 8 records
+    each, the wave's kernel time. Returns the graveyard instance's
+    entries of the kernels line, one per kind."""
+    from poreover_tpu_torch import native
+    from poreover_tpu_torch.ops import box_beam as bb
+    from poreover_tpu_torch.ops import pair_beam_batch as pbb
+    from poreover_tpu_torch.sim import write_pairs
+
+    entries = []
+    for kind in ("poreover", "bonito", "flipflop"):
+        model, bc = KIND_MODEL[kind], BASECALLER[kind]
+        with tempfile.TemporaryDirectory() as d:
+            pairs_txt, _ = write_pairs(d, 8, seed=7, lo=5200, hi=8200,
+                                       kind=kind)
+            zero_counts()
+            cons, _, rows, t_e2e, tm = pair_decode_cli(d, pairs_txt, bc,
+                                                       "exact", ["--exact"])
+            launches, windowed = pbb.exact_launch_count, pbb.launch_count
+            if len(cons) != 8 or any(r[-1] != "0" for r in rows):
+                fail(f"{kind} --exact: {len(cons)} records, log rows {rows}")
+            if launches < 1 or windowed:
+                fail(f"{kind} --exact: {launches} graveyard-instance and "
+                     f"{windowed} windowed launches")
+            files = pair_files(pairs_txt)
+            wave = [workload_of(d, r1, r2, kind) for r1, r2 in files]
+            if kind == "poreover":
+                zero_counts()
+                anch, _, arows, t_anch, atm = pair_decode_cli(
+                    d, pairs_txt, bc, "exact_anch",
+                    ["--exact", "--skip_matches", "--skip_threshold", "10"])
+                a_launches = pbb.exact_launch_count
+                if len(anch) != 8 or any(r[-1] != "0" for r in arows) or \
+                        bb.box_launch_count or a_launches < 1:
+                    fail(f"--exact --skip_matches: {len(anch)} records, "
+                         f"{bb.box_launch_count} box launches, {a_launches} "
+                         f"exact launches, log rows {arows}")
+        log(f"phase 17 {kind} pair-decode --exact: 8 full-size pairs, "
+            f"{launches} graveyard-instance launch(es); end-to-end "
+            f"{t_e2e:.2f} s ({8 / t_e2e:.2f} pairs/s); stages "
+            + " ".join(f"{k}={v:.3f}s" for k, v in tm.items()))
+        prep = pbb.prepare_pairs(wave, device=DEVICE, model=model,
+                                 exact=True)
+        steps = prep["meta"][:, 7]
+        wave_ms = event_ms(lambda: pbb.launch_prepared(prep), reps=1)
+        wave_bound, wave_by, wave_terms = bound_ms(prep)
+        log(f"  [{gpu}] {kind} graveyard instance: {wave_ms:.1f} ms per "
+            f"8-pair wave, {wave_ms * 1e3 / steps.max():.2f} us per step of "
+            f"the longest plan (bound {wave_bound:.4f} ms, {wave_by}); "
+            f"storage in {pbb.storage_path(prep)} memory; plan steps per "
+            f"pair {steps.tolist()}")
+        log(f"  bound terms: {wave_terms}")
+        if kind == "poreover":
+            t0 = time.perf_counter()
+            tries = [None] * len(wave)
+
+            def trie(i):
+                tries[i] = native.pair_beam_row_col_cpu(*wave[i],
+                                                        beam_width=5)
+
+            ths = [threading.Thread(target=trie, args=(i,))
+                   for i in range(len(wave))]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join()
+            ids = [identity(c, t) for c, t in zip(cons, tries)]
+            match = sum(c == t for c, t in zip(cons, tries))
+            wids = [identity(c, w) for c, w in zip(cons, cons_windowed)]
+            wtids = [identity(w, t) for w, t in zip(cons_windowed, tries)]
+            log(f"  trie_match {match}/8 (the unbounded trie, f64 on the "
+                f"host, {time.perf_counter() - t0:.1f} s); identity to it "
+                + " ".join(f"{x:.6f}" for x in ids)
+                + f", lowest {min(ids):.6f}; phase 3's windowed consensus "
+                "to it " + " ".join(f"{x:.6f}" for x in wtids)
+                + "; exact equal to windowed "
+                f"{sum(c == w for c, w in zip(cons, cons_windowed))}/8, "
+                "identity " + " ".join(f"{x:.6f}" for x in wids))
+            if not all(np.isfinite(ids)) or min(ids) < EXACT_TRIE_FLOOR:
+                fail(f"--exact: identity {min(ids)} to the unbounded trie < "
+                     f"{EXACT_TRIE_FLOOR}")
+            worse = [i for i, (x, w) in enumerate(zip(ids, wtids)) if x < w]
+            if worse:
+                fail(f"--exact: pairs {worse} further from the unbounded "
+                     "trie than their windowed consensus")
+            one, one_ms = timed(lambda: pbb.pair_beam_single(
+                *wave[0], exact=True))
+            if one != cons[0]:
+                fail("--exact: pair 0 through the single-pair entry differs "
+                     "from its string in the wave")
+            aids = [identity(a, c) for a, c in zip(anch, cons)]
+            log(f"  pair 0 alone (single-pair entry, one CTA): equal to the "
+                f"wave's string, {one_ms:.1f} ms with host prep, upload and "
+                f"fetch")
+            log(f"  --exact --skip_matches: 8 pairs, {a_launches} exact box "
+                f"wave(s) (no box-kernel launch); end-to-end {t_anch:.2f} s; "
+                f"consensus stage {atm.get('consensus_2d', float('nan')):.3f}"
+                " s; identity to the --exact consensus: "
+                + " ".join(f"{x:.4f}" for x in aids))
+        st = kstats[kind]
+        t_k, t_p, b_short = st["short"]
+        entries.append({
+            "name": "pair_beam_exact", "kinds": [model], "route": "cuda",
+            "source": "poreover_tpu_torch/csrc/pair_beam_batch.cu",
+            "replaces": "poreover_tpu/ops/beam2d_planned.py:405 "
+                        "(_planned_scan with G > 0, an XLA scan, not a "
+                        "Pallas kernel)",
+            "launches": launches, "max_abs_err": st["max_abs_err"],
+            "ms": wave_ms, "plain_ms": t_p, "bound_ms": wave_bound,
+            "us_per_step": wave_ms * 1e3 / int(steps.max()),
+            "bound_by": wave_by, "library_ms": None,
+            "plain_input": f"two full-size pairs, first {EXACT_PLAIN_STEPS} "
+                           "plan steps",
+            "ms_on_plain_input": t_k, "bound_ms_on_plain_input": b_short,
+        })
+        del prep, wave
+    return entries
+
+
+def first_look_exact():
+    """``--first-look exact``: phase 17 alone (a few minutes): the pair
+    kernel's build and ptxas report, its ``cuda``-marked exact tests of
+    tests/test_torch_kernel.py, ``exact_kernel_cases`` and
+    ``exact_phase`` (phase 3's windowed consensus decoded first, for the
+    comparison). Prints the kernels line, no result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, HERE)
+    from poreover_tpu_torch import build, native
+    from poreover_tpu_torch.ops import pair_beam_batch as pbb
+    from poreover_tpu_torch.sim import write_pairs
+
+    gpu = gpu_line()
+    log(gpu)
+    log(sys.version.split()[0], torch.__version__, torch.version.cuda)
+    t0 = time.perf_counter()
+    native.load()
+    pbb.load_kernel()
+    log(f"build {time.perf_counter() - t0:.1f} s")
+    for line in build.ptxas_report("pair_beam_batch"):
+        log(f"ptxas pair_beam_batch: {line}")
+    tests = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
+         "-k", "exact", "-p", "no:cacheprovider",
+         os.path.join(HERE, "tests", "test_torch_kernel.py")],
+        capture_output=True, text=True, cwd=HERE)
+    log(tests.stdout.strip().splitlines()[-1])
+    if tests.returncode != 0:
+        fail(f"the exact tests: {tests.stdout[-3000:]}{tests.stderr[-2000:]}")
+    full = {kind: sim_workloads(2, seed=7, lo=5200, hi=8200, kind=kind)
+            for kind in ("poreover", "bonito", "flipflop")}
+    kstats = exact_kernel_cases(full)
+    with tempfile.TemporaryDirectory() as d:
+        pairs_txt, _ = write_pairs(d, 8, seed=7, lo=5200, hi=8200)
+        cons = pair_decode_cli(d, pairs_txt, "poreover", "w")[0]
+    log(json.dumps({"kernels": exact_phase(gpu, kstats, cons)}))
+
+
 def build_all():
     """Phase 1: the host runtime, the six kernels and their instrumented
     builds, and the latency probe (``csrc/latency.cu``), one compiler
@@ -2877,6 +3154,7 @@ def main():
         f"pair 0 alone, first {PLAIN_STEPS_SINGLE} steps", short1,
         stats_single)
     short1_bound = bound_ms(short1)[0]
+    full_ctc = wave[:2]  # phase 17 holds the graveyard instance on these
     del wave, prep, prep1, short, short1
 
     # ---- phase 6: decode at full size, through the CLI
@@ -3133,6 +3411,14 @@ def main():
     benchmark_phase(gpu, keep, truth3, truth)
     shutil.rmtree(keep)
 
+    # ---- phase 17: exact mode (pair-decode --exact) at full size
+    full = {"poreover": full_ctc}
+    for kind in ("bonito", "flipflop"):
+        full[kind] = sim_workloads(2, seed=7, lo=5200, hi=8200, kind=kind)
+    exact_entries = exact_phase(gpu, exact_kernel_cases(full), cons_full)
+    del full, full_ctc
+    log(f"phase 17 done: {time.perf_counter() - t_start:.0f} s elapsed")
+
     kernels = [{
         "name": "pair_beam_batch", "kinds": ["ctc"], "route": "cuda",
         "source": "poreover_tpu_torch/csrc/pair_beam_batch.cu",
@@ -3207,7 +3493,7 @@ def main():
         "input": f"one train step's batch: B {TRAIN_BATCH}, T "
                  f"{TRAIN_WINDOW}, labels of seeded windows",
         "train_step_ms": tr["step_ms"],
-    }]
+    }] + exact_entries
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"ok": True, "device": {
@@ -3347,6 +3633,8 @@ if __name__ == "__main__":
         del argv[i:i + 2]
     if argv == ["--first-look"]:
         first_look()
+    elif argv == ["--first-look", "exact"]:
+        first_look_exact()
     elif argv == ["--first-look", "dp"]:
         first_look_dp()
     elif argv:

@@ -161,15 +161,17 @@ def build_parser() -> argparse.ArgumentParser:
     p_pair.add_argument("--skip_threshold", type=int, default=10)
     p_pair.add_argument(
         "--exact", action="store_true",
-        help="reference-exact consensus: unbounded-memo trie semantics via "
-        "the graveyard engine (slower; see docs/EXACTNESS.md)")
+        help="reference-exact consensus: the unbounded-memo trie's "
+        "semantics, through the pair kernel's graveyard instance (evicted "
+        "candidates kept for 20 prunes; slower; see docs/EXACTNESS.md); "
+        "anchored boxes (--skip_matches) take it too")
     p_pair.add_argument(
         "--f64", action="store_true",
-        help="run the pipeline in float64 on the host CPU (XLA engine) — "
-        "a precision probe for near-tie positions (docs/EXACTNESS.md f32 "
-        "section; measured NOT sufficient for byte-parity at true ties — "
-        "use --exact for that); f64-on-TPU is emulated and faults this "
-        "dev chip's runtime, so the mode stays on host")
+        help="run the pipeline in float64 on the CPU: the plain PyTorch "
+        "versions of the kernels (this sets --device cpu) — a precision "
+        "probe for near-tie positions (docs/EXACTNESS.md f32 section; not "
+        "sufficient for byte-parity at true ties, use --exact for that); "
+        "the flip-flop Viterbi DP stays float32")
     p_pair.add_argument(
         "--beam_search_method",
         choices=["row", "row_col", "grid"],
@@ -241,8 +243,6 @@ def _benchmark(args):
 _PAIR_UNPORTED = [
     ("--method split|align", lambda a: a.method != "envelope", "A13"),
     ("--algorithm prefix", lambda a: a.algorithm != "beam", "A13"),
-    ("--exact", lambda a: a.exact, "A11"),
-    ("--f64", lambda a: a.f64, "A11"),
     ("--beam_search_method row|grid",
      lambda a: a.beam_search_method != "row_col", "A13"),
 ]
@@ -252,6 +252,12 @@ def _pair_decode(args):
     for flag, test, item in _PAIR_UNPORTED:
         if test(args):
             _not_ported(f"pair-decode {flag}", item)
+    if args.f64 and args.device != "cpu":
+        # float64 runs the plain versions on the host, as the JAX
+        # package's --f64 runs its engines there; asked for, not a fallback
+        logging.getLogger("poreover_tpu_torch").info(
+            "--f64: running in float64 on the CPU (--device cpu)")
+        args.device = "cpu"
     from .device import resolve_device
 
     resolve_device(args.device)

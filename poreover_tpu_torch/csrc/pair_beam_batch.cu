@@ -22,6 +22,15 @@
 // chip_smoke.py the shared-memory path is ~7% faster (H100 SXM: 704 ms
 // against 759 ms), mostly in the storage passes.
 //
+// Exact mode (pair-decode --exact): a second set of instances, one per
+// kind, keeps the graveyard of G = GT evicted candidates
+// (pair_search.cuh: run_search<MODEL, G>), the JAX engine's
+// _planned_scan with G > 0, which the JAX package runs as an XLA scan (no
+// Pallas kernel has it). Its storage adds 2*K*G*(Wst0+Wst1) floats per
+// pair (~180 KB for a full-size CTC pair beside the candidates' 70 KB), so
+// full-size pairs keep it in global scratch (L2-resident at 8 pairs a
+// wave); only small pairs fit EXACT_SMEM_STORAGE_LIMIT_BYTES.
+//
 // What bounds it: latency, not bytes or FLOPs. A step is a chain of small
 // dependent phases (see pair_search.cuh for what the step does about
 // it); per MAIN step each read group moves ~2 rows-of-Wst copies per
@@ -33,9 +42,9 @@
 // planes: per pair a [R, T+1] float32 plane (pair_search.cuh: Problem),
 // flat, at meta offsets; plan int32 [sum N, 5]; meta int64 [B, 12];
 // model 0 ctc, 1 ctc_merge_repeats, 2 ctc_flipflop; scratch float32
-// 4*K*C*(Wst0+Wst1) per pair, K = 1 for ctc and 2 otherwise (unused when
-// the storage is in shared memory); outputs prov int8 [sum N, W], score
-// float32 [B, C], valid uint8 [B, C].
+// 4*K*C*(Wst0+Wst1) per pair, K = 1 for ctc and 2 otherwise (exact:
+// (4*C + 2*G)*K*(Wst0+Wst1); unused when the storage is in shared memory);
+// outputs prov int8 [sum N, W], score float32 [B, C], valid uint8 [B, C].
 
 #include "pair_search.cuh"
 
@@ -50,17 +59,26 @@ using namespace poreover::pair_search;
 constexpr int SMEM_STORAGE_LIMIT_BYTES = 216 * 1024;
 static_assert(SMEM_STORAGE_LIMIT_BYTES + sizeof(Shared) <= 227 * 1024,
               "a CTA's shared memory");
+// graveyard rows of the exact instances, and their storage limit (the
+// graveyard's bookkeeping takes static shared memory too)
+constexpr int EXACT_G = GT;
+constexpr int EXACT_SMEM_STORAGE_LIMIT_BYTES = 208 * 1024;
+static_assert(EXACT_SMEM_STORAGE_LIMIT_BYTES + sizeof(Shared) +
+                      sizeof(GraveShared<EXACT_G>) <= 227 * 1024,
+              "a CTA's shared memory, exact");
 
-template <int MODEL>
+template <int MODEL, int G>
 __global__ void __launch_bounds__(NT)
 pair_beam_kernel(const float* __restrict__ planes1,
                  const float* __restrict__ planes2,
                  const int* __restrict__ plan,
                  const long long* __restrict__ meta, int W, int in_smem,
-                 float* __restrict__ scratch, signed char* __restrict__ prov,
+                 int grace, float* __restrict__ scratch,
+                 signed char* __restrict__ prov,
                  float* __restrict__ score_out,
                  unsigned char* __restrict__ valid_out) {
   __shared__ Shared sh;
+  __shared__ GraveShared<G> gsh;
   extern __shared__ float smem_store[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int C = W * (A + 1);
@@ -69,9 +87,10 @@ pair_beam_kernel(const float* __restrict__ planes1,
   // two inlined copies of the search, so that each knows the address
   // space of its storage
   signed char* pv = prov + m[M_PLAN] * W;
-  const Row r = in_smem
-                    ? run_search<MODEL>(sh, pr, W, smem_store, pv)
-                    : run_search<MODEL>(sh, pr, W, scratch + m[M_SCR], pv);
+  const Row r =
+      in_smem ? run_search<MODEL, G>(sh, pr, W, smem_store, pv, &gsh, grace)
+              : run_search<MODEL, G>(sh, pr, W, scratch + m[M_SCR], pv, &gsh,
+                                     grace);
 
   // ---- final table, deduplicated
   if (warp == 0) {
@@ -83,21 +102,43 @@ pair_beam_kernel(const float* __restrict__ planes1,
   }
 }
 
-template <int MODEL>
+template <int MODEL, int G>
 cudaError_t launch(const float* planes1, const float* planes2,
                    const int* plan, const long long* meta, int B, int W,
-                   int smem_bytes, float* scratch, signed char* prov,
-                   float* score, unsigned char* valid, cudaStream_t stream) {
+                   int grace, int smem_bytes, float* scratch,
+                   signed char* prov, float* score, unsigned char* valid,
+                   cudaStream_t stream) {
   if (smem_bytes > 0) {
     const cudaError_t err = cudaFuncSetAttribute(
-        pair_beam_kernel<MODEL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
+        pair_beam_kernel<MODEL, G>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return err;
   }
-  pair_beam_kernel<MODEL><<<B, NT, (size_t)smem_bytes, stream>>>(
-      planes1, planes2, plan, meta, W, smem_bytes > 0, scratch, prov, score,
-      valid);
+  pair_beam_kernel<MODEL, G><<<B, NT, (size_t)smem_bytes, stream>>>(
+      planes1, planes2, plan, meta, W, smem_bytes > 0, grace, scratch, prov,
+      score, valid);
   return cudaGetLastError();
+}
+
+// The instance of kind `model` (and graveyard G) on `stream`.
+template <int G>
+int launch_kind(const float* planes1, const float* planes2, const int* plan,
+                const long long* meta, int B, int W, int model, int grace,
+                int smem_bytes, float* scratch, signed char* prov,
+                float* score, unsigned char* valid, cudaStream_t st) {
+  switch (model) {
+    case 0:
+      return (int)launch<0, G>(planes1, planes2, plan, meta, B, W, grace,
+                               smem_bytes, scratch, prov, score, valid, st);
+    case 1:
+      return (int)launch<1, G>(planes1, planes2, plan, meta, B, W, grace,
+                               smem_bytes, scratch, prov, score, valid, st);
+    case 2:
+      return (int)launch<2, G>(planes1, planes2, plan, meta, B, W, grace,
+                               smem_bytes, scratch, prov, score, valid, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -122,20 +163,30 @@ int pair_beam_batch_launch(const float* planes1, const float* planes2,
   if (B <= 0) return 0;
   if (smem_bytes < 0 || smem_bytes > SMEM_STORAGE_LIMIT_BYTES)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (model) {
-    case 0:
-      return (int)launch<0>(planes1, planes2, plan, meta, B, W, smem_bytes,
-                            scratch, prov, score, valid, st);
-    case 1:
-      return (int)launch<1>(planes1, planes2, plan, meta, B, W, smem_bytes,
-                            scratch, prov, score, valid, st);
-    case 2:
-      return (int)launch<2>(planes1, planes2, plan, meta, B, W, smem_bytes,
-                            scratch, prov, score, valid, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return launch_kind<0>(planes1, planes2, plan, meta, B, W, model, 1,
+                        smem_bytes, scratch, prov, score, valid,
+                        (cudaStream_t)stream);
+}
+
+int pair_beam_exact_storage_limit() { return EXACT_SMEM_STORAGE_LIMIT_BYTES; }
+
+int pair_beam_graveyard_rows() { return EXACT_G; }
+
+// As pair_beam_batch_launch, for the exact instances: the graveyard of
+// EXACT_G rows with eviction at `grace` MAIN steps (1 <= grace <= 1 << 30);
+// smem_bytes at most EXACT_SMEM_STORAGE_LIMIT_BYTES.
+int pair_beam_exact_launch(const float* planes1, const float* planes2,
+                           const int* plan, const long long* meta, int B,
+                           int W, int model, int grace, int smem_bytes,
+                           float* scratch, signed char* prov, float* score,
+                           unsigned char* valid, void* stream) {
+  if (B <= 0) return 0;
+  if (smem_bytes < 0 || smem_bytes > EXACT_SMEM_STORAGE_LIMIT_BYTES ||
+      grace < 1 || grace > NOT_KEPT)
+    return (int)cudaErrorInvalidValue;
+  return launch_kind<EXACT_G>(planes1, planes2, plan, meta, B, W, model,
+                              grace, smem_bytes, scratch, prov, score, valid,
+                              (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -57,6 +57,22 @@
 // no TF32 or bf16 touches a log-prob. log(0) is -inf and lse(-inf, -inf)
 // is -inf.
 //
+// The graveyard (run_search<MODEL, G> with G = GT rows; the pair kernel's
+// exact instances, the JAX engine's _planned_scan with G > 0): a candidate
+// that leaves the table at a MAIN step keeps its storage for up to
+// grace - 1 further MAIN steps in one of G rows, and a child whose key is
+// found there resumes that storage. Both read groups keep their own copy of
+// the graveyard's bookkeeping (thread gt of a group holds slot gt's key and
+// age in registers; keys, rank keys and sources in GraveShared) and update
+// it the same way, so the groups still meet only at the join. The new
+// graveyard is ranked by (age, pool index), the pool being the old table's
+// rows then the old graveyard's in slot order: each row's rank is the count
+// of rows with a smaller (age, index), which is what the JAX engine's
+// stable argsort gives, so ties fall the same way. Its valid rows are
+// always slots 0 .. gn-1. The rows' storage (2 buffers of [K, G, Wst] per
+// read, after the candidates' 4) moves with the window in every storage
+// pass of its read, never swept.
+//
 // run_search starts from the t = 0 state and rewrites every piece of table
 // and storage state it later reads, so a CTA may run one problem after
 // another in the same shared memory and storage: a problem's result does
@@ -137,6 +153,20 @@ struct Shared {
   float mx[2][2][CMAX];  // [MAIN-step parity][read][slot]
   WarpScratch ws[NWARP];
 };
+
+// rank key of a pool row that is not kept (the JAX engine's 1 << 30)
+constexpr int NOT_KEPT = 1 << 30;
+
+// The graveyard's bookkeeping, one copy per read group: by slot its keys,
+// the rank keys of the old slots (age if the row may stay, else NOT_KEPT),
+// and the new slots' pool index (table row, or C + old slot) and age.
+template <int G> struct GraveShared {
+  alignas(16) uint2 key[2][G];
+  alignas(16) int skey[2][G];
+  int src[2][G];
+  int age[2][G];
+};
+template <> struct GraveShared<0> {};
 
 // One search problem: two reads' planes ([R, T+1] float32; ctc: rows 0..3
 // emissions, 4 gap, 5 the root's value at t-1; bonito: rows 0..3
@@ -841,10 +871,17 @@ __device__ __forceinline__ int sweep_two(
 // entry do not matter), `pv` receives the winners' provenance, W int8 per
 // plan step (0 on run steps). Returns the lane's slot of the final table,
 // in every warp; the CTA is synchronised on return.
-template <int MODEL>
+//
+// G > 0 (G == GT): the graveyard, with eviction at `grace` MAIN steps (an
+// argument at most NOT_KEPT); `gsh` its bookkeeping. `store` then holds
+// (4*C + 2*G)*K*(Wst0+Wst1) floats.
+template <int MODEL, int G = 0>
 __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
                                           int W, float* store,
-                                          signed char* pv) {
+                                          signed char* pv,
+                                          GraveShared<G>* gsh = nullptr,
+                                          int grace = 1) {
+  static_assert(G == 0 || G == GT, "one graveyard slot per group thread");
   constexpr int K = Kind<MODEL>::K;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = warp / GWARP, gw = warp % GWARP, gt = tid % GT;
@@ -859,7 +896,11 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
   // storage buffers b = 0, 1 at base + b*n_st, frozen copies at
   // base + (2+b)*n_st (offsets, not an array of pointers, keep the
   // pointers' address space known to the compiler)
-  float* const base = store + (g == 0 ? 0 : 4 * K * C * pr.Wst[0]);
+  float* const base = store + (g == 0 ? 0 : (4 * C + 2 * G) * K * pr.Wst[0]);
+  // the graveyard's storage buffers b = 0, 1 at gbase + b*gn_st (row s,
+  // component kc at kc*gcs + s*Wa)
+  const int gcs = G * Wa, gn_st = K * gcs;
+  float* const gbase = base + 4 * n_st;
 
   // ---- initial table: the A root children in beam row 0's child slots
   Row cur;
@@ -901,6 +942,10 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
   // storage and the frozen copies, and (lane = slot) frozen-copy offsets;
   // par: which half of sh.mx the next MAIN step uses
   int off = 0, sb = 0, pb = 0, poff = 0, par = 0;
+  // the graveyard: its valid rows (slots 0 .. gn-1), which buffer holds
+  // their storage, and (thread gt) slot gt's key and age
+  int gn = 0, gb = 0, gage = 0;
+  unsigned gk1 = 0u, gk2 = 0u;
   __syncthreads();
   CLK_INIT();
 
@@ -967,7 +1012,22 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
       const int c = (lane - W) % A;
       const unsigned q1 = p1 * M1 + (unsigned)(c + 1);
       const unsigned q2 = p2 * M2 + (unsigned)(c + 1);
-      const int child_idx = lookup(ws, vm, q1, q2);
+      int child_idx = lookup(ws, vm, q1, q2);
+      if constexpr (G > 0) {
+        // a child not in the table resumes its graveyard row, if any (the
+        // first valid slot with its key): old storage row C + slot
+        const bool miss = lane >= W && in && child_idx < 0;
+        if (__any_sync(FULL, miss)) {
+          int r = -1;
+          const uint2* gkey = gsh->key[g];
+          for (int j = (gn - 1) & ~1; j >= 0; j -= 2) {
+            const uint4 k = *reinterpret_cast<const uint4*>(&gkey[j]);
+            if (j + 1 < gn && k.z == q1 && k.w == q2) r = j + 1;
+            if (k.x == q1 && k.y == q2) r = j;
+          }
+          if (miss && r >= 0) child_idx = C + r;
+        }
+      }
       if (lane < W) {
         nt.k1 = p1;
         nt.k2 = p2;
@@ -994,6 +1054,51 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
       refresh = lookup(ws, smask, nt.pk1, nt.pk2);
       root = nt.pk1 == 0u && nt.pk2 == 0u;
       pslot = root ? -1 : refresh;
+      if constexpr (G > 0) {
+        // ---- the new graveyard (both groups alike): the old table's
+        // first occurrences not in the new table at age 1, then the old
+        // slots not in the new table, aged one more step, below grace;
+        // the G youngest by (age, pool index)
+        const unsigned tmask = __ballot_sync(
+            FULL, grace > 1 && in && keep &&
+                      lookup(ws, smask, cur.k1, cur.k2) < 0);
+        const int n_t = __popc(tmask);
+        const int age1 = gage + 1;
+        const bool stay = gt < gn && age1 < grace &&
+                          lookup(ws, smask, gk1, gk2) < 0;
+        const int sk = stay ? age1 : NOT_KEPT;
+        gsh->skey[g][gt] = sk;
+        group_sync(g);
+        int rank = 0, n_g = 0;
+#pragma unroll 8
+        for (int j = 0; j < G; j += 4) {
+          const int4 o = *reinterpret_cast<const int4*>(&gsh->skey[g][j]);
+          rank += (o.x < sk || (o.x == sk && j < gt)) +
+                  (o.y < sk || (o.y == sk && j + 1 < gt)) +
+                  (o.z < sk || (o.z == sk && j + 2 < gt)) +
+                  (o.w < sk || (o.w == sk && j + 3 < gt));
+          n_g += (o.x < NOT_KEPT) + (o.y < NOT_KEPT) + (o.z < NOT_KEPT) +
+                 (o.w < NOT_KEPT);
+        }
+        if (stay && n_t + rank < G) {
+          const int r = n_t + rank;
+          gsh->key[g][r] = make_uint2(gk1, gk2);
+          gsh->src[g][r] = C + gt;
+          gsh->age[g][r] = age1;
+        }
+        if (gw == 0 && ((tmask >> lane) & 1u)) {
+          const int r = __popc(tmask & ((1u << lane) - 1u));
+          gsh->key[g][r] = make_uint2(cur.k1, cur.k2);
+          gsh->src[g][r] = lane;
+          gsh->age[g][r] = 1;
+        }
+        group_sync(g);
+        gn = min(n_t + n_g, G);
+        const uint2 k = gsh->key[g][gt];
+        gk1 = gt < gn ? k.x : 0u;
+        gk2 = gt < gn ? k.y : 0u;
+        gage = gt < gn ? gsh->age[g][gt] : 0;
+      }
     } else {
       // catch-up run: sweep the current beam only (the valid slots whose
       // key a surviving winner holds)
@@ -1026,15 +1131,22 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
         float* Snew = base + (1 - sb) * n_st;
         const float* Pold = base + (2 + pb) * n_st;
         float* Pnew = base + (3 - pb) * n_st;
+        const float* Gold = gbase + gb * gn_st;
         // warp gw takes rows gw, gw + GWARP, ..., RB of them at a time
         for (int i0 = gw; i0 < C; i0 += RB * GWARP) {
           int sr[RB];
+          const float* rp[RB];  // the source row (component 0)
+          int rcs[RB];          // and its component stride
 #pragma unroll
           for (int r = 0; r < RB; ++r) {
             const int i = i0 + r * GWARP;
             const int q = is_main ? __shfl_sync(FULL, psrc, min(i, CMAX - 1))
                                   : i;
             sr[r] = i < C ? q : -2;  // -2: no such row
+            // a child resumed from the graveyard reads slot q - C
+            const bool gy = G > 0 && sr[r] >= C;
+            rp[r] = gy ? Gold + (sr[r] - C) * Wa : Sold + max(sr[r], 0) * Wa;
+            rcs[r] = gy ? gcs : cs;
           }
 #pragma unroll
           for (int kc = 0; kc < K; ++kc)
@@ -1046,7 +1158,7 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
               for (int c = 0; c < CPL; ++c) {
                 const int j = j0 + 32 * c + lane, jj = j + d;
                 sv[r][c] = (sr[r] >= 0 && j < Wa && jj >= 0 && jj < Wa)
-                               ? Sold[kc * cs + sr[r] * Wa + jj] : -INFINITY;
+                               ? rp[r][kc * rcs[r] + jj] : -INFINITY;
               }
 #pragma unroll
             for (int r = 0; r < RB; ++r)
@@ -1097,6 +1209,44 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
                 }
             }
           }
+        }
+        if constexpr (G > 0) {
+          // the graveyard's rows, shifted as the table's: on MAIN the new
+          // slots from their pool rows, on a run each slot in place
+          float* Gnew = gbase + (1 - gb) * gn_st;
+          for (int i0 = gw; i0 < gn; i0 += RB * GWARP) {
+            const float* rp[RB];
+            int rcs[RB];
+#pragma unroll
+            for (int r = 0; r < RB; ++r) {
+              const int i = min(i0 + r * GWARP, gn - 1);
+              const int q = is_main ? gsh->src[g][i] : C + i;
+              rp[r] = q >= C ? Gold + (q - C) * Wa : Sold + q * Wa;
+              rcs[r] = q >= C ? gcs : cs;
+            }
+#pragma unroll
+            for (int kc = 0; kc < K; ++kc)
+            for (int j0 = 0; j0 < Wa; j0 += 32 * CPL) {
+              float sv[RB][CPL];
+#pragma unroll
+              for (int r = 0; r < RB; ++r)
+#pragma unroll
+                for (int c = 0; c < CPL; ++c) {
+                  const int j = j0 + 32 * c + lane, jj = j + d;
+                  sv[r][c] = (j < Wa && jj >= 0 && jj < Wa)
+                                 ? rp[r][kc * rcs[r] + jj] : -INFINITY;
+                }
+#pragma unroll
+              for (int r = 0; r < RB; ++r)
+#pragma unroll
+                for (int c = 0; c < CPL; ++c) {
+                  const int j = j0 + 32 * c + lane;
+                  if (i0 + r * GWARP < gn && j < Wa)
+                    Gnew[kc * gcs + (i0 + r * GWARP) * Wa + j] = sv[r][c];
+                }
+            }
+          }
+          gb = 1 - gb;
         }
         if (is_main) {
           const int fpo = __shfl_sync(FULL, poff, src);

@@ -14,7 +14,10 @@ bonito and flip-flop traces, ``--method envelope``, ``--algorithm beam``,
   4. Consensus: the row_col pair beam search over the envelope, in waves
      of ``--threads`` pairs of one model kind through one launch of the
      CUDA kernel (ops/pair_beam_batch.py); on ``--device cpu`` its plain
-     PyTorch version runs instead.
+     PyTorch version runs instead. ``--exact`` takes the kernel's graveyard
+     instance (the reference's unbounded-memo semantics up to the
+     graveyard's depth), ``--f64`` the plain version in float64 on the
+     CPU (``cli.py`` sets the device).
 
 Unlike the JAX package, which decodes bonito and flip-flop pairs one by
 one through its XLA engine, the port batches every kind: a pairs file
@@ -26,6 +29,9 @@ Anchored mode (reference pair_decode.py:412-452): stretches where the two
 anchors, and only the boxes between anchors get a 2D consensus. The boxes
 of a wave's pairs are pooled into one launch of the box kernel
 (ops/box_beam.py); boxes over its storage limit go through the pair kernel.
+Under ``--exact`` or ``--f64`` every box goes through the pair kernel (its
+graveyard instance, or the float64 plain version), in waves of 32 sorted
+by length, as the JAX package decodes such boxes with its planned engine.
 
 Skip rules and the TSV summary log match the reference: length mismatch
 > 1000 bases (pair_decode.py:372-375), pairwise identity < 0.5 (:395-398).
@@ -229,10 +235,16 @@ def pair_decode_helper(args, _workload_sink=None):
     if not args.diagonal_envelope:
         # ---- stage 1: 1D basecalls ----
         _t0 = time.perf_counter()
-        decode_1d = (viterbi_decode_batch if args.single == "viterbi"
-                     else beam_acceptor_batch)
-        (basecall1, viterbi_path1), (basecall2, viterbi_path2) = \
-            decode_1d([model1, model2], device=args.device)
+        if args.single == "viterbi":
+            # the flip-flop Viterbi DP is float32 even under --f64, as in
+            # the JAX package
+            decoded = viterbi_decode_batch([model1, model2],
+                                           device=args.device)
+        else:
+            decoded = beam_acceptor_batch([model1, model2],
+                                          device=args.device,
+                                          dtype=_dtype(args))
+        (basecall1, viterbi_path1), (basecall2, viterbi_path2) = decoded
 
         if abs(len(basecall1) - len(basecall2)) > 1000:
             log.warning("skipping pair due to length mismatch")
@@ -384,12 +396,19 @@ def pair_decode_helper(args, _workload_sink=None):
     return _format_result(_batched_consensus([workload], args, kind)[0])
 
 
+def _dtype(args):
+    """The float type of the plain versions: float64 under ``--f64`` (the
+    JAX package's x64 host run), else float32."""
+    return np.float64 if args.f64 else np.float32
+
+
 def _batched_consensus(workloads, args, kind: str = "poreover"):
     """Decode prepared (y1, y2, envelope) workloads of the model ``kind``
-    in waves of ``args.threads`` pairs, one kernel launch per wave. Wave
-    i+1's host prep and upload are enqueued before wave i's results are
-    fetched, so they overlap wave i's kernel on the card. A failed build
-    or launch raises: there is no per-pair or CPU fallback."""
+    in waves of ``args.threads`` pairs, one kernel launch per wave
+    (``--exact``: of the graveyard instance). Wave i+1's host prep and
+    upload are enqueued before wave i's results are fetched, so they
+    overlap wave i's kernel on the card. A failed build or launch raises:
+    there is no per-pair, windowed or CPU fallback."""
     from ..ops.pair_beam_batch import (
         fetch_prepared, launch_prepared, prepare_pairs, storage_path,
     )
@@ -401,9 +420,11 @@ def _batched_consensus(workloads, args, kind: str = "poreover"):
     pending = None
     for i, chunk in enumerate(chunks):
         prep = prepare_pairs(chunk, beam_width=args.beam_width,
-                             device=args.device, model=MODEL_STRING[kind])
-        log.info("%s consensus wave %d/%d (one kernel launch; storage in %s "
-                 "memory)", kind, i + 1, len(chunks), storage_path(prep))
+                             device=args.device, model=MODEL_STRING[kind],
+                             exact=args.exact, dtype=_dtype(args))
+        log.info("%s%s consensus wave %d/%d (one kernel launch; storage in "
+                 "%s memory)", kind, " exact" if args.exact else "", i + 1,
+                 len(chunks), storage_path(prep))
         outs = launch_prepared(prep)
         if pending is not None:
             out.extend(fetch_prepared(*pending))
@@ -419,22 +440,31 @@ def _batched_consensus(workloads, args, kind: str = "poreover"):
 
 
 def batched_box_decode(flat_workloads, beam_width: int = 5, device=None,
-                       model: str = "ctc"):
+                       model: str = "ctc", exact: bool = False,
+                       dtype=np.float32):
     """Decode a flat list of (y1, y2, env) anchor boxes of the kind
     ``model``: one launch of the box kernel (ops/box_beam.py), then the
     boxes over its storage limit through the pair kernel of the same kind
-    in waves of 32 sorted by length. On the CPU both run their plain
-    versions, with the same limit and the same rerouting. Returns one
-    sequence per box, in order."""
+    in waves of 32 sorted by length. With ``exact`` (the graveyard
+    instance) or ``dtype`` float64 (the plain version, ``--f64``) every
+    box takes the second route: the box kernel keeps the windowed memo in
+    float32 only. On the CPU both run their plain versions, with the same
+    limit and the same rerouting. Returns one sequence per box, in
+    order."""
     from ..ops.box_beam import box_beam
     from ..ops.pair_beam_batch import pair_beam_batch
 
-    seqs, overflow = box_beam(flat_workloads, beam_width=beam_width,
-                              device=device, model=model)
-    if overflow:
-        log.info("box kernel: %d/%d boxes over the storage limit; rerouting "
-                 "through the pair kernel", len(overflow),
-                 len(flat_workloads))
+    n = len(flat_workloads)
+    if exact or dtype != np.float32:
+        seqs, overflow = [None] * n, list(range(n))
+        log.info("%d boxes through the pair kernel%s", n,
+                 " (graveyard instance)" if exact else "")
+    else:
+        seqs, overflow = box_beam(flat_workloads, beam_width=beam_width,
+                                  device=device, model=model)
+        if overflow:
+            log.info("box kernel: %d/%d boxes over the storage limit; "
+                     "rerouting through the pair kernel", len(overflow), n)
     order = sorted(overflow, key=lambda i: (len(flat_workloads[i][0])
                                             + len(flat_workloads[i][1])))
     wave = 32
@@ -442,7 +472,7 @@ def batched_box_decode(flat_workloads, beam_width: int = 5, device=None,
         sel = order[i:i + wave]
         out = pair_beam_batch([flat_workloads[j] for j in sel],
                               beam_width=beam_width, device=device,
-                              model=model)
+                              model=model, exact=exact, dtype=dtype)
         for j, s in zip(sel, out):
             seqs[j] = s
     return seqs
@@ -455,12 +485,13 @@ def _batched_box_consensus(box_lists, args, kind: str = "poreover"):
     Returns one list of box sequences per input pair, in order. A failed
     build or launch raises: there is no per-pair or CPU fallback."""
     wls = [wl for boxes in box_lists for wl in boxes]
-    log.info("anchored %s consensus: %d boxes across %d pairs (box kernel)",
-             kind, len(wls), len(box_lists))
+    log.info("anchored %s consensus: %d boxes across %d pairs", kind,
+             len(wls), len(box_lists))
     _t0 = time.perf_counter()
     seqs = iter(batched_box_decode(wls, beam_width=args.beam_width,
                                    device=args.device,
-                                   model=MODEL_STRING[kind]))
+                                   model=MODEL_STRING[kind],
+                                   exact=args.exact, dtype=_dtype(args)))
     timers.seconds["consensus_2d"] += time.perf_counter() - _t0
     timers.add_work(
         "consensus_2d",

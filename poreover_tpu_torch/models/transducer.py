@@ -172,7 +172,8 @@ def viterbi_decode_batch(models, device=None) -> list[tuple]:
 
 
 def beam_acceptor_batch(models, device=None, beam_width: int = 25,
-                        band_size: int = 1000) -> list[tuple]:
+                        band_size: int = 1000,
+                        dtype=np.float32) -> list[tuple]:
     """(string, path) of each model's 1D beam search and the banded Viterbi
     acceptor's path of that string through the read: stage 1 of
     ``pair-decode --single beam`` (reference pair_decode.py, the JAX
@@ -180,8 +181,12 @@ def beam_acceptor_batch(models, device=None, beam_width: int = 25,
     width 25, then ``viterbi_acceptor`` with ``band_size=1000``). The
     models are of one kind. On a CUDA device the beam search is one launch
     of the 1D beam kernel and the acceptor one launch of its kernel, for
-    all the models together; on the CPU their plain versions run. The
-    stage timers ``beam_1d`` and ``acceptor`` split the two."""
+    all the models together; on the CPU their plain versions run, in
+    ``dtype`` (float64 under ``pair-decode --f64``; the kernels take
+    float32). The stage timers ``beam_1d`` and ``acceptor`` split the
+    two."""
+    import torch
+
     from ..decoding.decode import _uses_kernel
     from ..device import resolve_device
     from ..ops.acceptor import viterbi_acceptor_batch
@@ -200,10 +205,13 @@ def beam_acceptor_batch(models, device=None, beam_width: int = 25,
             from ..ops.beam import beam_search_batch
 
             seqs = beam_search_batch(ys, beam_width=beam_width, model=model,
-                                     device=dev)
+                                     device=dev,
+                                     dtype=torch.float64
+                                     if dtype == np.float64
+                                     else torch.float32)
     with timers.stage("acceptor"):
         paths = viterbi_acceptor_batch(ys, seqs, band_size=band_size,
-                                       device=dev)
+                                       device=dev, dtype=dtype)
     return list(zip(seqs, paths))
 
 

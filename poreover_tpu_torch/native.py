@@ -5,7 +5,10 @@ The port's own loader: it builds ``native/poreover_native.cpp``,
 ``g++ -O3 -std=c++17 -fPIC -shared`` into ``poreover_tpu_torch/_build/``
 at first use (never into ``native/``), and raises when no compiler is
 found. Covers the banded and full Needleman-Wunsch aligners, the fitting
-aligner of ``benchmark``, the C++ plan walk, and the f64 windowed-memo oracle of the pair beam search.
+aligner of ``benchmark``, the C++ plan walk, and the f64 oracles of the
+pair beam search: the windowed memo (the accelerator engines' default
+semantics), the same with an eviction grace period (the graveyard of
+``--exact``), and the reference's unbounded trie.
 """
 from __future__ import annotations
 
@@ -47,13 +50,17 @@ def load():
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_char_p, ctypes.c_char_p,
     ]
-    lib.pair_beam_row_col_cpu_emul.restype = ctypes.c_int
-    lib.pair_beam_row_col_cpu_emul.argtypes = [
+    oracle = [
         ndpointer(np.float64, flags="C_CONTIGUOUS"), ctypes.c_int,
         ndpointer(np.float64, flags="C_CONTIGUOUS"), ctypes.c_int,
-        ndpointer(np.int64, flags="C_CONTIGUOUS"),
-        ctypes.c_int, ctypes.c_char_p,
+        ndpointer(np.int64, flags="C_CONTIGUOUS"), ctypes.c_int,
     ]
+    for name, extra in (("pair_beam_row_col_cpu", []),
+                        ("pair_beam_row_col_cpu_emul", []),
+                        ("pair_beam_row_col_cpu_emul_grace", [ctypes.c_int])):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = oracle + extra + [ctypes.c_char_p]
     lib.nw_fit_align.restype = ctypes.c_int
     lib.nw_fit_align.argtypes = [
         ctypes.c_char_p, ctypes.c_int,
@@ -87,18 +94,40 @@ def plan_walk_native(env, U: int, V: int):
     )
 
 
-def pair_beam_row_col_cpu_emul(y1, y2, envelope, beam_width: int = 5) -> str:
-    """f64 single-core row_col pair beam search with the windowed-memo
-    semantics of the accelerator engines (native/pair_beam_cpu.cpp emulate
-    mode): the oracle a full-size consensus is held against."""
+def _pair_oracle(name, y1, y2, envelope, beam_width, *extra) -> str:
     y1 = np.ascontiguousarray(y1, dtype=np.float64)
     y2 = np.ascontiguousarray(y2, dtype=np.float64)
     env = np.ascontiguousarray(envelope, dtype=np.int64)
     out = ctypes.create_string_buffer(len(y1) + len(y2) + 1)
-    n = load().pair_beam_row_col_cpu_emul(
-        y1, len(y1), y2, len(y2), env, beam_width, out
-    )
+    n = getattr(load(), name)(y1, len(y1), y2, len(y2), env, beam_width,
+                              *extra, out)
     return out.value[:n].decode()
+
+
+def pair_beam_row_col_cpu_emul(y1, y2, envelope, beam_width: int = 5) -> str:
+    """f64 single-core row_col pair beam search with the windowed-memo
+    semantics of the accelerator engines (native/pair_beam_cpu.cpp emulate
+    mode): the oracle a full-size consensus is held against."""
+    return _pair_oracle("pair_beam_row_col_cpu_emul", y1, y2, envelope,
+                        beam_width)
+
+
+def pair_beam_row_col_cpu(y1, y2, envelope, beam_width: int = 5) -> str:
+    """f64 single-core row_col pair beam search over the reference's
+    unbounded-memo trie (PrefixTree.h semantics): the oracle that
+    ``--exact`` is held against."""
+    return _pair_oracle("pair_beam_row_col_cpu", y1, y2, envelope,
+                        beam_width)
+
+
+def pair_beam_row_col_cpu_emul_grace(y1, y2, envelope, beam_width: int = 5,
+                                     grace: int = 1) -> str:
+    """The windowed-memo oracle with an eviction grace period: a node that
+    leaves the candidate table keeps its memo for ``grace - 1`` more
+    prunes (``grace=1`` is ``pair_beam_row_col_cpu_emul``); the oracle of
+    the graveyard engine at each grace."""
+    return _pair_oracle("pair_beam_row_col_cpu_emul_grace", y1, y2,
+                        envelope, beam_width, grace)
 
 
 def global_pair(seq1: str, seq2: str, match=2, mismatch=-1, gap_cost=-1):

@@ -117,7 +117,7 @@ def beam_search_2d(y1, y2, envelope=None, beam_width: int = 25,
     from .beam2d_planned import _check_model
     from .pair_beam_batch import pair_beam_single
 
-    _check_model(model, False)
+    _check_model(model)
     y1 = np.asarray(y1)
     y2 = np.asarray(y2)
     if envelope is None:

@@ -1,12 +1,14 @@
 """Plan-driven row_col 2D beam search: the plain PyTorch version.
 
 Port of ``poreover_tpu/ops/beam2d_planned.py`` for all three model kinds
-(``ctc``, ``ctc_merge_repeats`` for bonito, ``ctc_flipflop``), float32,
-windowed-memo semantics (``exact=False``). It is the plain version of the
-CUDA kernels ``csrc/pair_beam_batch.cu`` and ``csrc/box_beam.cu``: they
-take the same packed inputs (``pack_pairs``) and return the same outputs
-(per-step winner provenance, final scores and validity), and the wrappers
-run this version only for tensors on the CPU.
+(``ctc``, ``ctc_merge_repeats`` for bonito, ``ctc_flipflop``), with the
+windowed-memo semantics (``exact=False``) and the reference-exact
+graveyard (``exact=True``), in float32 (or float64, for ``pair-decode
+--f64``). It is the plain version of the CUDA kernels
+``csrc/pair_beam_batch.cu`` and ``csrc/box_beam.cu``: they take the same
+packed inputs (``pack_pairs``) and return the same outputs (per-step
+winner provenance, final scores and validity), and the wrappers run this
+version only for tensors on the CPU.
 
 The (u, v) walk of the reference (BeamSearch.h:262-397) depends only on
 the envelope, so the host precomputes it as a plan (``build_plan``):
@@ -20,6 +22,13 @@ chunk the candidates are layered over their parent forest, and each
 layer's stay chains have a closed form (cumulative log-add-exp,
 ``beam2d._lse_scan``): one chain for CTC, two chained ones for bonito
 (the no-gap chain feeds the total), two independent ones for flip-flop.
+
+The graveyard (``G`` > 0, the JAX engine's ``_planned_scan`` with G > 0):
+a candidate that leaves the table keeps its storage for up to ``grace - 1``
+further MAIN steps in one of G graveyard rows, and a child that is found
+again resumes it instead of starting from -inf. The rows move with the
+storage window (re-anchored on every sweep of their read) but are never
+swept.
 
 The engine is batched over B pairs in lockstep: each pair keeps its own
 storage width Wst and its own plan length (steps past the end of a plan
@@ -40,6 +49,11 @@ _NEG_INF = LOG_0
 CHUNK = 128
 
 MAIN, C0RUN, C1RUN = 0, 1, 2
+
+# reference-exact mode (the JAX engine's EXACT_G / EXACT_GRACE): graveyard
+# rows, and the MAIN steps an evicted candidate's storage is kept for
+EXACT_GRACE = 20
+EXACT_G = 128
 
 # meta columns of a packed batch (one int64 row per pair)
 (M_T1, M_L1, M_Y1, M_T2, M_L2, M_Y2, M_PLAN, M_N, M_WST0, M_WST1,
@@ -136,9 +150,10 @@ def plane_rows(model_id: int, A: int) -> int:
     return {0: A + 2, 1: A + 1, 2: 2 * A}[model_id]
 
 
-def _pack_plane(y: np.ndarray, A: int, model_id: int = 0) -> np.ndarray:
-    """[T, S] log-probs -> [plane_rows, T+1] float32 plane; column T holds
-    -inf emissions.
+def _pack_plane(y: np.ndarray, A: int, model_id: int = 0,
+                dtype=np.float32) -> np.ndarray:
+    """[T, S] log-probs -> [plane_rows, T+1] plane of ``dtype`` (float32,
+    or float64 for ``--f64``); column T holds -inf emissions.
 
     - ctc: rows 0..A-1 emissions, row A gap, row A+1 the root's value at
       t-1 (0 at t=0, the cumulative gap mass through t-1 after);
@@ -148,21 +163,22 @@ def _pack_plane(y: np.ndarray, A: int, model_id: int = 0) -> np.ndarray:
       (no gap, and the root as for bonito)."""
     T = len(y)
     R = plane_rows(model_id, A)
-    y32 = np.asarray(y, dtype=np.float32)
-    plane = np.full((R, T + 1), _NEG_INF, np.float32)
+    yd = np.asarray(y, dtype=dtype)
+    plane = np.full((R, T + 1), _NEG_INF, dtype)
     if model_id == 2:
-        plane[:, :T] = y32[:, :2 * A].T
+        plane[:, :T] = yd[:, :2 * A].T
         return plane
-    plane[:A + 1, :T] = y32[:, :A + 1].T
+    plane[:A + 1, :T] = yd[:, :A + 1].T
     if model_id == 0:
         plane[A + 1, 0] = 0.0
-        plane[A + 1, 1:] = np.cumsum(y32[:, A].astype(np.float64)).astype(
-            np.float32)
+        plane[A + 1, 1:] = np.cumsum(yd[:, A].astype(np.float64)).astype(
+            dtype)
     return plane
 
 
 def pack_pairs(pairs, beam_width: int = 5, alphabet: str = "ACGT",
-               plans=None, wst=None, model: str = "ctc"):
+               plans=None, wst=None, model: str = "ctc", G: int = 0,
+               dtype=np.float32):
     """Host-side packing of B (y1, y2, envelope) pairs of one model kind.
 
     Returns a dict of numpy arrays: ``planes1`` / ``planes2`` (each pair's
@@ -172,7 +188,10 @@ def pack_pairs(pairs, beam_width: int = 5, alphabet: str = "ACGT",
     and the bookkeeping the traceback needs. Pairs whose plan is empty (an
     empty read) take no part in the batch and decode to "". ``plans`` /
     ``wst`` (lists, one entry per pair) override the plans and storage
-    widths, for runs of truncated plans at the full plans' widths.
+    widths, for runs of truncated plans at the full plans' widths. ``G``
+    graveyard rows (exact mode) widen each pair's kernel scratch; ``dtype``
+    is the planes' (float32, or float64 for the plain version under
+    ``--f64``).
     """
     A = len(alphabet)
     W = beam_width
@@ -199,7 +218,8 @@ def pack_pairs(pairs, beam_width: int = 5, alphabet: str = "ACGT",
         y1, y2, _ = pairs[i]
         p = plans[i]
         w0, w1 = plan_wst(p) if wst is None else wst[i]
-        q1, q2 = _pack_plane(y1, A, model_id), _pack_plane(y2, A, model_id)
+        q1 = _pack_plane(y1, A, model_id, dtype)
+        q2 = _pack_plane(y2, A, model_id, dtype)
         n = len(p["type"])
         meta[r] = (len(y1), len(y1) + 1, o1, len(y2), len(y2) + 1, o2, op, n,
                    w0, w1, osc, 0)
@@ -212,14 +232,15 @@ def pack_pairs(pairs, beam_width: int = 5, alphabet: str = "ACGT",
         o1 += q1.size
         o2 += q2.size
         op += n
-        osc += 4 * K * C * (w0 + w1)
+        osc += (4 * C + 2 * G) * K * (w0 + w1)
     cat = (lambda xs, dt: np.concatenate(xs) if xs else np.zeros(0, dt))
     return dict(
-        planes1=cat(planes1, np.float32), planes2=cat(planes2, np.float32),
+        planes1=cat(planes1, dtype), planes2=cat(planes2, dtype),
         plan=(np.concatenate(plan_rows) if plan_rows
               else np.zeros((0, 5), np.int32)),
         meta=meta, live=live, n_pairs=len(pairs), types=types,
         scratch_floats=osc, W=W, A=A, alphabet=alphabet, model_id=model_id,
+        G=G,
     )
 
 
@@ -285,7 +306,10 @@ def _rows(x, idx):
         idx.shape + x.shape[2:]))
 
 
-_LOG_HALF = float(np.float32(np.log(0.5)))
+def _log_half(dtype) -> float:
+    """log(1/2) in ``dtype``: a flip-flop root's flip and flop at t = -1."""
+    return float(np.log(0.5).astype(
+        np.float64 if dtype == torch.float64 else np.float32))
 
 
 def _chunked_sweep(plane, A, lo, hi, active, n_chunks, k1, k2, pk1, pk2,
@@ -363,7 +387,7 @@ def _chunked_sweep(plane, A, lo, hi, active, n_chunks, k1, k2, pk1, pk2,
             # bonito (gap = 0, no gap = -inf) and flip-flop (log 1/2 each)
             # at t = -1 only
             at0 = t_abs == 0
-            r0 = torch.where(at0, 0.0 if model_id == 1 else _LOG_HALF,
+            r0 = torch.where(at0, 0.0 if model_id == 1 else _log_half(dtype),
                              _NEG_INF).to(dtype)
             r1 = r0 if model_id == 2 else torch.full_like(r0, _NEG_INF)
             root_ext = torch.stack([r0, r1], 1)[:, None]
@@ -479,25 +503,112 @@ def _unpack_planes(flat: torch.Tensor, meta_h: np.ndarray, col_l: int,
     return out
 
 
+def _gy_select(tab, keep, new, gy, grace: int, G: int):
+    """The graveyard after a MAIN step (the JAX engine's ``_gy_select``):
+    the pool is the old table's rows that are not in the new table (first
+    occurrences of a key only), then the old graveyard's rows aged one more
+    step, in slot order; the G youngest stay, ranked by (age, pool index)
+    with a stable sort, and a row of age ``grace`` or more is evicted.
+    Returns the new graveyard's keys, ages and validity, per new slot its
+    pool index and whether it holds a row, and per pair the rows turned
+    away because the graveyard was full."""
+    def in_new(k1, k2):
+        return _lookup_idx(k1, k2, new["k1"], new["k2"], new["valid"]) >= 0
+
+    cand_elig = keep & ~in_new(tab["k1"], tab["k2"])
+    if grace <= 1:
+        cand_elig = torch.zeros_like(cand_elig)
+    age = gy["gage"] + 1
+    gy_elig = gy["gvalid"] & ~in_new(gy["gk1"], gy["gk2"]) & (age < grace)
+    page = torch.cat([torch.ones_like(tab["k1"]), age], 1)
+    skey = torch.where(torch.cat([cand_elig, gy_elig], 1), page, 1 << 30)
+    sel = torch.sort(skey, dim=1, stable=True).indices[:, :G]
+    ok = skey.gather(1, sel) < (1 << 30)
+    pk1 = torch.cat([tab["k1"], gy["gk1"]], 1).gather(1, sel)
+    pk2 = torch.cat([tab["k2"], gy["gk2"]], 1).gather(1, sel)
+    out = dict(gk1=torch.where(ok, pk1, 0), gk2=torch.where(ok, pk2, 0),
+               gage=torch.where(ok, page.gather(1, sel), 0), gvalid=ok)
+    full = ((skey < (1 << 30)).sum(1) - G).clamp(min=0)
+    return out, sel, ok, full
+
+
+def _initial_state(P, meta_h, W: int, A: int, model_id: int, G: int):
+    """The search state before the first plan step: the A root children in
+    the child slots of beam row 0, their storage at t = 0, an empty
+    graveyard, and no provenance yet."""
+    dev, dtype = P[0].device, P[0].dtype
+    B = len(meta_h)
+    C = W * (A + 1)
+    K = components(model_id)
+    Wm = [int(meta_h[:, M_WST0].max()), int(meta_h[:, M_WST1].max())]
+    init = _init_candidates(0, P[0][0, :A + 1, 0], W, A)
+    state = {k: init[k][None].expand(B, C).clone()
+             for k in ("k1", "k2", "pk1", "pk2", "char", "pchar", "valid")}
+    state["score"] = torch.where(state["valid"], 0.0, _NEG_INF).to(dtype)
+    for axis in range(2):
+        st = torch.full((B, C, K, Wm[axis]), _NEG_INF, dtype=dtype,
+                        device=dev)
+        # the root children's state at t = 0: ctc (y0[c]), bonito (-inf,
+        # y0[c]), flip-flop (y0[c], y0[c+A])
+        y0 = P[axis][:, :, 0]
+        if model_id == 0:
+            st[:, W:W + A, 0, 0] = y0[:, :A]
+        elif model_id == 1:
+            st[:, W:W + A, 1, 0] = y0[:, :A]
+        else:
+            st[:, W:W + A, 0, 0] = y0[:, :A]
+            st[:, W:W + A, 1, 0] = y0[:, A:2 * A]
+        state[f"sweep{axis}"] = st
+        state[f"psweep{axis}"] = torch.full_like(st, _NEG_INF)
+        state[f"poff{axis}"] = torch.zeros(B, C, dtype=torch.int64,
+                                           device=dev)
+        state[f"off{axis}"] = torch.zeros(B, dtype=torch.int64, device=dev)
+        if G:
+            state[f"gsweep{axis}"] = torch.full(
+                (B, G, K, Wm[axis]), _NEG_INF, dtype=dtype, device=dev)
+    if G:
+        zeros = torch.zeros(B, G, dtype=torch.int64, device=dev)
+        state.update(gk1=zeros, gk2=zeros.clone(), gage=zeros.clone(),
+                     gvalid=torch.zeros(B, G, dtype=torch.bool, device=dev))
+        # counts per pair that show which cases a run exercised: rows
+        # turned away by a full graveyard, children that resumed a
+        # graveyard row, and those of them whose row had moved back with
+        # a backward re-anchor while buried (``gback`` per row)
+        state.update({k: torch.zeros(B, dtype=torch.int64, device=dev)
+                      for k in GY_COUNTS},
+                     gback=torch.zeros(B, G, dtype=torch.bool, device=dev))
+    state["prov"] = torch.zeros(B, int(meta_h[:, M_N].max()), W,
+                                dtype=torch.int8, device=dev)
+    return state
+
+
+GY_COUNTS = ("gfull", "gresume", "gresume_back")
+
+
 def planned_scan(planes1, planes2, plan, meta, W: int, A: int,
-                 return_state: bool = False, model_id: int = 0):
+                 return_state: bool = False, model_id: int = 0, G: int = 0,
+                 grace: int = 1, state=None, steps=None):
     """The plain version of the pair-beam kernel.
 
     Inputs as packed by ``pack_pairs`` (torch tensors on one device):
-    planes1/planes2 float32 flat, plan int32 [sum N, 5], meta int64
-    [B, META_COLS]; ``model_id`` the batch's kind (0 ctc, 1 bonito, 2
-    flip-flop). Returns (prov int8 [sum N, W] winner provenance of MAIN
-    steps (0 on run steps), score float32 [B, C] and valid bool [B, C] of
-    the final deduplicated table). With ``return_state`` returns the final
-    candidate table instead (dict of tensors, [B, ...]; storage
-    [B, C, K, Wst]).
+    planes1/planes2 float32 (or float64) flat, plan int32 [sum N, 5], meta
+    int64 [B, META_COLS]; ``model_id`` the batch's kind (0 ctc, 1 bonito,
+    2 flip-flop); ``G`` graveyard rows (0: windowed memo; exact mode:
+    EXACT_G, with eviction at ``grace`` MAIN steps). Returns (prov int8
+    [sum N, W] winner provenance of MAIN steps (0 on run steps), score
+    [B, C] and valid bool [B, C] of the final deduplicated table). With
+    ``return_state`` returns the search state instead (dict of tensors,
+    [B, ...]: the table, storage [B, C, K, Wst], the graveyard, ``prov``
+    [B, N, W]; with G the counts GY_COUNTS, kept only then). ``state``
+    (such a dict)
+    resumes a search and ``steps`` = (i0, i1) runs only plan steps
+    i0 <= i < i1.
     """
     dev = planes1.device
     meta_h = meta.cpu().numpy()
     B = len(meta_h)
     C = W * (A + 1)
     R = plane_rows(model_id, A)
-    K = components(model_id)
     P = [_unpack_planes(planes1, meta_h, M_L1, M_Y1, R),
          _unpack_planes(planes2, meta_h, M_L2, M_Y2, R)]
     Wst = [torch.as_tensor(meta_h[:, M_WST0], device=dev),
@@ -522,35 +633,27 @@ def planned_scan(planes1, planes2, plan, meta, W: int, A: int,
         nch_h.append(np.where(act, (width + CHUNK - 1) // CHUNK, 0).max(0))
     plan_d = torch.as_tensor(plan_h, device=dev)
 
-    # initial table: the A root children in the child slots of beam row 0
-    init = _init_candidates(0, P[0][0, :A + 1, 0], W, A)
-    tab = {k: init[k][None].expand(B, C).clone()
-           for k in ("k1", "k2", "pk1", "pk2", "char", "pchar", "valid")}
-    tab["score"] = torch.where(tab["valid"], 0.0, _NEG_INF).to(
-        planes1.dtype)
-    S, PS, poff, off = [], [], [], []
-    for axis in range(2):
-        st = torch.full((B, C, K, Wm[axis]), _NEG_INF, dtype=planes1.dtype,
-                        device=dev)
-        # the root children's state at t = 0: ctc (y0[c]), bonito (-inf,
-        # y0[c]), flip-flop (y0[c], y0[c+A])
-        y0 = P[axis][:, :, 0]
-        if model_id == 0:
-            st[:, W:W + A, 0, 0] = y0[:, :A]
-        elif model_id == 1:
-            st[:, W:W + A, 1, 0] = y0[:, :A]
-        else:
-            st[:, W:W + A, 0, 0] = y0[:, :A]
-            st[:, W:W + A, 1, 0] = y0[:, A:2 * A]
-        S.append(st)
-        PS.append(torch.full_like(st, _NEG_INF))
-        poff.append(torch.zeros(B, C, dtype=torch.int64, device=dev))
-        off.append(torch.zeros(B, dtype=torch.int64, device=dev))
-
-    prov = torch.zeros(B, Nm, W, dtype=torch.int8, device=dev)
-    cchar = torch.arange(A, device=dev).repeat(W)[None].expand(B, W * A)
+    if state is None:
+        state = _initial_state(P, meta_h, W, A, model_id, G)
     fields = ("k1", "k2", "pk1", "pk2", "char", "pchar", "valid")
-    for i in range(Nm):
+    gfields = ("gk1", "gk2", "gage", "gvalid")
+    tab = {k: state[k] for k in fields + ("score",)}
+    S = [state["sweep0"], state["sweep1"]]
+    PS = [state["psweep0"], state["psweep1"]]
+    poff = [state["poff0"], state["poff1"]]
+    off = [state["off0"], state["off1"]]
+    prov = state["prov"].clone()
+    if G:
+        gy = {k: state[k] for k in gfields}
+        GS = [state["gsweep0"], state["gsweep1"]]
+    count = bool(G) and return_state
+    if count:
+        cnt = {k: state[k] for k in GY_COUNTS}
+        gback = state["gback"]
+
+    i0, i1 = (0, Nm) if steps is None else (steps[0], min(steps[1], Nm))
+    cchar = torch.arange(A, device=dev).repeat(W)[None].expand(B, W * A)
+    for i in range(i0, i1):
         ty = plan_d[:, i, 0]
         is_main = ty == MAIN
         mi = is_main[:, None]
@@ -580,7 +683,28 @@ def planned_scan(planes1, planes2, plan, meta, W: int, A: int,
                      & (tab["k2"][:, :, None] == b["k2"][:, None, :])
                      & bvalid[:, None, :])
         sel = tab["valid"] & key_match.any(dim=2)
-        child_idx = _lookup_idx(ck1, ck2, tab["k1"], tab["k2"], tab["valid"])
+        # a re-discovered child resumes its old storage: from the table,
+        # else (exact mode) from the graveyard (slot C + g)
+        if G:
+            child_idx = _lookup_idx(
+                ck1, ck2, torch.cat([tab["k1"], gy["gk1"]], 1),
+                torch.cat([tab["k2"], gy["gk2"]], 1),
+                torch.cat([tab["valid"], gy["gvalid"]], 1))
+            new_gy, gsel, gok, full = _gy_select(tab, keep, new, gy, grace,
+                                                 G)
+            if count:
+                resumed = mi & (child_idx >= C)
+                back = gback.gather(1, (child_idx - C).clamp(0, G - 1))
+                cnt["gfull"] = cnt["gfull"] + torch.where(is_main, full, 0)
+                cnt["gresume"] = cnt["gresume"] + resumed.sum(1)
+                cnt["gresume_back"] = cnt["gresume_back"] + (resumed
+                                                             & back).sum(1)
+                gback = torch.where(mi, gok & torch.cat(
+                    [torch.zeros_like(tab["valid"]), gback], 1).gather(
+                        1, gsel), gback)
+        else:
+            child_idx = _lookup_idx(ck1, ck2, tab["k1"], tab["k2"],
+                                    tab["valid"])
         refresh_idx = _lookup_idx(use["pk1"], use["pk2"], use["k1"],
                                   use["k2"], use["valid"])
 
@@ -595,7 +719,8 @@ def planned_scan(planes1, planes2, plan, meta, W: int, A: int,
             # MAIN: stale storage of winners and re-discovered children,
             # frozen parent copies for the children
             bsweep = _rows(st_old, beam_src)
-            cst = _rows(st_old, child_idx.clamp(min=0))
+            pool = torch.cat([st_old, GS[axis]], 1) if G else st_old
+            cst = _rows(pool, child_idx.clamp(min=0))
             cst = torch.where((child_idx >= 0)[:, :, None, None], cst,
                               _NEG_INF)
             stale = torch.where(mi4, torch.cat([bsweep, cst], 1), st_old)
@@ -616,6 +741,18 @@ def planned_scan(planes1, planes2, plan, meta, W: int, A: int,
                 use["k1"], use["k2"], use["pk1"], use["pk2"], use["char"],
                 use["pchar"], mask, stale, off[axis], psw, pof, Wst[axis],
                 model_id)
+            if G:
+                # the graveyard's rows (the new ones on MAIN) move with the
+                # window as the table's do, unswept
+                gst = torch.where(gok[:, :, None, None], _rows(pool, gsel),
+                                  _NEG_INF)
+                gst = torch.where(mi4, gst, GS[axis])
+                GS[axis] = _shift_window(
+                    gst, 0, _jax_shift(new_off - off[axis], Wst[axis])[
+                        :, None, None], Wm[axis], extra=0,
+                    width=Wst[axis][:, None, None])
+                if count:
+                    gback = gback | (new_off < off[axis])[:, None]
             # frozen parent copies := parent's current storage where the
             # parent is in the table (last-known-values semantics)
             present = (refresh_idx >= 0) & active[:, None]
@@ -626,16 +763,33 @@ def planned_scan(planes1, planes2, plan, meta, W: int, A: int,
             maxes.append(mx)
         score = torch.where(use["valid"], maxes[0] + maxes[1], _NEG_INF)
         tab = dict(use, score=torch.where(mi, score, tab["score"]))
+        if G:
+            gy = {k: torch.where(mi, new_gy[k], gy[k]) for k in gfields}
         prov[:, i] = torch.where(mi, beam_src, 0).to(torch.int8)
 
+    state = dict(tab, sweep0=S[0], psweep0=PS[0], poff0=poff[0],
+                 off0=off[0], sweep1=S[1], psweep1=PS[1], poff1=poff[1],
+                 off1=off[1], prov=prov)
+    if G:
+        state.update(gy, gsweep0=GS[0], gsweep1=GS[1])
+    if count:
+        state.update(cnt, gback=gback)
     if return_state:
-        return dict(tab, sweep0=S[0], psweep0=PS[0], poff0=poff[0],
-                    off0=off[0], sweep1=S[1], psweep1=PS[1], poff1=poff[1],
-                    off1=off[1])
-    keep = _dedup_mask(tab["k1"], tab["k2"], tab["valid"])
-    score = torch.where(keep, tab["score"], _NEG_INF)
-    flat = torch.cat([prov[b, :int(Ns[b])] for b in range(B)]) if B else \
-        torch.zeros(0, W, dtype=torch.int8, device=dev)
+        return state
+    return scan_outputs(state, meta_h, W)
+
+
+def scan_outputs(state, meta_h, W: int):
+    """(prov int8 [sum N, W], score [B, C], valid bool [B, C]) of a search
+    state: the provenance of each pair's own plan steps, back to back, and
+    the final table deduplicated."""
+    keep = _dedup_mask(state["k1"], state["k2"], state["valid"])
+    score = torch.where(keep, state["score"], _NEG_INF)
+    prov = state["prov"]
+    Ns = np.asarray(meta_h)[:, M_N]
+    flat = torch.cat([prov[b, :int(Ns[b])] for b in range(len(Ns))]) \
+        if len(Ns) else torch.zeros(0, W, dtype=torch.int8,
+                                    device=prov.device)
     return flat, score, keep
 
 
@@ -643,13 +797,15 @@ def planned_scan(planes1, planes2, plan, meta, W: int, A: int,
 # entry points
 # --------------------------------------------------------------------------
 
-def _check_model(model: str, exact: bool) -> None:
+def _check_model(model: str) -> None:
     if model not in _MODEL_IDS:
         raise ValueError(f"unknown model {model!r}")
-    if exact:
-        raise NotImplementedError(
-            "exact (graveyard) mode is not ported to PyTorch yet (ROADMAP "
-            "item A11)")
+
+
+def graveyard(exact: bool) -> tuple[int, int]:
+    """(G, grace) of a mode: (EXACT_G, EXACT_GRACE) for exact, (0, 1) for
+    the windowed memo."""
+    return (EXACT_G, EXACT_GRACE) if exact else (0, 1)
 
 
 def _to_device(packed, device):
@@ -664,43 +820,77 @@ def _to_device(packed, device):
 
 def beam_search_2d_planned_batch(pairs, beam_width=5, alphabet="ACGT",
                                  model="ctc", exact: bool = False,
-                                 device=None) -> list[str]:
+                                 device=None, dtype=np.float32) -> list[str]:
     """Batched plan-driven row_col pair beam search, plain PyTorch.
 
     pairs: list of (y1, y2, envelope) of the kind ``model``. Runs on
-    ``device`` (default ``cuda``); this is the kernel's plain version, not
-    the main path."""
-    _check_model(model, exact)
-    packed = pack_pairs(pairs, beam_width, alphabet, model=model)
+    ``device`` (default ``cuda``) in ``dtype`` (float32, or float64 as
+    under ``--f64``); ``exact`` keeps the graveyard. This is the kernel's
+    plain version, not the main path."""
+    _check_model(model)
+    G, grace = graveyard(exact)
+    packed = pack_pairs(pairs, beam_width, alphabet, model=model, G=G,
+                        dtype=dtype)
     if not packed["live"]:
         return [""] * len(pairs)
     prov, score, valid = planned_scan(*_to_device(packed, device),
                                       beam_width, len(alphabet),
-                                      model_id=packed["model_id"])
+                                      model_id=packed["model_id"], G=G,
+                                      grace=grace)
     return tracebacks(packed, prov.cpu().numpy(), score.cpu().numpy(),
                       valid.cpu().numpy())
 
 
 def beam_search_2d_planned(y1, y2, envelope, beam_width=5, alphabet="ACGT",
                            model="ctc", exact: bool = False,
-                           device=None) -> str:
+                           device=None, dtype=np.float32) -> str:
     """Plan-driven row_col pair beam search for one pair, plain PyTorch."""
     return beam_search_2d_planned_batch(
-        [(y1, y2, envelope)], beam_width, alphabet, model, exact, device)[0]
+        [(y1, y2, envelope)], beam_width, alphabet, model, exact, device,
+        dtype)[0]
+
+
+def beam_search_2d_planned_batch_seg(pairs, beam_width=5, alphabet="ACGT",
+                                     model="ctc", exact: bool = True,
+                                     seg: int = 4096, device=None,
+                                     dtype=np.float32) -> list[str]:
+    """The batched search in runs of ``seg`` plan steps, the search state
+    (table, storage and graveyard) carried from one run to the next; the
+    outputs equal ``beam_search_2d_planned_batch``'s (the JAX engine's
+    segmented entry, whose segments bound the length of one launch)."""
+    _check_model(model)
+    G, grace = graveyard(exact)
+    packed = pack_pairs(pairs, beam_width, alphabet, model=model, G=G,
+                        dtype=dtype)
+    if not packed["live"]:
+        return [""] * len(pairs)
+    tensors = _to_device(packed, device)
+    state = None
+    for s0 in range(0, int(packed["meta"][:, M_N].max()), seg):
+        state = planned_scan(*tensors, beam_width, len(alphabet),
+                             return_state=True, model_id=packed["model_id"],
+                             G=G, grace=grace, state=state,
+                             steps=(s0, s0 + seg))
+    prov, score, valid = scan_outputs(state, packed["meta"], beam_width)
+    return tracebacks(packed, prov.cpu().numpy(), score.cpu().numpy(),
+                      valid.cpu().numpy())
 
 
 def debug_state_after(y1, y2, envelope, n_steps=None, beam_width=5,
-                      alphabet="ACGT", model="ctc", device=None):
+                      alphabet="ACGT", model="ctc", device=None, G=0,
+                      grace=1):
     """Run the planned scan truncated to the first n_steps plan steps and
     return the final candidate table (numpy dict) — differential-test hook.
 
     As in the JAX engine, the storage widths come from the full plan and
     the truncated plan is padded back to full length with zero-width C0RUN
     steps, so the table matches ``poreover_tpu``'s ``debug_state_after``
-    key for key. Sweep storage is [C, Wst] for plain CTC (the JAX table's
-    first state component) and [C, 2, Wst] for bonito and flip-flop, as in
-    the JAX table (``state_from_jax`` maps a JAX table to this layout)."""
-    _check_model(model, False)
+    (with ``G`` graveyard rows and ``grace``: its ``_planned_scan(...,
+    return_state=True)``) key for key. Sweep storage is [C, Wst] for plain
+    CTC (the JAX table's first state component) and [C, 2, Wst] for bonito
+    and flip-flop, as in the JAX table (``state_from_jax`` maps a JAX
+    table to this layout); the graveyard's likewise [G, ...]."""
+    _check_model(model)
     y1 = np.asarray(y1)
     y2 = np.asarray(y2)
     U, V = len(y1), len(y2)
@@ -717,27 +907,33 @@ def debug_state_after(y1, y2, envelope, n_steps=None, beam_width=5,
             for k, v in plan.items()
         }
     packed = pack_pairs([(y1, y2, env)], beam_width, alphabet, plans=[plan],
-                        wst=[wst], model=model)
+                        wst=[wst], model=model, G=G)
     state = planned_scan(*_to_device(packed, device), beam_width,
                          len(alphabet), return_state=True,
-                         model_id=packed["model_id"])
+                         model_id=packed["model_id"], G=G, grace=grace)
+    state.pop("prov")
     out = {k: v[0].cpu().numpy() for k, v in state.items()}
     if packed["model_id"] == 0:
-        for k in ("sweep0", "sweep1", "psweep0", "psweep1"):
-            out[k] = out[k][:, 0]
+        for k in _SWEEPS:
+            if k in out:
+                out[k] = out[k][:, 0]
     return out
+
+
+_SWEEPS = ("sweep0", "sweep1", "psweep0", "psweep1", "gsweep0", "gsweep1")
 
 
 def state_from_jax(d, model: str = "ctc") -> dict[str, torch.Tensor]:
     """Map a ``poreover_tpu`` candidate table (numpy dict from its
-    ``debug_state_after``) into this engine's layout: uint32 keys as
-    int64; for plain CTC sweep storage [C, 2, Wst] -> [C, Wst] (the second
-    state component is -inf there, which is checked)."""
+    ``debug_state_after`` or ``_planned_scan(..., return_state=True)``)
+    into this engine's layout: uint32 keys and int32 ages as int64; for
+    plain CTC sweep storage [C, 2, Wst] -> [C, Wst], graveyard storage
+    likewise (the second state component is -inf there, which is
+    checked)."""
     out = {}
     for k, v in d.items():
         v = np.array(v)
-        if model == "ctc" and k in ("sweep0", "sweep1", "psweep0",
-                                    "psweep1"):
+        if model == "ctc" and k in _SWEEPS:
             if not np.all(np.isneginf(v[:, 1])):
                 raise ValueError(f"{k}: second state component is not -inf")
             v = v[:, 0]

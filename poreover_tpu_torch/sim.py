@@ -9,7 +9,9 @@ steps/base) and Gaussian logit noise. At 5200-8200 bases a read has
 emissions; single reads use the same rendering. Raw current traces
 (``synth_raw_signal``, ``write_fast5``) feed the network's ``call``, and
 labeled windows of a scaled current (``synth_training_windows``) its
-``train``.
+``train``. Small envelope pairs for exact mode (``exact_style_cases``) and
+plans whose windows step back (``stuttered``) feed the graveyard engine's
+checks.
 """
 from __future__ import annotations
 
@@ -236,3 +238,43 @@ def ctc_log_likelihood(y: np.ndarray, seq: str) -> float:
         move[1:] = a[:-1] + row[s]
         a = np.logaddexp(a + row[4], move)
     return float(a[-1])
+
+
+def exact_style_cases(S=5):
+    """Three small envelope pairs for exact mode (the JAX package's
+    tests/test_exact.py cases, seed 21): seeded log-softmax planes with S
+    columns per row (5: ctc and bonito, 8: flip-flop) and a diagonal
+    envelope. A list of (y1, y2, envelope)."""
+    rng = np.random.default_rng(21)
+
+    def softmax_log(T):
+        x = rng.normal(size=(T, S)) * 2
+        return x - np.log(np.exp(x).sum(1, keepdims=True))
+
+    out = []
+    for U, V in [(40, 36), (70, 80), (120, 110)]:
+        y1, y2 = softmax_log(U), softmax_log(V)
+        lo = np.clip(np.arange(U) * V // U - 6, 0, V - 1)
+        hi = np.clip(np.arange(U) * V // U + 8, 1, V)
+        out.append((y1, y2, np.stack([lo, hi], 1).astype(np.int64)))
+    return out
+
+
+def stuttered(pairs, every=7, back=2):
+    """Plans of ``pairs`` in which every ``every``-th step is followed by a
+    repeat of the step ``back`` before it, at the plans' own storage widths:
+    the windows move back there, which ``build_plan``'s walks never do
+    after their first step. Returns (plans, storage widths)."""
+    from poreover_tpu_torch.ops.beam2d_planned import build_plan, plan_wst
+
+    plans, wsts = [], []
+    for y1, y2, env in pairs:
+        p = build_plan(env, len(y1), len(y2))
+        idx = []
+        for i in range(len(p["type"])):
+            idx.append(i)
+            if i >= back and i % every == 0:
+                idx.append(i - back)
+        plans.append({k: v[idx] for k, v in p.items()})
+        wsts.append(plan_wst(p))
+    return plans, wsts

@@ -267,8 +267,21 @@ def test_debug_pickle_has_the_anchor_keys(runs, tmp_path, monkeypatch):
                            "sequence_to_signal1", "sequence_to_signal2"]
 
 
-def test_exact_anchored_still_exits(tmp_path):
-    with pytest.raises(SystemExit, match="A11"):
-        torch_main(["pair-decode", "x.npy", "y.npy", "--device", "cpu",
-                    "--skip_matches", "--exact", "--out",
-                    str(tmp_path / "o")])
+def test_exact_anchored_writes_the_jax_packages_files(runs, tmp_path):
+    """``--skip_matches --exact`` exited naming ROADMAP A11 before; now it
+    decodes small.txt to the JAX package's files (which decodes each box
+    with its exact engine; the port sends every box through the pair
+    kernel's graveyard instance, here its plain version)."""
+    common = ["pair-decode", str(runs / "small.txt"), "--dir", str(runs),
+              "--basecaller", "poreover", "--reverse_complement",
+              "--threads", "4", "--skip_matches", "--skip_threshold", "3",
+              "--exact"]
+    torch_main(common + ["--out", str(tmp_path / "t"), "--device", "cpu"])
+    with jax_f32():
+        jax_main(common + ["--out", str(tmp_path / "j")])
+    for suffix in (".1d.fasta", ".2d.fasta"):
+        assert (tmp_path / f"t{suffix}").read_bytes() == (
+            tmp_path / f"j{suffix}").read_bytes()
+    t = (tmp_path / "t.log").read_text().splitlines()
+    assert t[3:] == (tmp_path / "j.log").read_text().splitlines()[3:]
+    assert [r.split("\t")[-1] for r in t[3:]] == ["0", "0"]

@@ -20,6 +20,7 @@ from poreover_tpu_torch.ops import beam2d
 from poreover_tpu_torch.ops import beam2d_planned as tp
 from poreover_tpu_torch.ops import box_beam as bb
 from poreover_tpu_torch.ops import pair_beam_batch as pbb
+from poreover_tpu_torch.sim import exact_style_cases, stuttered
 
 # the plain version runs many small ops: one intra-op thread is as fast
 # and does not oversubscribe the CPU when test workers run in parallel
@@ -648,3 +649,71 @@ def test_ctc_loss_on_card_goes_through_the_kernels(cuda_device):
     assert nc == 1 and nh == 0
     assert abs(lc - lh) <= 1e-5 * abs(lh)
     np.testing.assert_allclose(gc, gh, rtol=0, atol=1e-5)
+
+
+# ---- exact mode: the graveyard instances (EXACT_G rows), on
+# tests/test_exact.py's cases (sim.exact_style_cases)
+
+def test_exact_storage_counts_the_graveyard():
+    """The graveyard's sweeps (2 buffers of K x G x Wst per read) add to
+    the storage and the scratch, and decide shared or global memory."""
+    assert pbb.storage_bytes((10, 20), 5) == 16 * 25 * 30
+    assert pbb.storage_bytes((10, 20), 5, model_id=1, G=tp.EXACT_G) == (
+        8 * 2 * (2 * 25 + tp.EXACT_G) * 30)
+    pairs = exact_style_cases()
+    win = tp.pack_pairs(pairs)
+    ex = tp.pack_pairs(pairs, G=tp.EXACT_G)
+    wst = ex["meta"][:, tp.M_WST0] + ex["meta"][:, tp.M_WST1]
+    assert ex["scratch_floats"] == int(((4 * 25 + 2 * tp.EXACT_G) * wst).sum())
+    assert win["scratch_floats"] == int((4 * 25 * wst).sum())
+    prep = pbb.prepare_pairs(pairs, device="cpu", exact=True)
+    assert (prep["G"], prep["grace"]) == (tp.EXACT_G, tp.EXACT_GRACE)
+    assert pbb.storage_path(prep) == "shared"
+    big = dict(prep, meta=prep["meta"].copy())
+    big["meta"][0, tp.M_WST0] = 400
+    assert pbb.storage_path(big) == "global"
+    assert pbb.storage_path(dict(big, G=0)) == "shared"
+
+
+def test_exact_cpu_route_is_the_plain_graveyard():
+    pairs = exact_style_cases()
+    before = (pbb.launch_count, pbb.exact_launch_count)
+    got = pbb.pair_beam_batch(pairs, device="cpu", exact=True)
+    assert got == tp.beam_search_2d_planned_batch(pairs, device="cpu",
+                                                  exact=True)
+    assert pbb.pair_beam_single(*pairs[1], device="cpu", exact=True) == \
+        got[1]
+    assert (pbb.launch_count, pbb.exact_launch_count) == before
+
+
+def test_exact_kernel_refuses_other_graveyards(packed_cpu):
+    prep, (p1, p2, plan, meta) = packed_cpu
+    with pytest.raises(ValueError, match="G=16"):
+        pbb._launch(p1, p2, plan, meta, prep["meta"], 5, 4, G=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,S", [("ctc", 5), ("ctc_merge_repeats", 5),
+                                     ("ctc_flipflop", 8)])
+@pytest.mark.parametrize("grace", [2, 20])
+def test_exact_kernel_matches_plain_on_card(cuda_device, model, S, grace):
+    """The graveyard instance against the plain graveyard engine: the
+    provenance, the scores' bits and validity, with the storage in shared
+    memory and in global scratch, and on plans that step back
+    (``sim.stuttered``: buried rows move back)."""
+    pairs = exact_style_cases(S)
+    plans, wsts = stuttered(pairs)
+    for kw in ({}, dict(plans=plans, wst=wsts)):
+        packed = tp.pack_pairs(pairs, model=model, G=tp.EXACT_G, **kw)
+        dev = [torch.as_tensor(packed[k], device=cuda_device)
+               for k in ("planes1", "planes2", "plan", "meta")]
+        mid = packed["model_id"]
+        p = tp.planned_scan(*dev, 5, 4, model_id=mid, G=tp.EXACT_G,
+                            grace=grace)
+        for in_smem in (True, False):
+            k = pbb._launch(*dev, packed["meta"], 5, 4, in_smem=in_smem,
+                            model_id=mid, G=tp.EXACT_G, grace=grace)
+            torch.cuda.synchronize()
+            for a, b in zip(k, p):
+                assert torch.equal(a.cpu().view(torch.int8),
+                                   b.cpu().view(torch.int8))

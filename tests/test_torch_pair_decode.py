@@ -94,14 +94,36 @@ def test_two_read_form(runs):
 @pytest.mark.parametrize("flags,item", [
     (["--method", "split"], "A13"),
     (["--algorithm", "prefix"], "A13"),
-    (["--exact"], "A11"),
-    (["--f64"], "A11"),
     (["--beam_search_method", "grid"], "A13"),
 ])
 def test_unported_flags_exit(tmp_path, capsys, flags, item):
     with pytest.raises(SystemExit, match=item):
         torch_main(["pair-decode", "x.npy", "y.npy", "--device", "cpu",
                     "--out", str(tmp_path / "o")] + flags)
+
+
+@pytest.mark.parametrize("flag", ["--exact", "--f64"])
+def test_exact_and_f64_write_the_jax_packages_files(runs, tmp_path, flag):
+    """``--exact`` and ``--f64`` exited naming ROADMAP A11 before; now each
+    decodes the pairs file to the JAX package's files with the same flag
+    (--f64: float64 on the CPU in both; tests/test_torch_exact_cli.py and
+    tests/test_torch_f64.py cover more runs)."""
+    common = ["pair-decode", str(runs / "pairs.txt"), "--dir", str(runs),
+              "--basecaller", "poreover", "--reverse_complement",
+              "--threads", "4", flag]
+    torch_main(common + ["--out", str(tmp_path / "t"), "--device", "cpu"])
+    old = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", flag == "--f64")
+    try:
+        jax_main(common + ["--out", str(tmp_path / "j")])
+    finally:
+        jax.config.update("jax_enable_x64", old)
+    for suffix in (".1d.fasta", ".2d.fasta"):
+        assert (tmp_path / f"t{suffix}").read_bytes() == (
+            tmp_path / f"j{suffix}").read_bytes()
+    t = (tmp_path / "t.log").read_text().splitlines()
+    assert t[3:] == (tmp_path / "j.log").read_text().splitlines()[3:]
+    assert [r.split("\t")[-1] for r in t[3:]] == ["0", "0", "0", "1"]
 
 
 @pytest.mark.parametrize("basecaller,kind", [("bonito", "bonito"),

@@ -179,11 +179,15 @@ def test_table_state_matches_jax(cases, n_steps):
                                    err_msg=k)
 
 
-def test_unported_branches_raise():
-    y = np.log(np.full((4, 5), 0.2, np.float32))
-    env = np.tile(np.array([0, 4], np.int64), (4, 1))
-    with pytest.raises(NotImplementedError, match="A11"):
-        tp.beam_search_2d_planned(y, y, env, exact=True, device="cpu")
+@pytest.mark.parametrize("i", [1, 3])
+def test_exact_branch_decodes_to_the_jax_engines_string(cases, i):
+    """``exact=True`` raised naming ROADMAP A11 before; now it decodes to
+    the JAX exact engine's string (tests/test_torch_exact.py has more)."""
+    c = cases[0][i]
+    with jax_f32():
+        want = jp.beam_search_2d_planned(*c, beam_width=5, exact=True)
+    assert tp.beam_search_2d_planned(*c, beam_width=5, exact=True,
+                                     device="cpu") == want
 
 
 @pytest.mark.parametrize("model,S", [("ctc_merge_repeats", 5),
