@@ -238,23 +238,31 @@ Phases (each fails the run if it fails):
      instance). (a) per kind, the graveyard instance against the plain
      graveyard engine on the card (provenance, score bits, validity):
      tests/test_exact.py's three cases at EXACT_GRACES (CTC; the other
-     kinds the first and last), in shared memory and in global scratch;
-     the same cases on plans that step back (EXACT_STUTTER); the first
+     kinds the first and last), in each storage path (shared memory; the
+     graveyard's in global scratch; all in global scratch); the same
+     cases on plans that step back (EXACT_STUTTER) and that step back
+     past the storage window (EXACT_WRAP, every storage path: live
+     graveyard rows carried across the wrap of the JAX engine's shift and
+     resumed after it); the first
      EXACT_PLAIN_STEPS steps of two full-size pairs (phase 3's; phase 10's
      for bonito and flip-flop), timed both; the plain version's counts
      must show rows turned away from a full graveyard, resumed graveyard
      rows, and a row resumed after it moved back while buried. (b) phase
      3's 8 pairs through the CLI with ``--exact`` (launch counts zeroed
      just before, read just after; the windowed instance must not run):
-     8 records; the wave's kernel time by CUDA events, us per step of the
-     longest plan, bound; each consensus against the reference's
+     8 records, each string's md5 the JAX exact engine's (EXACT_CTC_MD5);
+     the wave's kernel time by CUDA events, us per step of the
+     longest plan, bound, and its cycles per plan step by phase (the
+     instrumented build; the graveyard's selection and burials apart, and
+     their share); each consensus against the reference's
      unbounded trie (f64, on the host): ``trie_match k/8``, identities
      (gates: EXACT_TRIE_FLOOR, set from the runs, and each pair no further
      from the trie than its phase 3 windowed consensus); pair 0 through the
      single-pair entry equal to its string in the wave. (c) the same pairs
      with ``--exact --skip_matches``: 8 records, no box-kernel launch, the
      exact box waves' count and time. (d) phase 10's bonito and flip-flop
-     pairs with ``--exact``: 8 records each, the wave's kernel time.
+     pairs with ``--exact``: 8 records each, the wave's kernel time and
+     cycles per plan step by phase.
 
 ``python3 chip_smoke.py --first-look`` runs only a short first check of
 the CTC kernels and the train step (``first_look``), ``--first-look dp``
@@ -277,6 +285,7 @@ CUDA device or without the package beside it.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -327,7 +336,24 @@ PLAIN_STEPS_KINDS = 1000  # phase 10: the bonito and flip-flop waves
 EXACT_PLAIN_STEPS = 500
 EXACT_GRACES = (2, 4, 8, 20)
 EXACT_STUTTER = (7, 2)
+# plans that step back further than the storage window: every 3rd step is
+# followed by the step 20 before it, a backward move of more than Wst+1
+# columns on tests/test_exact.py's cases, so that live graveyard rows take
+# the wrap of the JAX engine's re-anchoring shift and are resumed after it
+EXACT_WRAP = (3, 20)
 EXACT_TRIE_FLOOR = 0.998
+# md5 of each CTC --exact consensus of phase 3's wave (pairs 0-7), as the
+# JAX package's exact engine decodes them (float32, on the CPU): the jax_md5
+# of JAX_PLATFORMS=cpu python tools/exact_trie_check.py --port-exact 0 1 2 3
+# 4 5 6 7
+EXACT_CTC_MD5 = ("4d7a414024f7ffa2b6e25890f678813b",
+                 "4e76d5448145144394450cd55d8c11bd",
+                 "57863af2e2cce91aedae0e634c53f055",
+                 "da64e5f78c4d774a36d68bed77e3b417",
+                 "b80caa4c5356b7f530ccb2f1d22b5934",
+                 "c8b42d80ab58d474c35495eededda110",
+                 "e5c660f7191b4607fab4df4638abf225",
+                 "5266b5d622d6d896dae44a76d691ade5")
 BEAM1D_PLAIN_STEPS = 10000  # phase 7: steps per read of the 1D wave
 REAL_BOX_STEPS = 2048  # phase 2: boxes.npz boxes held to the plain version
 BOX_PLAIN_STEPS = 1000  # phases 2, 8, 10: plan steps of a compared box
@@ -554,6 +580,19 @@ def bound_ms(prep, out_bytes=None) -> tuple[float, str, str]:
     return t_ops, "operations", terms
 
 
+def pack_truncated(pairs, n, model="ctc", G=0):
+    """``pack_pairs`` of ``pairs`` with each plan cut to its first ``n``
+    steps, at the full plans' storage widths."""
+    from poreover_tpu_torch.ops.beam2d_planned import (
+        build_plan, pack_pairs, plan_wst,
+    )
+
+    plans = [build_plan(env, len(y1), len(y2)) for y1, y2, env in pairs]
+    return pack_pairs(pairs, model=model, G=G,
+                      plans=[{k: v[:n] for k, v in p.items()} for p in plans],
+                      wst=[plan_wst(p) for p in plans])
+
+
 def upload(packed):
     """A packed batch (``pack_pairs``) with its tensors on the card."""
     import torch
@@ -564,8 +603,10 @@ def upload(packed):
 
 def compare(name, prep, stats, also_global=False, grace=None):
     """Kernel vs plain version on one packed batch, both on the card. With
-    ``also_global`` the kernel runs a second time with its storage forced
-    into global scratch, and must give the same outputs. A batch packed
+    ``also_global`` the kernel runs again in each storage path that takes
+    less shared memory than its own (``pbb.STORAGE_PATHS``: the graveyard
+    instance's split path, then global scratch), and must give the same
+    outputs. A batch packed
     with graveyard rows (``G``) runs the graveyard instance and its plain
     version, with eviction at ``grace`` (default EXACT_GRACE), and adds the
     plain version's GY_COUNTS to ``stats``. Returns (kernel ms, plain ms),
@@ -583,13 +624,16 @@ def compare(name, prep, stats, also_global=False, grace=None):
         G=G, grace=grace))
     where = [pbb.storage_path(prep)]
     if also_global:
-        kg = pbb._launch(*prep["dev"], prep["meta"], prep["W"], prep["A"],
-                         in_smem=False, model_id=mid, G=G, grace=grace)
-        if not all(torch.equal(a.view(torch.int8), b.view(torch.int8))
-                   for a, b in zip(k, kg)):
-            fail(f"{name}: the kernel with its storage in global scratch "
-                 "differs from its run in shared memory")
-        where.append("global")
+        paths = pbb.STORAGE_PATHS[pbb.STORAGE_PATHS.index(where[0]) + 1:]
+        for path in paths if G else [p for p in paths if p != "split"]:
+            kg = pbb._launch(*prep["dev"], prep["meta"], prep["W"],
+                             prep["A"], storage=path, model_id=mid, G=G,
+                             grace=grace)
+            if not all(torch.equal(a.view(torch.int8), b.view(torch.int8))
+                       for a, b in zip(k, kg)):
+                fail(f"{name}: the kernel with its storage in the {path} "
+                     f"path differs from its run in the {where[0]} path")
+            where.append(path)
     p, t_p = timed(lambda: planned_scan(*prep["dev"], prep["W"], prep["A"],
                                         model_id=mid, G=G, grace=grace,
                                         return_state=bool(G)))
@@ -626,7 +670,7 @@ def compare(name, prep, stats, also_global=False, grace=None):
         f"{int(prep['meta'][:, 7].max())} per pair; "
         + (f"graveyard {G} rows, grace {grace}; " if G else "")
         + f"sweeps {narrow} narrow, "
-        f"{general} general; storage in {' and '.join(where)} memory) "
+        f"{general} general; storage paths {', '.join(where)}) "
         f"strings, provenance and validity equal, scores bit-equal; kernel "
         f"{t_k:.1f} ms, plain {t_p:.1f} ms")
     return t_k, t_p
@@ -2705,16 +2749,20 @@ def exact_kernel_cases(full_pairs):
     """Phase 17(a): the graveyard instance of each kind against the plain
     graveyard engine on the card (``compare``: provenance, scores bits,
     validity): tests/test_exact.py's cases at EXACT_GRACES (CTC) or the
-    first and last of them, with the storage in shared memory and in
-    global scratch; the same cases on plans that step back
+    first and last of them, in each storage path; the same cases on plans
+    that step back
     (EXACT_STUTTER); the first EXACT_PLAIN_STEPS steps of ``full_pairs``
     (two full-size pairs per kind) at their full storage widths. Fails
     unless the runs turned rows away from a full graveyard, resumed
     graveyard rows, and resumed one that had moved back while buried
     (the plain version's GY_COUNTS). Returns per kind its stats, with
-    (kernel ms, plain ms, bound ms) of the truncated pairs."""
+    (kernel ms, plain ms, bound ms) of the truncated pairs. The cases on
+    plans that step back past the storage window (EXACT_WRAP) run in
+    every storage path and must carry live graveyard rows across the wrap
+    of the JAX engine's shift and resume some of them (``gwrap``,
+    ``gresume_wrap``)."""
     from poreover_tpu_torch.ops.beam2d_planned import (
-        EXACT_G, GY_COUNTS, build_plan, pack_pairs, plan_wst,
+        EXACT_G, GY_COUNTS, pack_pairs,
     )
     from poreover_tpu_torch.sim import exact_style_cases, stuttered
 
@@ -2733,12 +2781,21 @@ def exact_kernel_cases(full_pairs):
         compare(f"{kind} exact: cases B=3, plans stepping back",
                 upload(pack_pairs(cs, model=model, G=EXACT_G, plans=pl,
                                   wst=ws)), stats)
-        plans = [build_plan(env, len(y1), len(y2))
-                 for y1, y2, env in full_pairs[kind]]
-        short = upload(pack_pairs(
-            full_pairs[kind], model=model, G=EXACT_G,
-            plans=[{k: v[:EXACT_PLAIN_STEPS] for k, v in p.items()}
-                   for p in plans], wst=[plan_wst(p) for p in plans]))
+        pl, ws = stuttered(cs, *EXACT_WRAP)
+        wrap = {"max_abs_err": 0.0}
+        compare(f"{kind} exact: cases B=3, plans stepping back past the "
+                "storage window", upload(pack_pairs(
+                    cs, model=model, G=EXACT_G, plans=pl, wst=ws)), wrap,
+                also_global=True)
+        if not wrap["gwrap"] or not wrap["gresume_wrap"]:
+            fail(f"{kind} exact: the wrap case carried {wrap['gwrap']} live "
+                 f"graveyard rows across a wrapping shift and resumed "
+                 f"{wrap['gresume_wrap']} of them")
+        for c in GY_COUNTS:
+            stats[c] = stats.get(c, 0) + wrap[c]
+        stats["max_abs_err"] = max(stats["max_abs_err"], wrap["max_abs_err"])
+        short = upload(pack_truncated(full_pairs[kind], EXACT_PLAIN_STEPS,
+                                      model, EXACT_G))
         t_k, t_p = compare(f"{kind} exact: two full-size pairs, first "
                            f"{EXACT_PLAIN_STEPS} steps", short, stats)
         stats["short"] = (t_k, t_p, bound_ms(short)[0])
@@ -2757,7 +2814,9 @@ def exact_phase(gpu, kstats, cons_windowed):
     """Phase 17: exact mode (``pair-decode --exact``) at full size, after
     ``exact_kernel_cases`` (``kstats``). (b) phase 3's 8 CTC pairs through
     the CLI with ``--exact``: 8 records, the graveyard instance launched
-    and the windowed one not; the wave's kernel time by CUDA events; each
+    and the windowed one not, each string's md5 the JAX exact engine's
+    (EXACT_CTC_MD5); the wave's kernel time by CUDA events and its cycles
+    per plan step by phase (the graveyard's share apart); each
     consensus beside the reference's unbounded trie
     (``native.pair_beam_row_col_cpu``, f64 on the host, one thread per
     pair): ``trie_match``, every identity >= EXACT_TRIE_FLOOR and >= that
@@ -2766,8 +2825,8 @@ def exact_phase(gpu, kstats, cons_windowed):
     wave. (c) the same pairs with ``--exact --skip_matches``: 8 records,
     no box-kernel launch, the exact box waves' launches and time. (d) 8
     bonito and 8 flip-flop pairs (phase 10's) with ``--exact``: 8 records
-    each, the wave's kernel time. Returns the graveyard instance's
-    entries of the kernels line, one per kind."""
+    each, the wave's kernel time and cycles by phase. Returns the
+    graveyard instance's entries of the kernels line, one per kind."""
     from poreover_tpu_torch import native
     from poreover_tpu_torch.ops import box_beam as bb
     from poreover_tpu_torch.ops import pair_beam_batch as pbb
@@ -2813,10 +2872,26 @@ def exact_phase(gpu, kstats, cons_windowed):
         log(f"  [{gpu}] {kind} graveyard instance: {wave_ms:.1f} ms per "
             f"8-pair wave, {wave_ms * 1e3 / steps.max():.2f} us per step of "
             f"the longest plan (bound {wave_bound:.4f} ms, {wave_by}); "
-            f"storage in {pbb.storage_path(prep)} memory; plan steps per "
+            f"storage path {pbb.storage_path(prep)}; plan steps per "
             f"pair {steps.tolist()}")
         log(f"  bound terms: {wave_terms}")
+        parts, _ = clock_breakdown(f"{kind} exact wave", pbb,
+                                   lambda: pbb.launch_prepared(prep))
+        step = parts["step"]
+        grave = step["grave_select"] + step["grave_store"]
+        log(f"  {kind} exact wave: the graveyard's phases {grave:.1f} of "
+            f"{step['total']:.1f} cycles per plan step "
+            f"({100 * grave / max(step['total'], 1):.1f}%: select "
+            f"{step['grave_select']:.1f}, store {step['grave_store']:.1f})")
         if kind == "poreover":
+            md5s = [hashlib.md5(c.encode()).hexdigest() for c in cons]
+            bad = [i for i, (a, b) in enumerate(zip(md5s, EXACT_CTC_MD5))
+                   if a != b]
+            log(f"  --exact strings' md5 equal to the JAX exact engine's on "
+                f"{8 - len(bad)}/8 pairs")
+            if bad:
+                fail(f"--exact: pairs {bad} differ from the JAX exact "
+                     f"engine's strings (md5 {[md5s[i] for i in bad]})")
             t0 = time.perf_counter()
             tries = [None] * len(wave)
 
@@ -2878,6 +2953,9 @@ def exact_phase(gpu, kstats, cons_windowed):
             "plain_input": f"two full-size pairs, first {EXACT_PLAIN_STEPS} "
                            "plan steps",
             "ms_on_plain_input": t_k, "bound_ms_on_plain_input": b_short,
+            "storage": pbb.storage_path(prep),
+            "cycles_per_step": step["total"],
+            "graveyard_cycles_per_step": grave,
         })
         del prep, wave
     return entries
@@ -3120,7 +3198,7 @@ def main():
         f"{8 / t_e2e:.2f} pairs/s")
     log(f"  bound terms: {wave_terms}")
     glob_ms = event_ms(lambda: pbb._launch(
-        *prep["dev"], prep["meta"], prep["W"], prep["A"], in_smem=False),
+        *prep["dev"], prep["meta"], prep["W"], prep["A"], storage="global"),
         reps=2)
     log(f"  the same wave with the storage in global scratch (the path of "
         f"pairs over the shared-memory limit): {glob_ms:.1f} ms; in shared "

@@ -26,10 +26,13 @@
 // kind, keeps the graveyard of G = GT evicted candidates
 // (pair_search.cuh: run_search<MODEL, G>), the JAX engine's
 // _planned_scan with G > 0, which the JAX package runs as an XLA scan (no
-// Pallas kernel has it). Its storage adds 2*K*G*(Wst0+Wst1) floats per
-// pair (~180 KB for a full-size CTC pair beside the candidates' 70 KB), so
-// full-size pairs keep it in global scratch (L2-resident at 8 pairs a
-// wave); only small pairs fit EXACT_SMEM_STORAGE_LIMIT_BYTES.
+// Pallas kernel has it). Its storage adds K*G*(Wst0+Wst1) floats per pair,
+// one buffer whose rows stay put (~90 KB for a full-size CTC pair beside
+// the candidates' 70 KB). It goes where it fits, by the wave's largest
+// pair: all of a pair's storage in shared memory (full-size CTC pairs),
+// else the candidates' in shared memory and the graveyard's in global
+// scratch (full-size bonito and flip-flop pairs: a burial writes one row
+// there and a resume reads one), else all in global scratch.
 //
 // What bounds it: latency, not bytes or FLOPs. A step is a chain of small
 // dependent phases (see pair_search.cuh for what the step does about
@@ -43,8 +46,9 @@
 // flat, at meta offsets; plan int32 [sum N, 5]; meta int64 [B, 12];
 // model 0 ctc, 1 ctc_merge_repeats, 2 ctc_flipflop; scratch float32
 // 4*K*C*(Wst0+Wst1) per pair, K = 1 for ctc and 2 otherwise (exact:
-// (4*C + 2*G)*K*(Wst0+Wst1); unused when the storage is in shared memory);
-// outputs prov int8 [sum N, W], score float32 [B, C], valid uint8 [B, C].
+// (4*C + G)*K*(Wst0+Wst1), the graveyard's after the candidates'; the
+// part in shared memory unused); outputs prov int8 [sum N, W], score
+// float32 [B, C], valid uint8 [B, C].
 
 #include "pair_search.cuh"
 
@@ -67,16 +71,25 @@ static_assert(EXACT_SMEM_STORAGE_LIMIT_BYTES + sizeof(Shared) +
                       sizeof(GraveShared<EXACT_G>) <= 227 * 1024,
               "a CTA's shared memory, exact");
 
+// where a launch keeps its storage (exact: the candidates' and the
+// graveyard's; windowed: the candidates'), in the order of
+// ops/pair_beam_batch.py:STORAGE_PATHS ("shared", "split", "global")
+enum Storage { ALL_SHARED = 0, GRAVE_GLOBAL = 1, ALL_GLOBAL = 2 };
+
+#define PAIR_BEAM_PARAMS                                                      \
+  const float *__restrict__ planes1, const float *__restrict__ planes2,     \
+      const int *__restrict__ plan, const long long *__restrict__ meta,     \
+      int W, int where, int grace, float *__restrict__ scratch,             \
+      signed char *__restrict__ prov, float *__restrict__ score_out,        \
+      unsigned char *__restrict__ valid_out
+#define PAIR_BEAM_ARGS                                                    \
+  planes1, planes2, plan, meta, W, where, grace, scratch, prov, score_out, \
+      valid_out
+
+// One CTA's pair: the search of kind MODEL (G > 0: with the graveyard)
+// from its storage path `where`, then its final table.
 template <int MODEL, int G>
-__global__ void __launch_bounds__(NT)
-pair_beam_kernel(const float* __restrict__ planes1,
-                 const float* __restrict__ planes2,
-                 const int* __restrict__ plan,
-                 const long long* __restrict__ meta, int W, int in_smem,
-                 int grace, float* __restrict__ scratch,
-                 signed char* __restrict__ prov,
-                 float* __restrict__ score_out,
-                 unsigned char* __restrict__ valid_out) {
+__device__ __forceinline__ void pair_beam_body(PAIR_BEAM_PARAMS) {
   __shared__ Shared sh;
   __shared__ GraveShared<G> gsh;
   extern __shared__ float smem_store[];
@@ -84,13 +97,26 @@ pair_beam_kernel(const float* __restrict__ planes1,
   const int C = W * (A + 1);
   const long long* m = meta + (long long)blockIdx.x * META_COLS;
   const Problem pr = load_problem(planes1, planes2, plan, m);
-  // two inlined copies of the search, so that each knows the address
-  // space of its storage
+  // inlined copies of the search, one per storage path, so that each knows
+  // the address space of its storage
   signed char* pv = prov + m[M_PLAN] * W;
-  const Row r =
-      in_smem ? run_search<MODEL, G>(sh, pr, W, smem_store, pv, &gsh, grace)
-              : run_search<MODEL, G>(sh, pr, W, scratch + m[M_SCR], pv, &gsh,
-                                     grace);
+  float* const scr = scratch + m[M_SCR];
+  Row r;
+  if constexpr (G == 0) {
+    r = where == ALL_SHARED ? run_search<MODEL>(sh, pr, W, smem_store, pv)
+                            : run_search<MODEL>(sh, pr, W, scr, pv);
+  } else {
+    // the graveyard's storage after the candidates'
+    const int gat = 4 * C * Kind<MODEL>::K * (pr.Wst[0] + pr.Wst[1]);
+    if (where == ALL_SHARED)
+      r = run_search<MODEL, G>(sh, pr, W, smem_store, pv, &gsh, grace,
+                               smem_store + gat);
+    else if (where == GRAVE_GLOBAL)
+      r = run_search<MODEL, G>(sh, pr, W, smem_store, pv, &gsh, grace,
+                               scr + gat);
+    else
+      r = run_search<MODEL, G>(sh, pr, W, scr, pv, &gsh, grace, scr + gat);
+  }
 
   // ---- final table, deduplicated
   if (warp == 0) {
@@ -102,21 +128,36 @@ pair_beam_kernel(const float* __restrict__ planes1,
   }
 }
 
+// The windowed instances, at ptxas's own register budget.
+template <int MODEL>
+__global__ void __launch_bounds__(NT) pair_beam_kernel(PAIR_BEAM_PARAMS) {
+  pair_beam_body<MODEL, 0>(PAIR_BEAM_ARGS);
+}
+
+// The exact instances: a CTA per pair, one per SM, so a thread may hold up
+// to 255 registers; at ptxas's own budget (128) they spill 0.5-1.3 KB.
+template <int MODEL>
+__global__ void __launch_bounds__(NT, 1)
+    pair_beam_exact_kernel(PAIR_BEAM_PARAMS) {
+  pair_beam_body<MODEL, EXACT_G>(PAIR_BEAM_ARGS);
+}
+
 template <int MODEL, int G>
 cudaError_t launch(const float* planes1, const float* planes2,
                    const int* plan, const long long* meta, int B, int W,
-                   int grace, int smem_bytes, float* scratch,
+                   int grace, int smem_bytes, int where, float* scratch,
                    signed char* prov, float* score, unsigned char* valid,
                    cudaStream_t stream) {
+  void (*const kernel)(PAIR_BEAM_PARAMS) =
+      G > 0 ? pair_beam_exact_kernel<MODEL> : pair_beam_kernel<MODEL>;
   if (smem_bytes > 0) {
     const cudaError_t err = cudaFuncSetAttribute(
-        pair_beam_kernel<MODEL, G>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return err;
   }
-  pair_beam_kernel<MODEL, G><<<B, NT, (size_t)smem_bytes, stream>>>(
-      planes1, planes2, plan, meta, W, smem_bytes > 0, grace, scratch, prov,
-      score, valid);
+  kernel<<<B, NT, (size_t)smem_bytes, stream>>>(
+      planes1, planes2, plan, meta, W, where, grace, scratch, prov, score,
+      valid);
   return cudaGetLastError();
 }
 
@@ -124,18 +165,21 @@ cudaError_t launch(const float* planes1, const float* planes2,
 template <int G>
 int launch_kind(const float* planes1, const float* planes2, const int* plan,
                 const long long* meta, int B, int W, int model, int grace,
-                int smem_bytes, float* scratch, signed char* prov,
+                int smem_bytes, int where, float* scratch, signed char* prov,
                 float* score, unsigned char* valid, cudaStream_t st) {
   switch (model) {
     case 0:
       return (int)launch<0, G>(planes1, planes2, plan, meta, B, W, grace,
-                               smem_bytes, scratch, prov, score, valid, st);
+                               smem_bytes, where, scratch, prov, score, valid,
+                               st);
     case 1:
       return (int)launch<1, G>(planes1, planes2, plan, meta, B, W, grace,
-                               smem_bytes, scratch, prov, score, valid, st);
+                               smem_bytes, where, scratch, prov, score, valid,
+                               st);
     case 2:
       return (int)launch<2, G>(planes1, planes2, plan, meta, B, W, grace,
-                               smem_bytes, scratch, prov, score, valid, st);
+                               smem_bytes, where, scratch, prov, score, valid,
+                               st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -164,8 +208,8 @@ int pair_beam_batch_launch(const float* planes1, const float* planes2,
   if (smem_bytes < 0 || smem_bytes > SMEM_STORAGE_LIMIT_BYTES)
     return (int)cudaErrorInvalidValue;
   return launch_kind<0>(planes1, planes2, plan, meta, B, W, model, 1,
-                        smem_bytes, scratch, prov, score, valid,
-                        (cudaStream_t)stream);
+                        smem_bytes, smem_bytes > 0 ? ALL_SHARED : ALL_GLOBAL,
+                        scratch, prov, score, valid, (cudaStream_t)stream);
 }
 
 int pair_beam_exact_storage_limit() { return EXACT_SMEM_STORAGE_LIMIT_BYTES; }
@@ -174,19 +218,24 @@ int pair_beam_graveyard_rows() { return EXACT_G; }
 
 // As pair_beam_batch_launch, for the exact instances: the graveyard of
 // EXACT_G rows with eviction at `grace` MAIN steps (1 <= grace <= 1 << 30);
-// smem_bytes at most EXACT_SMEM_STORAGE_LIMIT_BYTES.
+// the storage in path `where` (Storage) with smem_bytes of dynamic shared
+// memory, at most EXACT_SMEM_STORAGE_LIMIT_BYTES and 0 exactly when the
+// path is ALL_GLOBAL.
 int pair_beam_exact_launch(const float* planes1, const float* planes2,
                            const int* plan, const long long* meta, int B,
                            int W, int model, int grace, int smem_bytes,
-                           float* scratch, signed char* prov, float* score,
-                           unsigned char* valid, void* stream) {
+                           int where, float* scratch, signed char* prov,
+                           float* score, unsigned char* valid,
+                           void* stream) {
   if (B <= 0) return 0;
-  if (smem_bytes < 0 || smem_bytes > EXACT_SMEM_STORAGE_LIMIT_BYTES ||
-      grace < 1 || grace > NOT_KEPT)
+  if (where < ALL_SHARED || where > ALL_GLOBAL || smem_bytes < 0 ||
+      smem_bytes > EXACT_SMEM_STORAGE_LIMIT_BYTES ||
+      (smem_bytes == 0) != (where == ALL_GLOBAL) || grace < 1 ||
+      grace > MAX_GRACE)
     return (int)cudaErrorInvalidValue;
   return launch_kind<EXACT_G>(planes1, planes2, plan, meta, B, W, model,
-                              grace, smem_bytes, scratch, prov, score, valid,
-                              (cudaStream_t)stream);
+                              grace, smem_bytes, where, scratch, prov, score,
+                              valid, (cudaStream_t)stream);
 }
 
 }  // extern "C"

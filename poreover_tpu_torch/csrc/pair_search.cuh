@@ -14,9 +14,12 @@
 // and no gap; flip-flop: flip and flop) and run two stay chains per row:
 // bonito's no-gap chain feeds its total chain, flip-flop's two are
 // independent. Their chains' weights are the emission of the row's own
-// character, so the float64 prefix sums of the weights are taken per
-// character: once per column for a narrow sweep (all A or 2A of them),
-// once per row for a general one.
+// character, so the prefix sums of the weights are taken per character:
+// once per column for a narrow sweep (all A or 2A of them), once per row
+// for a general one. The windowed instances take those sums (cw) in
+// float64 rounded once, as the Pallas kernel's packing does; the exact
+// instances (G > 0) in XLA's association (narrow_cw_xla, chunk_cw<true>),
+// as the JAX exact engine does on the CPU.
 //
 // What bounds a step: latency. It is a chain of small dependent phases, so
 // the design cuts the chain's barriers and its serial and wasted work:
@@ -42,9 +45,8 @@
 //   seed and columns in a segment of S = 2^k lanes, 32/S rows per warp,
 //   the tree level by level with __shfl_up_sync. Wider windows take the
 //   general path: CHUNK-column pieces, each scanned in a per-warp shared
-//   buffer cut to the chunk's live width. cw is a float64 prefix sum
-//   rounded once to float32. A row's values go straight into its storage,
-//   where its children read them after the layer's barrier.
+//   buffer cut to the chunk's live width. A row's values go straight into
+//   its storage, where its children read them after the layer's barrier.
 // - The storage passes (the MAIN permutation with the re-anchoring shift,
 //   the frozen-parent gather and refresh) run a row per warp, RB rows and
 //   CPL columns per lane in flight.
@@ -62,16 +64,25 @@
 // that leaves the table at a MAIN step keeps its storage for up to
 // grace - 1 further MAIN steps in one of G rows, and a child whose key is
 // found there resumes that storage. Both read groups keep their own copy of
-// the graveyard's bookkeeping (thread gt of a group holds slot gt's key and
-// age in registers; keys, rank keys and sources in GraveShared) and update
-// it the same way, so the groups still meet only at the join. The new
-// graveyard is ranked by (age, pool index), the pool being the old table's
-// rows then the old graveyard's in slot order: each row's rank is the count
-// of rows with a smaller (age, index), which is what the JAX engine's
-// stable argsort gives, so ties fall the same way. Its valid rows are
-// always slots 0 .. gn-1. The rows' storage (2 buffers of [K, G, Wst] per
-// read, after the candidates' 4) moves with the window in every storage
-// pass of its read, never swept.
+// the graveyard's bookkeeping (thread gt of a group holds slot gt's key, age
+// and storage row in registers; GraveShared holds what the others read) and
+// update it the same way, so the groups still meet only at the join. The
+// new graveyard is ordered by (age, pool index), the pool being the old
+// table's rows then the old graveyard's in slot order, as the JAX engine's
+// stable argsort orders it. Its slots are therefore always in age order, so
+// the old slots that stay keep their relative order: a stay's new slot is
+// the count of buried table rows plus the stays before it, one prefix count
+// over the group's ballots, and its valid rows are always slots 0 .. gn-1.
+// A buried row's values only move with the window, never change, so it
+// keeps its storage row frozen from the step it was buried and a
+// descriptor (S, lo, hi) per read: its value at storage column j is
+// frozen[j + S] for lo <= j < hi, -inf elsewhere, which composes each
+// re-anchoring shift in O(1) (compose_shift) and includes the wrap of the
+// JAX engine's shift. A burial copies one row once; a resume reads one row
+// through its descriptor; a slot's row never moves, only the list of rows
+// (by slot) is rebuilt, and rows the graveyard drops join a free list. Its
+// storage ([K, G, Wst] per read, one buffer) lives apart from the
+// candidates' (`gstore`), in shared memory when it fits beside them.
 //
 // run_search starts from the t = 0 state and rewrites every piece of table
 // and storage state it later reads, so a CTA may run one problem after
@@ -112,8 +123,8 @@ enum { M_T1, M_L1, M_Y1, M_T2, M_L2, M_Y2, M_PLAN, M_N, M_WST0, M_WST1,
 // sums by reference (CLK_PARAM, CLK_ARG).
 #ifdef POREOVER_PHASE_CLOCKS
 enum { CK_PRUNE, CK_EXPAND, CK_PERMUTE, CK_LOADS, CK_LAYERS, CK_REFRESH,
-       CK_SCORE, CK_SCAN, CK_WAIT, CK_STEPS, CK_SWEEPS, CK_LAYER_N,
-       CK_NARROW, CK_N };
+       CK_SCORE, CK_SCAN, CK_WAIT, CK_GRAVE_SELECT, CK_GRAVE_STORE, CK_STEPS,
+       CK_SWEEPS, CK_LAYER_N, CK_NARROW, CK_N };
 __device__ unsigned long long g_phase_clocks[CK_N];
 #define CLK_COUNT(p, v)                                       \
   do {                                                        \
@@ -154,19 +165,53 @@ struct Shared {
   WarpScratch ws[NWARP];
 };
 
-// rank key of a pool row that is not kept (the JAX engine's 1 << 30)
-constexpr int NOT_KEPT = 1 << 30;
+// the largest grace the exact instances take (the JAX engine's rank key of
+// a pool row that is not kept, 1 << 30)
+constexpr int MAX_GRACE = 1 << 30;
 
-// The graveyard's bookkeeping, one copy per read group: by slot its keys,
-// the rank keys of the old slots (age if the row may stay, else NOT_KEPT),
-// and the new slots' pool index (table row, or C + old slot) and age.
+// The graveyard's bookkeeping, one copy per read group (index [g]): by slot
+// its keys and ages, and its storage rows in two lists that alternate by
+// MAIN step (the old slots' list stays readable while the new one is
+// written); by storage row the descriptor; the free rows (G - gn of them,
+// two lists alternating likewise); the table rows buried this step; and
+// the warps' ballots of the old slots that stay.
 template <int G> struct GraveShared {
   alignas(16) uint2 key[2][G];
-  alignas(16) int skey[2][G];
-  int src[2][G];
   int age[2][G];
+  int phys[2][2][G];
+  int dS[2][G], dlo[2][G], dhi[2][G];
+  int freel[2][2][G];
+  int src[2][CMAX];
+  alignas(16) unsigned stay[2][GWARP];
 };
 template <> struct GraveShared<0> {};
+
+// One more re-anchoring shift s (new[j] = old[j + s] inside [0, Wa), -inf
+// outside) of a buried row whose value at column j is frozen[j + S] for lo
+// <= j < hi: (S + s, max(lo - s, 0), min(hi - s, Wa)); an empty interval is
+// kept as (0, 0, 0).
+__device__ __forceinline__ void compose_shift(int& S, int& lo, int& hi,
+                                              int s, int Wa) {
+  S += s;
+  lo = max(lo - s, 0);
+  hi = min(hi - s, Wa);
+  if (lo >= hi) S = lo = hi = 0;
+}
+
+// The storage anchor `no` of a sweep over [lo, hi) from anchor `so` (keep
+// it if the window fits, else the least right shift; it must cover the
+// seed column lo-1 and the window), and the shift `d` that re-anchors the
+// storage: the JAX engine's (ops/beam2d_planned.py:_jax_shift), whose
+// lax.dynamic_slice wraps a negative start, then clamps.
+__device__ __forceinline__ void anchor_shift(int so, int lo, int hi, int Wa,
+                                             int& no, int& d) {
+  no = hi > so + Wa ? hi - Wa : so;
+  no = min(no, lo - 1);
+  if (hi > no + Wa) no = hi - Wa;
+  d = no - so + Wa + 1;
+  if (d < 0) d += 3 * Wa + 2;
+  d = min(max(d, 0), 2 * Wa + 2) - (Wa + 1);
+}
 
 // One search problem: two reads' planes ([R, T+1] float32; ctc: rows 0..3
 // emissions, 4 gap, 5 the root's value at t-1; bonito: rows 0..3
@@ -592,11 +637,61 @@ __device__ __forceinline__ void narrow_round_k(
     if (act[u] && p == 0) mxo[row[u]] = m[u];
 }
 
-// cw of one chunk of a plane row (row[c_lo .. c_lo + cl)), float64
-// inclusive prefix sums rounded once; the lane holds columns 4*lane ..
-// 4*lane+3 (general path).
+// cw of a narrow sweep's column (position p >= 1 of its segment, column
+// w = p - 1 of the chunk; x its weight, 0 outside the window) in XLA's
+// association (ops/beam2d.py:_cumsum_xla): the blocks of 16 columns from
+// the window's start summed in order from 0, the first block's total added
+// to the second's (a window of at most NARROW_MAX columns has two). Every
+// lane of the warp calls it; lane seg0 + q holds position q.
+__device__ __forceinline__ float narrow_cw_xla(float x, int p, int seg0) {
+  const int w = p - 1, b = max(w, 0) >> 4;
+  float acc = 0.f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float v = __shfl_sync(FULL, x, (seg0 + 1 + 16 * b + j) & 31);
+    if (16 * b + j <= w) acc = acc + v;
+  }
+  const float tot0 = __shfl_sync(FULL, acc, (seg0 + 16) & 31);
+  return b == 0 ? acc : acc + tot0;
+}
+
+// cw of one chunk of a plane row (row[c_lo .. c_lo + cl)); the lane holds
+// columns 4*lane .. 4*lane+3 (general path). Float64 inclusive prefix sums
+// rounded once, or with XLA (exact mode) XLA's association
+// (ops/beam2d.py:_cumsum_xla): the 8 blocks of 16 columns (4 lanes each)
+// summed in order from 0, the blocks' totals likewise, each block's
+// exclusive prefix added last.
+template <bool XLA>
 __device__ __forceinline__ void chunk_cw(const float* row, int cl, int lane,
                                          float (&cw4)[4]) {
+  if constexpr (XLA) {
+    float x4[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int w = 4 * lane + q;
+      x4[q] = w < cl ? row[w] : 0.f;
+    }
+    const int b0 = lane & ~3;  // the block's first lane
+    float acc = 0.f;
+#pragma unroll
+    for (int l = 0; l < 4; ++l)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float v = __shfl_sync(FULL, x4[q], b0 + l);
+        if (b0 + l <= lane) acc = acc + v;
+        if (b0 + l == lane) cw4[q] = acc;
+      }
+    // block k's total is lane 4k+3's last column
+    float excl = 0.f;
+#pragma unroll
+    for (int k = 0; k < 7; ++k) {
+      const float t = __shfl_sync(FULL, cw4[3], 4 * k + 3);
+      if (4 * k < b0) excl = excl + t;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) cw4[q] = cw4[q] + excl;
+    return;
+  }
   double v4[4], run = 0.0;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
@@ -619,7 +714,7 @@ __device__ __forceinline__ void chunk_cw(const float* row, int cl, int lane,
 // two-component kind (bonito, flip-flop): run_search's narrow and general
 // paths with two state values per column and two stay chains per row.
 // All lanes of the read's group call it; returns the layers it ran.
-template <int MODEL>
+template <int MODEL, bool XLA>
 __device__ __forceinline__ int sweep_two(
     WarpScratch& ws, const Row& nt, unsigned smask, int pslot, bool root,
     int poff, int lo, int hi, int no, const float* ya, int La, int Ta,
@@ -647,23 +742,31 @@ __device__ __forceinline__ int sweep_two(
         if (t < Ta) nw.em[c] = ya[c * La + t];
       if (MODEL == 1) nw.gap = ya[A * La + t];
     }
-    // cw of every chain of the kind: float64 inclusive prefix sums of
-    // its weights (an emission row; bonito's last chain the gap),
-    // rounded once
-    double x[NCW];
+    // cw of every chain of the kind: inclusive prefix sums of its weights
+    // (an emission row; bonito's last chain the gap), in float64 rounded
+    // once, or with XLA in XLA's association
+    if constexpr (XLA) {
 #pragma unroll
-    for (int c = 0; c < NCW; ++c)
-      x[c] = inr ? (double)(c < NE ? nw.em[min(c, NE - 1)] : nw.gap)
-                 : 0.0;
-    for (int o = 1; o < nw.Sg; o <<= 1) {
+      for (int c = 0; c < NCW; ++c)
+        nw.cw[c] = narrow_cw_xla(
+            inr ? (c < NE ? nw.em[min(c, NE - 1)] : nw.gap) : 0.f, p,
+            lane & ~(nw.Sg - 1));
+    } else {
+      double x[NCW];
 #pragma unroll
-      for (int c = 0; c < NCW; ++c) {
-        const double y = __shfl_up_sync(FULL, x[c], o);
-        if (p >= o) x[c] += y;
+      for (int c = 0; c < NCW; ++c)
+        x[c] = inr ? (double)(c < NE ? nw.em[min(c, NE - 1)] : nw.gap)
+                   : 0.0;
+      for (int o = 1; o < nw.Sg; o <<= 1) {
+#pragma unroll
+        for (int c = 0; c < NCW; ++c) {
+          const double y = __shfl_up_sync(FULL, x[c], o);
+          if (p >= o) x[c] += y;
+        }
       }
-    }
 #pragma unroll
-    for (int c = 0; c < NCW; ++c) nw.cw[c] = (float)x[c];
+      for (int c = 0; c < NCW; ++c) nw.cw[c] = (float)x[c];
+    }
     nw.sp = min(pos - 1, Wa - 1);  // the seed's column
     CLK(CK_LOADS);
 
@@ -720,7 +823,7 @@ __device__ __forceinline__ int sweep_two(
       const int cl = min(CHUNK, hi - c_lo);
       const int sp = kc == 0 ? min(pos - 1, Wa - 1) : pos - 1;
       float cwg4[4];  // bonito's total chain: the gap's cw
-      if (MODEL == 1) chunk_cw(ya + A * La + c_lo, cl, lane, cwg4);
+      if (MODEL == 1) chunk_cw<XLA>(ya + A * La + c_lo, cl, lane, cwg4);
       CLK(CK_LOADS);
 
       unsigned done = 0;
@@ -739,9 +842,9 @@ __device__ __forceinline__ int sweep_two(
               __shfl_sync(FULL, (int)(nt.chr == nt.pch), row) != 0;
           if (q >= nr) continue;  // warp-uniform
           float cwa4[4], cwb4[4];
-          chunk_cw(ya + ri.ch * La + c_lo, cl, lane, cwa4);
+          chunk_cw<XLA>(ya + ri.ch * La + c_lo, cl, lane, cwa4);
           if (MODEL == 2) {
-            chunk_cw(ya + (A + ri.ch) * La + c_lo, cl, lane, cwb4);
+            chunk_cw<XLA>(ya + (A + ri.ch) * La + c_lo, cl, lane, cwb4);
           } else {
 #pragma unroll
             for (int q4 = 0; q4 < 4; ++q4) cwb4[q4] = cwg4[q4];
@@ -873,15 +976,18 @@ __device__ __forceinline__ int sweep_two(
 // in every warp; the CTA is synchronised on return.
 //
 // G > 0 (G == GT): the graveyard, with eviction at `grace` MAIN steps (an
-// argument at most NOT_KEPT); `gsh` its bookkeeping. `store` then holds
-// (4*C + 2*G)*K*(Wst0+Wst1) floats.
+// argument at most MAX_GRACE); `gsh` its bookkeeping and `gstore` its
+// storage, G*K*(Wst0+Wst1) floats (global or shared memory; its contents
+// on entry do not matter).
 template <int MODEL, int G = 0>
 __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
                                           int W, float* store,
                                           signed char* pv,
                                           GraveShared<G>* gsh = nullptr,
-                                          int grace = 1) {
+                                          int grace = 1,
+                                          float* gstore = nullptr) {
   static_assert(G == 0 || G == GT, "one graveyard slot per group thread");
+  static_assert(GWARP == 4, "GraveShared::stay is read as one uint4");
   constexpr int K = Kind<MODEL>::K;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = warp / GWARP, gw = warp % GWARP, gt = tid % GT;
@@ -896,11 +1002,11 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
   // storage buffers b = 0, 1 at base + b*n_st, frozen copies at
   // base + (2+b)*n_st (offsets, not an array of pointers, keep the
   // pointers' address space known to the compiler)
-  float* const base = store + (g == 0 ? 0 : (4 * C + 2 * G) * K * pr.Wst[0]);
-  // the graveyard's storage buffers b = 0, 1 at gbase + b*gn_st (row s,
-  // component kc at kc*gcs + s*Wa)
-  const int gcs = G * Wa, gn_st = K * gcs;
-  float* const gbase = base + 4 * n_st;
+  float* const base = store + (g == 0 ? 0 : 4 * C * K * pr.Wst[0]);
+  // the graveyard's storage rows (row p, component kc at kc*gcs + p*Wa)
+  const int gcs = G * Wa;
+  float* const gbase =
+      G > 0 ? gstore + (g == 0 ? 0 : G * K * pr.Wst[0]) : nullptr;
 
   // ---- initial table: the A root children in beam row 0's child slots
   Row cur;
@@ -942,10 +1048,12 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
   // storage and the frozen copies, and (lane = slot) frozen-copy offsets;
   // par: which half of sh.mx the next MAIN step uses
   int off = 0, sb = 0, pb = 0, poff = 0, par = 0;
-  // the graveyard: its valid rows (slots 0 .. gn-1), which buffer holds
-  // their storage, and (thread gt) slot gt's key and age
-  int gn = 0, gb = 0, gage = 0;
+  // the graveyard: its valid rows (slots 0 .. gn-1), the table rows
+  // buried at the last MAIN step, and (thread gt) slot gt's key, age and
+  // storage row; every storage row starts free
+  int gn = 0, n_bury = 0, gage = 0, gphys = 0;
   unsigned gk1 = 0u, gk2 = 0u;
+  if constexpr (G > 0) gsh->freel[0][g][gt] = gt;
   __syncthreads();
   CLK_INIT();
 
@@ -998,6 +1106,9 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
     // ---- expand (MAIN) or select the beam (runs); key lookups
     Row nt = cur;   // the table this step's sweeps use
     int psrc = -1;  // MAIN: old storage row of this slot, -1 none
+    // MAIN, a child resuming graveyard slot psrc - C: its row's frozen
+    // storage (offset from gbase, S included) and valid columns [glo, ghi)
+    int goff = 0, glo = 0, ghi = 0;
     int refresh, pslot;
     bool root;
     unsigned smask;  // swept slots
@@ -1015,7 +1126,9 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
       int child_idx = lookup(ws, vm, q1, q2);
       if constexpr (G > 0) {
         // a child not in the table resumes its graveyard row, if any (the
-        // first valid slot with its key): old storage row C + slot
+        // first valid slot with its key): old storage row C + slot, read
+        // through its descriptor (taken now: the selection below may hand
+        // the row to a burial)
         const bool miss = lane >= W && in && child_idx < 0;
         if (__any_sync(FULL, miss)) {
           int r = -1;
@@ -1025,7 +1138,13 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
             if (j + 1 < gn && k.z == q1 && k.w == q2) r = j + 1;
             if (k.x == q1 && k.y == q2) r = j;
           }
-          if (miss && r >= 0) child_idx = C + r;
+          if (miss && r >= 0) {
+            child_idx = C + r;
+            const int p = gsh->phys[par][g][r];
+            goff = p * Wa + gsh->dS[g][p];
+            glo = gsh->dlo[g][p];
+            ghi = gsh->dhi[g][p];
+          }
         }
       }
       if (lane < W) {
@@ -1055,49 +1174,102 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
       root = nt.pk1 == 0u && nt.pk2 == 0u;
       pslot = root ? -1 : refresh;
       if constexpr (G > 0) {
+        CLK(CK_EXPAND);
         // ---- the new graveyard (both groups alike): the old table's
-        // first occurrences not in the new table at age 1, then the old
-        // slots not in the new table, aged one more step, below grace;
-        // the G youngest by (age, pool index)
+        // first occurrences not in the new table at age 1 (slots 0 ..
+        // n_t-1), then the old slots not in the new table, aged one more
+        // step, below grace, in slot order (their (age, pool index)
+        // order), as many as fit
         const unsigned tmask = __ballot_sync(
             FULL, grace > 1 && in && keep &&
                       lookup(ws, smask, cur.k1, cur.k2) < 0);
         const int n_t = __popc(tmask);
-        const int age1 = gage + 1;
-        const bool stay = gt < gn && age1 < grace &&
+        const bool stay = gt < gn && gage + 1 < grace &&
                           lookup(ws, smask, gk1, gk2) < 0;
-        const int sk = stay ? age1 : NOT_KEPT;
-        gsh->skey[g][gt] = sk;
+        const unsigned below = (1u << lane) - 1u;
+        const unsigned sw = __ballot_sync(FULL, stay);
+        if (lane == 0) gsh->stay[g][gw] = sw;
         group_sync(g);
-        int rank = 0, n_g = 0;
-#pragma unroll 8
-        for (int j = 0; j < G; j += 4) {
-          const int4 o = *reinterpret_cast<const int4*>(&gsh->skey[g][j]);
-          rank += (o.x < sk || (o.x == sk && j < gt)) +
-                  (o.y < sk || (o.y == sk && j + 1 < gt)) +
-                  (o.z < sk || (o.z == sk && j + 2 < gt)) +
-                  (o.w < sk || (o.w == sk && j + 3 < gt));
-          n_g += (o.x < NOT_KEPT) + (o.y < NOT_KEPT) + (o.z < NOT_KEPT) +
-                 (o.w < NOT_KEPT);
+        const uint4 st4 = *reinterpret_cast<const uint4*>(gsh->stay[g]);
+        const unsigned st[GWARP] = {st4.x, st4.y, st4.z, st4.w};
+        int ns = 0, pre = __popc(sw & below);
+#pragma unroll
+        for (int w = 0; w < GWARP; ++w) {
+          ns += __popc(st[w]);
+          if (w < gw) pre += __popc(st[w]);
         }
-        if (stay && n_t + rank < G) {
-          const int r = n_t + rank;
+        const int nk = min(ns, G - n_t);  // the stays that are kept
+        const bool kept = stay && pre < nk;
+        // the old slots dropped (not kept), per warp; their rows join the
+        // free list after its G - gn entries, and burial r takes entry r
+        unsigned drop[GWARP];
+        int before = 0;
+#pragma unroll
+        for (int w = 0; w < GWARP; ++w) {
+          const int m = min(max(nk - before, 0), __popc(st[w]));
+          const unsigned kw = m == __popc(st[w]) ? st[w]
+              : st[w] & ((1u << nth_set_bit(st[w], m)) - 1u);
+          const int nl = min(max(gn - 32 * w, 0), 32);
+          drop[w] = (nl == 32 ? FULL : (1u << nl) - 1u) & ~kw;
+          before += __popc(st[w]);
+        }
+        int no, d;  // this step's anchor and shift of the group's read
+        anchor_shift(off, lo, hi, Wa, no, d);
+        const int nfree = G - gn;
+        const int* fl_old = gsh->freel[par][g];
+        int* fl_new = gsh->freel[par ^ 1][g];
+        int* ph_new = gsh->phys[par ^ 1][g];
+        if (kept) {
+          const int r = n_t + pre;
           gsh->key[g][r] = make_uint2(gk1, gk2);
-          gsh->src[g][r] = C + gt;
-          gsh->age[g][r] = age1;
+          gsh->age[g][r] = gage + 1;
+          ph_new[r] = gphys;
+          int S = gsh->dS[g][gphys], l = gsh->dlo[g][gphys],
+              h = gsh->dhi[g][gphys];
+          compose_shift(S, l, h, d, Wa);
+          gsh->dS[g][gphys] = S;
+          gsh->dlo[g][gphys] = l;
+          gsh->dhi[g][gphys] = h;
+        }
+        if (gt >= n_t && gt < nfree) fl_new[gt - n_t] = fl_old[gt];
+        if (gt < gn && !kept) {
+          int k = __popc(drop[gw] & below);
+#pragma unroll
+          for (int w = 0; w < GWARP; ++w)
+            if (w < gw) k += __popc(drop[w]);
+          if (nfree + k >= n_t) fl_new[nfree + k - n_t] = gphys;
         }
         if (gw == 0 && ((tmask >> lane) & 1u)) {
-          const int r = __popc(tmask & ((1u << lane) - 1u));
+          const int r = __popc(tmask & below);
+          int p;
+          if (r < nfree) {
+            p = fl_old[r];
+          } else {
+            // the (r - nfree)-th dropped slot's row
+            int k = r - nfree, q = 0;
+#pragma unroll
+            for (int w = 0; w < GWARP; ++w) {
+              const int c = __popc(drop[w]);
+              if (k >= 0 && k < c) q = 32 * w + nth_set_bit(drop[w], k);
+              k -= c;
+            }
+            p = gsh->phys[par][g][q];
+          }
           gsh->key[g][r] = make_uint2(cur.k1, cur.k2);
-          gsh->src[g][r] = lane;
           gsh->age[g][r] = 1;
+          ph_new[r] = p;
+          gsh->src[g][r] = lane;
+          // its storage is the old table row's, copied after the permute;
+          // then this step's shift
+          int S = 0, l = 0, h = Wa;
+          compose_shift(S, l, h, d, Wa);
+          gsh->dS[g][p] = S;
+          gsh->dlo[g][p] = l;
+          gsh->dhi[g][p] = h;
         }
-        group_sync(g);
-        gn = min(n_t + n_g, G);
-        const uint2 k = gsh->key[g][gt];
-        gk1 = gt < gn ? k.x : 0u;
-        gk2 = gt < gn ? k.y : 0u;
-        gage = gt < gn ? gsh->age[g][gt] : 0;
+        gn = n_t + nk;
+        n_bury = n_t;
+        CLK(CK_GRAVE_SELECT);
       }
     } else {
       // catch-up run: sweep the current beam only (the valid slots whose
@@ -1113,17 +1285,23 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
     CLK(CK_EXPAND);
 
     if (is_main || ty == (g == 0 ? C0RUN : C1RUN)) {
-      // storage anchor: keep if the window fits, else minimal right shift;
-      // must cover the seed column lo-1 and the window [lo, hi)
       const int so = off;
-      int no = hi > so + Wa ? hi - Wa : so;
-      no = min(no, lo - 1);
-      if (hi > no + Wa) no = hi - Wa;
-      // the JAX engine's re-anchoring shift (ops/beam2d_planned.py:
-      // _jax_shift): lax.dynamic_slice wraps a negative start, then clamps
-      int d = no - so + Wa + 1;
-      if (d < 0) d += 3 * Wa + 2;
-      d = min(max(d, 0), 2 * Wa + 2) - (Wa + 1);
+      int no, d;
+      anchor_shift(so, lo, hi, Wa, no, d);
+      // the buried rows move with the window: on a run each slot's
+      // descriptor takes the shift (on MAIN the selection did)
+      if constexpr (G > 0) {
+        if (!is_main && d != 0 && gt < gn) {
+          int S = gsh->dS[g][gphys], l = gsh->dlo[g][gphys],
+              h = gsh->dhi[g][gphys];
+          compose_shift(S, l, h, d, Wa);
+          gsh->dS[g][gphys] = S;
+          gsh->dlo[g][gphys] = l;
+          gsh->dhi[g][gphys] = h;
+        }
+      }
+      // the old table's storage, which this step's burials copy
+      const float* const Sbury = base + sb * n_st;
 
       // ---- storage permute (MAIN) / re-anchor shift
       if (is_main || d != 0) {
@@ -1131,22 +1309,35 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
         float* Snew = base + (1 - sb) * n_st;
         const float* Pold = base + (2 + pb) * n_st;
         float* Pnew = base + (3 - pb) * n_st;
-        const float* Gold = gbase + gb * gn_st;
         // warp gw takes rows gw, gw + GWARP, ..., RB of them at a time
         for (int i0 = gw; i0 < C; i0 += RB * GWARP) {
           int sr[RB];
           const float* rp[RB];  // the source row (component 0)
           int rcs[RB];          // and its component stride
+          int rlo[RB], rhi[RB];  // a resumed graveyard row's valid columns
 #pragma unroll
           for (int r = 0; r < RB; ++r) {
             const int i = i0 + r * GWARP;
-            const int q = is_main ? __shfl_sync(FULL, psrc, min(i, CMAX - 1))
-                                  : i;
+            const int li = min(i, CMAX - 1);
+            const int q = is_main ? __shfl_sync(FULL, psrc, li) : i;
             sr[r] = i < C ? q : -2;  // -2: no such row
-            // a child resumed from the graveyard reads slot q - C
-            const bool gy = G > 0 && sr[r] >= C;
-            rp[r] = gy ? Gold + (sr[r] - C) * Wa : Sold + max(sr[r], 0) * Wa;
-            rcs[r] = gy ? gcs : cs;
+            rp[r] = Sold + max(sr[r], 0) * Wa;
+            rcs[r] = cs;
+            rlo[r] = 0;
+            rhi[r] = Wa;
+            if constexpr (G > 0) {
+              // a child resumed from the graveyard reads its frozen row
+              // through its descriptor
+              const int o = __shfl_sync(FULL, goff, li);
+              const int l = __shfl_sync(FULL, glo, li);
+              const int h = __shfl_sync(FULL, ghi, li);
+              if (sr[r] >= C) {
+                rp[r] = gbase + o;
+                rcs[r] = gcs;
+                rlo[r] = l;
+                rhi[r] = h;
+              }
+            }
           }
 #pragma unroll
           for (int kc = 0; kc < K; ++kc)
@@ -1157,7 +1348,9 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
 #pragma unroll
               for (int c = 0; c < CPL; ++c) {
                 const int j = j0 + 32 * c + lane, jj = j + d;
-                sv[r][c] = (sr[r] >= 0 && j < Wa && jj >= 0 && jj < Wa)
+                const bool ok = G > 0 ? jj >= rlo[r] && jj < rhi[r]
+                                      : jj >= 0 && jj < Wa;
+                sv[r][c] = (sr[r] >= 0 && j < Wa && ok)
                                ? rp[r][kc * rcs[r] + jj] : -INFINITY;
               }
 #pragma unroll
@@ -1210,44 +1403,6 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
             }
           }
         }
-        if constexpr (G > 0) {
-          // the graveyard's rows, shifted as the table's: on MAIN the new
-          // slots from their pool rows, on a run each slot in place
-          float* Gnew = gbase + (1 - gb) * gn_st;
-          for (int i0 = gw; i0 < gn; i0 += RB * GWARP) {
-            const float* rp[RB];
-            int rcs[RB];
-#pragma unroll
-            for (int r = 0; r < RB; ++r) {
-              const int i = min(i0 + r * GWARP, gn - 1);
-              const int q = is_main ? gsh->src[g][i] : C + i;
-              rp[r] = q >= C ? Gold + (q - C) * Wa : Sold + q * Wa;
-              rcs[r] = q >= C ? gcs : cs;
-            }
-#pragma unroll
-            for (int kc = 0; kc < K; ++kc)
-            for (int j0 = 0; j0 < Wa; j0 += 32 * CPL) {
-              float sv[RB][CPL];
-#pragma unroll
-              for (int r = 0; r < RB; ++r)
-#pragma unroll
-                for (int c = 0; c < CPL; ++c) {
-                  const int j = j0 + 32 * c + lane, jj = j + d;
-                  sv[r][c] = (j < Wa && jj >= 0 && jj < Wa)
-                                 ? rp[r][kc * rcs[r] + jj] : -INFINITY;
-                }
-#pragma unroll
-              for (int r = 0; r < RB; ++r)
-#pragma unroll
-                for (int c = 0; c < CPL; ++c) {
-                  const int j = j0 + 32 * c + lane;
-                  if (i0 + r * GWARP < gn && j < Wa)
-                    Gnew[kc * gcs + (i0 + r * GWARP) * Wa + j] = sv[r][c];
-                }
-            }
-          }
-          gb = 1 - gb;
-        }
         if (is_main) {
           const int fpo = __shfl_sync(FULL, poff, src);
           if (refresh < 0) poff = lane < W ? fpo : so;
@@ -1258,6 +1413,50 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
         group_sync(g);
         CLK(CK_WAIT);
       }
+      if constexpr (G > 0) {
+        if (is_main) {
+          // this slot of the new graveyard; then the burials: each buried
+          // table row's old storage (unshifted; its descriptor holds this
+          // step's shift) copied once into its storage row, which no
+          // resume reads any more (the permute above is past)
+          const uint2 k = gsh->key[g][gt];
+          gk1 = gt < gn ? k.x : 0u;
+          gk2 = gt < gn ? k.y : 0u;
+          gage = gt < gn ? gsh->age[g][gt] : 0;
+          gphys = gt < gn ? gsh->phys[par ^ 1][g][gt] : 0;
+          for (int r0 = gw; r0 < n_bury; r0 += RB * GWARP) {
+            const float* bs[RB];
+            float* bd[RB];
+#pragma unroll
+            for (int r = 0; r < RB; ++r) {
+              const int q = min(r0 + r * GWARP, n_bury - 1);
+              bs[r] = Sbury + gsh->src[g][q] * Wa;
+              bd[r] = gbase + gsh->phys[par ^ 1][g][q] * Wa;
+            }
+#pragma unroll
+            for (int kc = 0; kc < K; ++kc)
+            for (int j0 = 0; j0 < Wa; j0 += 32 * CPL) {
+              float bv[RB][CPL];
+#pragma unroll
+              for (int r = 0; r < RB; ++r)
+#pragma unroll
+                for (int c = 0; c < CPL; ++c) {
+                  const int j = j0 + 32 * c + lane;
+                  bv[r][c] = j < Wa ? bs[r][kc * cs + j] : 0.f;
+                }
+#pragma unroll
+              for (int r = 0; r < RB; ++r)
+#pragma unroll
+                for (int c = 0; c < CPL; ++c) {
+                  const int j = j0 + 32 * c + lane;
+                  if (r0 + r * GWARP < n_bury && j < Wa)
+                    bd[r][kc * gcs + j] = bv[r][c];
+                }
+            }
+          }
+          CLK(CK_GRAVE_STORE);
+        }
+      }
       CLK(CK_PERMUTE);
       float* St = base + sb * n_st;
       const float* Pt = base + (2 + pb) * n_st;
@@ -1267,8 +1466,9 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
       if (width <= 0) {
         if (is_main && gw == 0) mxo[lane] = -INFINITY;
       } else if constexpr (MODEL != 0) {
-        nlayers = sweep_two<MODEL>(ws, nt, smask, pslot, root, poff, lo, hi,
-                                   no, ya, La, Ta, Wa, C, St, Pt, mxo CLK_ARG);
+        nlayers = sweep_two<MODEL, (G > 0)>(ws, nt, smask, pslot, root,
+                                            poff, lo, hi, no, ya, La, Ta, Wa,
+                                            C, St, Pt, mxo CLK_ARG);
       } else if (width <= NARROW_MAX) {
         // ---- narrow path: seed and columns in a segment of Sg lanes
         Narrow nw;
@@ -1289,13 +1489,18 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
           gap = ya[A * La + t];
           if (t <= Ta) nw.root_t = ya[(A + 1) * La + t];
         }
-        // cw: float64 inclusive prefix sum of the gap weights, rounded once
-        double x = inr ? (double)gap : 0.0;
-        for (int o = 1; o < nw.Sg; o <<= 1) {
-          const double y = __shfl_up_sync(FULL, x, o);
-          if (p >= o) x += y;
+        // cw: inclusive prefix sum of the gap weights, in float64 rounded
+        // once, or (exact mode) in XLA's association
+        if constexpr (G > 0) {
+          nw.cw = narrow_cw_xla(inr ? gap : 0.f, p, lane & ~(nw.Sg - 1));
+        } else {
+          double x = inr ? (double)gap : 0.0;
+          for (int o = 1; o < nw.Sg; o <<= 1) {
+            const double y = __shfl_up_sync(FULL, x, o);
+            if (p >= o) x += y;
+          }
+          nw.cw = (float)x;
         }
-        nw.cw = (float)x;
         nw.sp = min(pos - 1, Wa - 1);  // the seed's column
         CLK(CK_LOADS);
 
@@ -1353,7 +1558,7 @@ __device__ __forceinline__ Row run_search(Shared& sh, const Problem& pr,
           const int sp = kc == 0 ? min(pos - 1, Wa - 1) : pos - 1;
           // cw: the gap weights' prefix sums
           float cw4[4];
-          chunk_cw(ya + A * La + c_lo, cl, lane, cw4);
+          chunk_cw<(G > 0)>(ya + A * La + c_lo, cl, lane, cw4);
           CLK(CK_LOADS);
 
           unsigned done = 0;

@@ -422,8 +422,8 @@ def _batched_consensus(workloads, args, kind: str = "poreover"):
         prep = prepare_pairs(chunk, beam_width=args.beam_width,
                              device=args.device, model=MODEL_STRING[kind],
                              exact=args.exact, dtype=_dtype(args))
-        log.info("%s%s consensus wave %d/%d (one kernel launch; storage in "
-                 "%s memory)", kind, " exact" if args.exact else "", i + 1,
+        log.info("%s%s consensus wave %d/%d (one kernel launch; storage "
+                 "path %s)", kind, " exact" if args.exact else "", i + 1,
                  len(chunks), storage_path(prep))
         outs = launch_prepared(prep)
         if pending is not None:

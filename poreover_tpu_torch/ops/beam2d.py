@@ -21,19 +21,29 @@ _NEG_INF = LOG_0
 def _lse_scan(x: torch.Tensor) -> torch.Tensor:
     """Inclusive logaddexp scan along the last axis, combining in the
     recursive odd/even tree of jax.lax.associative_scan."""
-    n = x.shape[-1]
-    if n < 2:
-        return x
-    odd = _lse_scan(torch.logaddexp(x[..., 0:n - 1:2], x[..., 1::2]))
-    if n % 2 == 0:
-        even = torch.logaddexp(odd[..., :-1], x[..., 2::2])
-    else:
-        even = torch.logaddexp(odd, x[..., 2::2])
-    out = torch.empty_like(x)
-    out[..., 0:1] = x[..., 0:1]
-    out[..., 2::2] = even
-    out[..., 1::2] = odd
-    return out
+    return _lse_scan_(x.clone())
+
+
+def _lse_scan_(x: torch.Tensor) -> torch.Tensor:
+    """``_lse_scan`` in place, two launches per level of the tree.
+
+    The recursion pairs a level's elements (0, 1), (2, 3), ... into the
+    next level, scans that, and finishes each even element from the odd
+    one before it. Level l's elements are x's columns 2^l - 1, 2^(l+1) - 1,
+    ... (a strided view), so the pair sums land in place (up the tree),
+    and the even elements are finished in place on the way down, each
+    from the same two operands as in the recursion."""
+    levels = [x]
+    while levels[-1].shape[-1] > 1:
+        v = levels[-1]
+        odd = v[..., 1::2]
+        torch.logaddexp(v[..., 0:2 * odd.shape[-1]:2], odd, out=odd)
+        levels.append(odd)
+    for v in reversed(levels[:-1]):
+        even = v[..., 2::2]
+        if even.shape[-1]:
+            torch.logaddexp(v[..., 1:2 * even.shape[-1]:2], even, out=even)
+    return x
 
 
 def _cumsum_f32(w: torch.Tensor) -> torch.Tensor:
@@ -43,17 +53,60 @@ def _cumsum_f32(w: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(w.to(torch.float64), dim=-1).to(w.dtype)
 
 
+XLA_SCAN_BASE = 16
+
+
+def _cumsum_xla(w: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumsum along the last axis in ``w``'s own dtype, associated
+    as XLA's CPU backend associates ``jnp.cumsum``.
+
+    jax lowers ``cumsum`` to a ``reduce_window``
+    (``cumred_reduce_window_impl``, ``jax/_src/lax/control_flow/loops.py``),
+    and XLA's reduce-window rewrite turns that into a blocked scan of base
+    16: each block of 16 elements is summed in order from 0, the blocks'
+    totals are scanned the same way (recursively), and each block's
+    exclusive prefix is added to its elements last; 16 elements or fewer
+    are one sequential sum. A position's value does not depend on the
+    length. Bit for bit ``jax.jit(jnp.cumsum)`` on the CPU, in float32 and
+    (under x64) float64 (tests/test_torch_exact_sums.py). Elementwise adds
+    only, in place on one copy (a launch per add of a column): torch's
+    own cumsum accumulates in float64 on the CPU."""
+    L, B = w.shape[-1], XLA_SCAN_BASE
+    nb = -(-L // B)
+    out = (torch.nn.functional.pad(w, (0, nb * B - L)) if nb * B > L
+           else w.clone())
+    _cumsum_in_order_(out.view(w.shape[:-1] + (nb, B)))
+    if nb > 1:
+        blocks = out.view(w.shape[:-1] + (nb, B))
+        tot = _cumsum_xla(blocks[..., :-1, -1])
+        blocks[..., 1:, :] += tot[..., None]
+    return out[..., :L]
+
+
+def _cumsum_in_order_(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumsum along the last axis in place, one add at a time
+    from 0."""
+    cols = x.unbind(-1)
+    for i in range(1, len(cols)):
+        cols[i].add_(cols[i - 1])
+    return x
+
+
 def _cumlse_chain(E, weights, seed):
     """p(w) = lse(E(w), p(w-1) + weights(w)), p(-1) = seed, vectorized.
 
     E [..., Wb], weights [..., Wb] (log multipliers of the stay chain),
     seed [...]. Returns p [..., Wb]. Closed form:
       p(w) = cw(w) + cumlse( concat(seed, E(w') - cw(w')) )
-    with cw = inclusive cumsum of weights.
+    with cw = inclusive cumsum of weights (``_cumlse_cw``).
     """
-    cw = _cumsum_f32(weights)
+    return _cumlse_cw(E, _cumsum_f32(weights), seed)
+
+
+def _cumlse_cw(E, cw, seed):
+    """``_cumlse_chain`` from the weights' inclusive prefix sums cw."""
     body = torch.cat([seed[..., None], E - cw], dim=-1)
-    return _lse_scan(body)[..., 1:] + cw
+    return _lse_scan_(body)[..., 1:] + cw
 
 
 def _lookup_idx(qk1, qk2, tk1, tk2, tvalid):

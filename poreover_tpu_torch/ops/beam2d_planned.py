@@ -30,6 +30,12 @@ again resumes it instead of starting from -inf. The rows move with the
 storage window (re-anchored on every sweep of their read) but are never
 swept.
 
+Sums: exact mode and float64 (``xla_sums``) take the root's cumulative gap
+row and the stay chains' prefix sums as the JAX package's XLA engine does
+on the CPU (``beam2d._cumsum_xla``), since the JAX package runs those
+modes through that engine; windowed float32 takes them as the Pallas
+kernel does (float64 sums rounded once).
+
 The engine is batched over B pairs in lockstep: each pair keeps its own
 storage width Wst and its own plan length (steps past the end of a plan
 leave that pair untouched), so a pair decodes the same alone as in any
@@ -42,7 +48,9 @@ import torch
 
 from ..utils.logspace import LOG_0
 from .beam import _MODEL_IDS, _child_keys, _dedup_mask, _init_candidates
-from .beam2d import _cumlse_chain, _lookup_idx, _shift_window
+from .beam2d import (
+    _cumlse_cw, _cumsum_f32, _cumsum_xla, _lookup_idx, _shift_window,
+)
 
 _NEG_INF = LOG_0
 
@@ -150,8 +158,18 @@ def plane_rows(model_id: int, A: int) -> int:
     return {0: A + 2, 1: A + 1, 2: 2 * A}[model_id]
 
 
+def xla_sums(G: int, dtype) -> bool:
+    """Whether a search sums as the JAX package's XLA engine on the CPU
+    (``beam2d._cumsum_xla``: the planes' cumulative gap row and the stay
+    chains' weights): exact mode (``G`` > 0) and float64 (``dtype``,
+    numpy's or torch's), which the JAX package runs through that engine.
+    Windowed float32 follows the Pallas kernel the JAX package runs on a
+    TPU: float64 sums rounded once."""
+    return G > 0 or dtype in (np.float64, torch.float64)
+
+
 def _pack_plane(y: np.ndarray, A: int, model_id: int = 0,
-                dtype=np.float32) -> np.ndarray:
+                dtype=np.float32, xla: bool = False) -> np.ndarray:
     """[T, S] log-probs -> [plane_rows, T+1] plane of ``dtype`` (float32,
     or float64 for ``--f64``); column T holds -inf emissions.
 
@@ -160,7 +178,16 @@ def _pack_plane(y: np.ndarray, A: int, model_id: int = 0,
     - bonito: rows 0..A-1 emissions, row A gap (its root holds a value at
       t = -1 only, which needs no row);
     - flip-flop: rows 0..A-1 flip emissions, rows A..2A-1 flop emissions
-      (no gap, and the root as for bonito)."""
+      (no gap, and the root as for bonito).
+
+    The cumulative gap row follows the JAX engine that the mode copies.
+    With ``xla`` (``xla_sums``: exact mode, and ``--f64`` in both modes;
+    the JAX package runs those through its XLA engine, ``jnp.cumsum`` in
+    ``_planned_scan``) it is ``beam2d._cumsum_xla`` in ``dtype``. Without
+    it (windowed float32) it is the Pallas kernel's packing, which the JAX
+    package runs on a TPU (``pallas_pair_beam_batch.py:_pack_plane``): a
+    float64 sum rounded once. How XLA associates a cumsum on a TPU is not
+    known here."""
     T = len(y)
     R = plane_rows(model_id, A)
     yd = np.asarray(y, dtype=dtype)
@@ -171,8 +198,10 @@ def _pack_plane(y: np.ndarray, A: int, model_id: int = 0,
     plane[:A + 1, :T] = yd[:, :A + 1].T
     if model_id == 0:
         plane[A + 1, 0] = 0.0
-        plane[A + 1, 1:] = np.cumsum(yd[:, A].astype(np.float64)).astype(
-            dtype)
+        plane[A + 1, 1:] = (
+            _cumsum_xla(torch.from_numpy(yd[:, A].copy())).numpy()
+            if xla else
+            np.cumsum(yd[:, A].astype(np.float64)).astype(dtype))
     return plane
 
 
@@ -191,7 +220,9 @@ def pack_pairs(pairs, beam_width: int = 5, alphabet: str = "ACGT",
     widths, for runs of truncated plans at the full plans' widths. ``G``
     graveyard rows (exact mode) widen each pair's kernel scratch; ``dtype``
     is the planes' (float32, or float64 for the plain version under
-    ``--f64``).
+    ``--f64``). Exact mode and float64 take the XLA engine's cumulative
+    gap row (``_pack_plane``), each plane summed from its own start (a
+    box's from the box's).
     """
     A = len(alphabet)
     W = beam_width
@@ -214,12 +245,13 @@ def pack_pairs(pairs, beam_width: int = 5, alphabet: str = "ACGT",
     meta = np.zeros((len(live), META_COLS), np.int64)
     planes1, planes2, plan_rows, types = [], [], [], []
     o1 = o2 = op = osc = 0
+    xla = xla_sums(G, dtype)
     for r, i in enumerate(live):
         y1, y2, _ = pairs[i]
         p = plans[i]
         w0, w1 = plan_wst(p) if wst is None else wst[i]
-        q1 = _pack_plane(y1, A, model_id, dtype)
-        q2 = _pack_plane(y2, A, model_id, dtype)
+        q1 = _pack_plane(y1, A, model_id, dtype, xla)
+        q2 = _pack_plane(y2, A, model_id, dtype, xla)
         n = len(p["type"])
         meta[r] = (len(y1), len(y1) + 1, o1, len(y2), len(y2) + 1, o2, op, n,
                    w0, w1, osc, 0)
@@ -232,7 +264,7 @@ def pack_pairs(pairs, beam_width: int = 5, alphabet: str = "ACGT",
         o1 += q1.size
         o2 += q2.size
         op += n
-        osc += (4 * C + 2 * G) * K * (w0 + w1)
+        osc += (4 * C + G) * K * (w0 + w1)
     cat = (lambda xs, dt: np.concatenate(xs) if xs else np.zeros(0, dt))
     return dict(
         planes1=cat(planes1, dtype), planes2=cat(planes2, dtype),
@@ -314,14 +346,16 @@ def _log_half(dtype) -> float:
 
 def _chunked_sweep(plane, A, lo, hi, active, n_chunks, k1, k2, pk1, pk2,
                    char, pchar, mask, storage, st_off, psweep, poff, Wst,
-                   model_id=0):
+                   model_id=0, cumsum=_cumsum_f32):
     """Sweep the candidates in ``mask`` across window [lo, hi) of one read
     in CHUNK-column pieces, merging the values into ``storage`` (min-shift
     anchored). Pairs not ``active`` keep storage and offset.
 
     plane [B, R, Lm]; lo/hi/active/st_off/Wst [B]; table fields, mask,
     poff [B, C]; storage/psweep [B, C, K, Wm]; n_chunks is the host-side
-    number of chunks of the widest active window.
+    number of chunks of the widest active window; ``cumsum`` takes the
+    stay chains' prefix sums of weights, once per chunk for each
+    character's chain (``_cumlse_cw``).
     Returns (storage, st_off, window max [B, C]): the window maximum of a
     candidate's score, its value (ctc) or the log-add-exp of its two
     components (bonito, flip-flop).
@@ -407,7 +441,7 @@ def _chunked_sweep(plane, A, lo, hi, active, n_chunks, k1, k2, pk1, pk2,
         f_ext = parent_ext.reshape(B * C, K, CHUNK)
         f_emit = c_emit.reshape(B * C, CHUNK)
         f_inr = in_range.reshape(B * C, CHUNK)
-        if model_id < 2:
+        if model_id == 1:
             f_gap = gap_w[:, None, :].expand(B, C, CHUNK).reshape(B * C,
                                                                   CHUNK)
         if model_id == 2:
@@ -415,6 +449,19 @@ def _chunked_sweep(plane, A, lo, hi, active, n_chunks, k1, k2, pk1, pk2,
             f_rs = (is_root[:, :, None] & (t_abs == 0)[:, None, :]).reshape(
                 B * C, CHUNK)
         f_same = same.reshape(-1)
+        # the chains' cw, in one sum over the plane's rows they weigh: per
+        # pair (the gap, the last row) and per character (emissions,
+        # flip-flop's flops), gathered to each row by its character
+        cw = cumsum(torch.where(in_rng[:, None],
+                                cols[:, A:A + 1] if model_id == 0 else cols,
+                                0.0))
+        if model_id < 2:
+            f_cwg = cw[:, -1, None, :].expand(B, C, CHUNK).reshape(B * C,
+                                                                   CHUNK)
+        if model_id > 0:
+            f_cwe = cw[:, :A].gather(1, char_w).reshape(B * C, CHUNK)
+            if model_id == 2:
+                f_cwf = cw[:, A:].gather(1, char_w).reshape(B * C, CHUNK)
         for _ in range(C + 1):
             pending = ~done & f_swept
             ready = pending & torch.where(f_pswept, done[f_par], True)
@@ -430,7 +477,7 @@ def _chunked_sweep(plane, A, lo, hi, active, n_chunks, k1, k2, pk1, pk2,
             s_own = f_seeds[rows]
             if model_id == 0:
                 E = torch.where(inr, par_vals[:, 0] + f_emit[rows], _NEG_INF)
-                out = _cumlse_chain(E, f_gap[rows], s_own[:, 0])[:, None]
+                out = _cumlse_cw(E, f_cwg[rows], s_own[:, 0])[:, None]
             else:
                 p0, p1 = par_vals[:, 0], par_vals[:, 1]
                 p_tot = torch.logaddexp(p0, p1)
@@ -441,12 +488,12 @@ def _chunked_sweep(plane, A, lo, hi, active, n_chunks, k1, k2, pk1, pk2,
                     # a repeat), stays weighted by the emission; the total
                     # chains on it with the gap as stay weight
                     src = torch.where(sm, p0, p_tot)
-                    ong = _cumlse_chain(torch.where(inr, src + ce, _NEG_INF),
-                                        ce, s_own[:, 1])
+                    ong = _cumlse_cw(torch.where(inr, src + ce, _NEG_INF),
+                                     f_cwe[rows], s_own[:, 1])
                     seed_tot = torch.logaddexp(s_own[:, 0], s_own[:, 1])
                     gap = f_gap[rows]
-                    tot = _cumlse_chain(torch.where(inr, ong, _NEG_INF), gap,
-                                        seed_tot)
+                    tot = _cumlse_cw(torch.where(inr, ong, _NEG_INF),
+                                     f_cwg[rows], seed_tot)
                     tot_prev = torch.cat([seed_tot[:, None], tot[:, :-1]], 1)
                     o0 = torch.where(inr, tot_prev + gap, _NEG_INF)
                     o1 = ong
@@ -458,10 +505,10 @@ def _chunked_sweep(plane, A, lo, hi, active, n_chunks, k1, k2, pk1, pk2,
                     ef = torch.where(sm, p1, p_tot) + ce
                     eo = torch.where(sm, p0 + cf, _NEG_INF)
                     eo = torch.where(f_rs[rows], cf, eo)
-                    o0 = _cumlse_chain(torch.where(inr, ef, _NEG_INF), ce,
-                                       s_own[:, 0])
-                    o1 = _cumlse_chain(torch.where(inr, eo, _NEG_INF), cf,
-                                       s_own[:, 1])
+                    o0 = _cumlse_cw(torch.where(inr, ef, _NEG_INF),
+                                    f_cwe[rows], s_own[:, 0])
+                    o1 = _cumlse_cw(torch.where(inr, eo, _NEG_INF),
+                                    f_cwf[rows], s_own[:, 1])
                 out = torch.stack([o0, o1], 1)
             cur[rows] = torch.where(inr[:, None], out, _NEG_INF)
             done[rows] = True
@@ -572,17 +619,21 @@ def _initial_state(P, meta_h, W: int, A: int, model_id: int, G: int):
                      gvalid=torch.zeros(B, G, dtype=torch.bool, device=dev))
         # counts per pair that show which cases a run exercised: rows
         # turned away by a full graveyard, children that resumed a
-        # graveyard row, and those of them whose row had moved back with
-        # a backward re-anchor while buried (``gback`` per row)
+        # graveyard row, those of them whose row had moved back with a
+        # backward re-anchor while buried (``gback`` per row), and live
+        # graveyard rows carried across a backward move of more than Wst+1
+        # columns (the wrap of ``_jax_shift``)
         state.update({k: torch.zeros(B, dtype=torch.int64, device=dev)
                       for k in GY_COUNTS},
-                     gback=torch.zeros(B, G, dtype=torch.bool, device=dev))
+                     gback=torch.zeros(B, G, dtype=torch.bool, device=dev),
+                     gwrapped=torch.zeros(B, G, dtype=torch.bool,
+                                          device=dev))
     state["prov"] = torch.zeros(B, int(meta_h[:, M_N].max()), W,
                                 dtype=torch.int8, device=dev)
     return state
 
 
-GY_COUNTS = ("gfull", "gresume", "gresume_back")
+GY_COUNTS = ("gfull", "gresume", "gresume_back", "gwrap", "gresume_wrap")
 
 
 def planned_scan(planes1, planes2, plan, meta, W: int, A: int,
@@ -609,6 +660,7 @@ def planned_scan(planes1, planes2, plan, meta, W: int, A: int,
     B = len(meta_h)
     C = W * (A + 1)
     R = plane_rows(model_id, A)
+    cumsum = _cumsum_xla if xla_sums(G, planes1.dtype) else _cumsum_f32
     P = [_unpack_planes(planes1, meta_h, M_L1, M_Y1, R),
          _unpack_planes(planes2, meta_h, M_L2, M_Y2, R)]
     Wst = [torch.as_tensor(meta_h[:, M_WST0], device=dev),
@@ -649,7 +701,7 @@ def planned_scan(planes1, planes2, plan, meta, W: int, A: int,
     count = bool(G) and return_state
     if count:
         cnt = {k: state[k] for k in GY_COUNTS}
-        gback = state["gback"]
+        gback, gwrapped = state["gback"], state["gwrapped"]
 
     i0, i1 = (0, Nm) if steps is None else (steps[0], min(steps[1], Nm))
     cchar = torch.arange(A, device=dev).repeat(W)[None].expand(B, W * A)
@@ -699,9 +751,14 @@ def planned_scan(planes1, planes2, plan, meta, W: int, A: int,
                 cnt["gresume"] = cnt["gresume"] + resumed.sum(1)
                 cnt["gresume_back"] = cnt["gresume_back"] + (resumed
                                                              & back).sum(1)
+                wrapped = gwrapped.gather(1, (child_idx - C).clamp(0, G - 1))
+                cnt["gresume_wrap"] = cnt["gresume_wrap"] + (
+                    resumed & wrapped).sum(1)
+                none = torch.zeros_like(tab["valid"])
                 gback = torch.where(mi, gok & torch.cat(
-                    [torch.zeros_like(tab["valid"]), gback], 1).gather(
-                        1, gsel), gback)
+                    [none, gback], 1).gather(1, gsel), gback)
+                gwrapped = torch.where(mi, gok & torch.cat(
+                    [none, gwrapped], 1).gather(1, gsel), gwrapped)
         else:
             child_idx = _lookup_idx(ck1, ck2, tab["k1"], tab["k2"],
                                     tab["valid"])
@@ -740,7 +797,7 @@ def planned_scan(planes1, planes2, plan, meta, W: int, A: int,
                 P[axis], A, lo, hi, active, int(nch_h[axis][i]),
                 use["k1"], use["k2"], use["pk1"], use["pk2"], use["char"],
                 use["pchar"], mask, stale, off[axis], psw, pof, Wst[axis],
-                model_id)
+                model_id, cumsum)
             if G:
                 # the graveyard's rows (the new ones on MAIN) move with the
                 # window as the table's do, unswept
@@ -753,6 +810,11 @@ def planned_scan(planes1, planes2, plan, meta, W: int, A: int,
                     width=Wst[axis][:, None, None])
                 if count:
                     gback = gback | (new_off < off[axis])[:, None]
+                    live = torch.where(mi, gok, gy["gvalid"])
+                    wrap = new_off - off[axis] < -(Wst[axis] + 1)
+                    cnt["gwrap"] = cnt["gwrap"] + (wrap[:, None]
+                                                   & live).sum(1)
+                    gwrapped = gwrapped | wrap[:, None]
             # frozen parent copies := parent's current storage where the
             # parent is in the table (last-known-values semantics)
             present = (refresh_idx >= 0) & active[:, None]
@@ -773,7 +835,7 @@ def planned_scan(planes1, planes2, plan, meta, W: int, A: int,
     if G:
         state.update(gy, gsweep0=GS[0], gsweep1=GS[1])
     if count:
-        state.update(cnt, gback=gback)
+        state.update(cnt, gback=gback, gwrapped=gwrapped)
     if return_state:
         return state
     return scan_outputs(state, meta_h, W)

@@ -24,7 +24,9 @@ graveyard instances (one per kind) keep EXACT_G evicted candidates for
 EXACT_GRACE MAIN steps, the JAX engine's ``_planned_scan`` with G > 0,
 which the JAX package runs as an XLA scan; their plain version is
 ``planned_scan`` with the same G and grace. Their launches count in
-``exact_launch_count``.
+``exact_launch_count``. A wave's storage goes to one of STORAGE_PATHS by
+its largest pair: all in shared memory, the graveyard's alone in global
+scratch (``split``), or all in global scratch.
 
 What bounds the kernel, and its design: see the note at the top of the
 CUDA source. The library is built with nvcc for sm_90a at first use
@@ -68,8 +70,9 @@ PHASE_CLOCKS = "POREOVER_PHASE_CLOCKS"  # macro of the instrumented build
 # follows the phases, then the sweeps, the layers and the narrow sweeps of
 # both groups
 CLOCK_PARTS = (("step", ("prune", "expand", "permute", "loads", "layers",
-                         "refresh", "score", "scan", "wait"), "plan step"),)
-CLOCK_SLOTS = 9 + 1 + 3
+                         "refresh", "score", "scan", "wait", "grave_select",
+                         "grave_store"), "plan step"),)
+CLOCK_SLOTS = 11 + 1 + 3
 
 _libs = {}
 
@@ -117,7 +120,7 @@ def load_kernel(phase_clocks: bool = False):
                                            vp, vp, vp, vp]
     lib.pair_beam_exact_launch.restype = i
     lib.pair_beam_exact_launch.argtypes = [vp, vp, vp, vp, i, i, i, i, i,
-                                           vp, vp, vp, vp, vp]
+                                           i, vp, vp, vp, vp, vp]
     _libs[phase_clocks] = bind_phase_clocks(lib) if phase_clocks else lib
     return lib
 
@@ -141,9 +144,9 @@ def storage_bytes(wst, beam_width: int, A: int = KERNEL_A,
     pair of ints, or of arrays over pairs) needs in the pair and box
     kernels: sweep and frozen parent copy, double-buffered, per read and
     state component; with ``G`` graveyard rows (exact mode) also their
-    sweeps, double-buffered."""
+    storage, one buffer of G rows."""
     C = beam_width * (A + 1)
-    return 8 * components(model_id) * (2 * C + G) * (wst[0] + wst[1])
+    return 4 * components(model_id) * (4 * C + G) * (wst[0] + wst[1])
 
 
 def _meta_storage(meta_h, W: int, A: int, model_id: int,
@@ -159,24 +162,37 @@ def smem_limit(G: int = 0) -> int:
     return EXACT_SMEM_STORAGE_LIMIT if G else SMEM_STORAGE_LIMIT
 
 
+# where a launch keeps a wave's storage, chosen by its largest pair:
+# ``shared`` all of it in shared memory; ``split`` (graveyard instances) the
+# candidates' in shared memory and the graveyard's in global scratch;
+# ``global`` all of it in global scratch. A path's index is the kernel's
+# ``Storage`` value (csrc/pair_beam_batch.cu), passed to the exact launch
+STORAGE_PATHS = ("shared", "split", "global")
+
+
 def storage_path(prep) -> str:
-    """Where the kernel keeps a prepared wave's storage: ``shared`` when
-    its largest pair fits ``smem_limit``, else ``global``."""
-    G = prep["G"]
-    need = _meta_storage(prep["meta"], prep["W"], prep["A"],
-                         prep["model_id"], G)
-    return "shared" if need.max(initial=0) <= smem_limit(G) else "global"
+    """Where the kernel keeps a prepared wave's storage (STORAGE_PATHS):
+    ``shared`` when its largest pair's fits ``smem_limit``, ``split`` when
+    only its candidates' does (exact mode), else ``global``."""
+    G, W, A, mid = prep["G"], prep["W"], prep["A"], prep["model_id"]
+    lim = smem_limit(G)
+    if _meta_storage(prep["meta"], W, A, mid, G).max(initial=0) <= lim:
+        return "shared"
+    if G and _meta_storage(prep["meta"], W, A, mid).max(initial=0) <= lim:
+        return "split"
+    return "global"
 
 
 def _launch(planes1, planes2, plan, meta, meta_h, W: int, A: int,
-            in_smem: bool = True, model_id: int = 0, G: int = 0,
+            storage: str | None = None, model_id: int = 0, G: int = 0,
             grace: int = 1):
     """Check the tensors and launch the kernel's instance for ``model_id``
     (with ``G`` > 0: its graveyard instance, EXACT_G rows and eviction at
     ``grace``) on the current stream, one CTA per row of ``meta``; counts
-    nothing. The storage lives in shared memory when the largest pair's
-    fits (``storage_path``); ``in_smem=False`` puts it in global scratch all
-    the same (``chip_smoke.py`` times both)."""
+    nothing. The storage goes where the largest pair's fits
+    (``storage_path``); ``storage`` (one of STORAGE_PATHS) puts it in a
+    path that takes less shared memory all the same (``chip_smoke.py`` and
+    the tests hold each path to the others)."""
     dev = planes1.device
     _check("planes1", planes1, torch.float32, 1, dev)
     _check("planes2", planes2, torch.float32, 1, dev)
@@ -204,12 +220,20 @@ def _launch(planes1, planes2, plan, meta, meta_h, W: int, A: int,
     if plan.shape[0] != n_total:
         raise ValueError(f"plan has {plan.shape[0]} steps, meta {n_total}")
     lib = load_kernel()
+    prep = dict(meta=meta_h, W=W, A=A, model_id=model_id, G=G)
+    path = storage_path(prep)
+    if storage is not None:
+        if STORAGE_PATHS.index(storage) < STORAGE_PATHS.index(path) or (
+                storage == "split" and not G):
+            raise ValueError(f"storage {storage!r}: the wave needs {path!r}"
+                             + ("" if G else " (no graveyard to split)"))
+        path = storage
     need = _meta_storage(meta_h, W, A, model_id, G)
-    # the storage in shared memory when the largest pair's fits
-    smem = int(need.max(initial=0))
-    if not in_smem or smem > smem_limit(G):
-        smem = 0
-    scratch = torch.empty(1 if smem else max(int(need.sum()) // 4, 1),
+    smem = int({"shared": need, "global": 0 * need,
+                "split": _meta_storage(meta_h, W, A, model_id)}[path].max(
+                    initial=0))
+    scratch = torch.empty(1 if path == "shared" else
+                          max(int(need.sum()) // 4, 1),
                           dtype=torch.float32, device=dev)
     prov = torch.empty(max(n_total, 1), W, dtype=torch.int8, device=dev)
     score = torch.empty(B, C, dtype=torch.float32, device=dev)
@@ -221,7 +245,8 @@ def _launch(planes1, planes2, plan, meta, meta_h, W: int, A: int,
             valid.data_ptr(), stream)
     with torch.cuda.device(dev):
         if G:
-            err = lib.pair_beam_exact_launch(*ptrs, grace, smem, *outs)
+            err = lib.pair_beam_exact_launch(*ptrs, grace, smem,
+                                             STORAGE_PATHS.index(path), *outs)
         else:
             err = lib.pair_beam_batch_launch(*ptrs, smem, *outs)
     if err != 0:

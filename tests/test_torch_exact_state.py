@@ -9,9 +9,9 @@ exactly, key for key. The JAX engine runs with jax_enable_x64 off
 (float32, the kernel's type; the suite turns x64 on, so each test restores
 it). Sweep values are held within the tolerance of
 tests/test_torch_planned.py's state test (rtol = atol = 1e-5, -inf at the
-same places): JAX's ``jnp.cumsum`` of a window's weights adds in another
-order than the port's float64 sums rounded once, which moves the last bits
-of a value.
+same places): the port's exact mode sums as JAX's ``jnp.cumsum`` does on
+the CPU (``beam2d._cumsum_xla``), but ``torch.logaddexp`` and XLA's
+``logaddexp`` still differ in the last bit of some values.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -98,3 +98,14 @@ def test_state_on_a_plan_that_steps_back_matches_jax():
     jst, state = _states(case, len(plan["type"]), "ctc", plan, wst)
     _assert_states_equal(jst, state, "ctc")
     assert int(state["gresume_back"][0]) > 0
+
+
+def test_state_on_a_plan_that_steps_back_past_the_window_matches_jax():
+    """The same for moves back of more than the storage window's width:
+    live buried rows take the wrap of JAX's re-anchoring shift, and some
+    of them resume after it."""
+    case = cases()[2]
+    (plan,), (wst,) = stuttered([case], 3, 20)
+    jst, state = _states(case, len(plan["type"]), "ctc", plan, wst)
+    _assert_states_equal(jst, state, "ctc")
+    assert int(state["gresume_wrap"][0]) > 0

@@ -262,7 +262,7 @@ def test_kind_kernels_bit_equal_on_each_sweep_path(cuda_device, model, S,
     prep = pbb.prepare_pairs([pair], device=cuda_device, model=model)
     mid = prep["model_id"]
     k = pbb.pair_beam_cuda(*prep["dev"], prep["meta"], 5, model_id=mid)
-    kg = pbb._launch(*prep["dev"], prep["meta"], 5, 4, in_smem=False,
+    kg = pbb._launch(*prep["dev"], prep["meta"], 5, 4, storage="global",
                      model_id=mid)
     p = tp.planned_scan(*prep["dev"], 5, 4, model_id=mid)
     torch.cuda.synchronize()
@@ -655,24 +655,28 @@ def test_ctc_loss_on_card_goes_through_the_kernels(cuda_device):
 # tests/test_exact.py's cases (sim.exact_style_cases)
 
 def test_exact_storage_counts_the_graveyard():
-    """The graveyard's sweeps (2 buffers of K x G x Wst per read) add to
-    the storage and the scratch, and decide shared or global memory."""
+    """The graveyard's storage (one buffer of K x G x Wst per read) adds
+    to the storage and the scratch, and decides shared memory, the split
+    path (the candidates' in shared memory, the graveyard's in global
+    scratch) or global scratch."""
     assert pbb.storage_bytes((10, 20), 5) == 16 * 25 * 30
     assert pbb.storage_bytes((10, 20), 5, model_id=1, G=tp.EXACT_G) == (
-        8 * 2 * (2 * 25 + tp.EXACT_G) * 30)
+        4 * 2 * (4 * 25 + tp.EXACT_G) * 30)
     pairs = exact_style_cases()
     win = tp.pack_pairs(pairs)
     ex = tp.pack_pairs(pairs, G=tp.EXACT_G)
     wst = ex["meta"][:, tp.M_WST0] + ex["meta"][:, tp.M_WST1]
-    assert ex["scratch_floats"] == int(((4 * 25 + 2 * tp.EXACT_G) * wst).sum())
+    assert ex["scratch_floats"] == int(((4 * 25 + tp.EXACT_G) * wst).sum())
     assert win["scratch_floats"] == int((4 * 25 * wst).sum())
     prep = pbb.prepare_pairs(pairs, device="cpu", exact=True)
     assert (prep["G"], prep["grace"]) == (tp.EXACT_G, tp.EXACT_GRACE)
     assert pbb.storage_path(prep) == "shared"
     big = dict(prep, meta=prep["meta"].copy())
     big["meta"][0, tp.M_WST0] = 400
-    assert pbb.storage_path(big) == "global"
+    assert pbb.storage_path(big) == "split"
     assert pbb.storage_path(dict(big, G=0)) == "shared"
+    big["meta"][0, tp.M_WST0] = 600
+    assert pbb.storage_path(big) == "global"
 
 
 def test_exact_cpu_route_is_the_plain_graveyard():
@@ -698,20 +702,25 @@ def test_exact_kernel_refuses_other_graveyards(packed_cpu):
 @pytest.mark.parametrize("grace", [2, 20])
 def test_exact_kernel_matches_plain_on_card(cuda_device, model, S, grace):
     """The graveyard instance against the plain graveyard engine: the
-    provenance, the scores' bits and validity, with the storage in shared
-    memory and in global scratch, and on plans that step back
-    (``sim.stuttered``: buried rows move back)."""
+    provenance, the scores' bits and validity, with the storage in each
+    path (shared memory; the graveyard's in global scratch; all in global
+    scratch), and on plans that step back (``sim.stuttered``: buried rows
+    move back; by 20 steps, further than the storage window: the wrap of
+    the JAX engine's shift)."""
     pairs = exact_style_cases(S)
-    plans, wsts = stuttered(pairs)
-    for kw in ({}, dict(plans=plans, wst=wsts)):
+    kws = [{}]
+    for back in ((7, 2), (3, 20)):
+        plans, wsts = stuttered(pairs, *back)
+        kws.append(dict(plans=plans, wst=wsts))
+    for kw in kws:
         packed = tp.pack_pairs(pairs, model=model, G=tp.EXACT_G, **kw)
         dev = [torch.as_tensor(packed[k], device=cuda_device)
                for k in ("planes1", "planes2", "plan", "meta")]
         mid = packed["model_id"]
         p = tp.planned_scan(*dev, 5, 4, model_id=mid, G=tp.EXACT_G,
                             grace=grace)
-        for in_smem in (True, False):
-            k = pbb._launch(*dev, packed["meta"], 5, 4, in_smem=in_smem,
+        for path in pbb.STORAGE_PATHS:
+            k = pbb._launch(*dev, packed["meta"], 5, 4, storage=path,
                             model_id=mid, G=tp.EXACT_G, grace=grace)
             torch.cuda.synchronize()
             for a, b in zip(k, p):

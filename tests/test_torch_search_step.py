@@ -37,11 +37,12 @@ def elementwise_lse(monkeypatch):
     card has one path. Here every combination takes one rounding of the
     same float64 ``log1p(exp(-|a - b|))``, whatever the shape, so the tests
     compare schedules (which pairs combine, in which order), nothing
-    else."""
-    def lse(a, b):
+    else. ``out=`` as torch's (``beam2d._lse_scan_`` writes in place)."""
+    def lse(a, b, out=None):
         d = torch.log1p(torch.exp(-(a.double() - b.double()).abs())).float()
-        return torch.where(torch.isinf(a) & (a == b), a,
-                           torch.maximum(a, b) + d)
+        r = torch.where(torch.isinf(a) & (a == b), a,
+                        torch.maximum(a, b) + d)
+        return r if out is None else out.copy_(r)
 
     monkeypatch.setattr(torch, "logaddexp", lse)
 

@@ -20,9 +20,16 @@ engine and the port's plain version (float32, CPU; ~6 minutes) and prints
 the first plan step whose winners differ, and the two tables' best
 scores after the steps before it (where the two engines' float32 sums
 part).
+
+``--port-exact I ...`` runs each pair in exact mode through the JAX exact
+engine and the port's plain exact version (``planned_scan`` with EXACT_G
+and EXACT_GRACE; float32, CPU; ~10 minutes a pair together) and prints
+whether the two strings are equal, their md5s, and the first plan step
+whose winners differ (null when none does).
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import sys
@@ -105,6 +112,53 @@ def diverge(i):
     print(json.dumps(out), flush=True)
 
 
+def port_exact(indices):
+    """The JAX exact engine against the port's plain exact version on the
+    wave's pairs ``indices``: equal strings, md5s, first differing step."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    jax.config.update("jax_enable_x64", False)
+    from poreover_tpu.ops import beam2d_planned as jp
+
+    from poreover_tpu_torch.ops import beam2d_planned as tp
+
+    keys = ("type", "a_lo", "a_hi", "b_lo", "b_hi")
+    G, grace = tp.EXACT_G, tp.EXACT_GRACE
+    for i, (y1, y2, env) in zip(indices, workloads(indices)):
+        plan = tp.build_plan(env, len(y1), len(y2))
+        w0, w1 = tp.plan_wst(plan)
+        t0 = time.perf_counter()
+        final, srcs, mains = jp._planned_scan(
+            jnp.asarray(y1, jnp.float32), jnp.asarray(y2, jnp.float32),
+            *(jnp.asarray(plan[k]) for k in keys), 0, 5, 4, w0, w1, G=G,
+            grace=grace, return_prov=True)
+        first, chars = jp._traceback_prov_batch(
+            jax.tree.map(lambda x: x[None], final), srcs[None], mains[None],
+            5, 4)
+        cs = [int(first[0])] + [int(c) for c in np.asarray(chars[0])]
+        jax_seq = "".join("ACGT"[c] for c in cs if c >= 0)
+        t1 = time.perf_counter()
+        packed = tp.pack_pairs([(y1, y2, env)], 5, plans=[plan], G=G)
+        prov, score, valid = tp.planned_scan(
+            *tp._to_device(packed, "cpu"), 5, 4, G=G, grace=grace)
+        port_seq = tp.tracebacks(packed, prov.numpy(), score.numpy(),
+                                 valid.numpy())[0]
+        t2 = time.perf_counter()
+        main = np.asarray(plan["type"]) == tp.MAIN
+        bad = np.flatnonzero(main & (np.asarray(srcs)
+                                     != prov.numpy()).any(1))
+        print(json.dumps({
+            "pair": i, "steps": int(len(main)),
+            "equal": jax_seq == port_seq,
+            "jax_md5": hashlib.md5(jax_seq.encode()).hexdigest(),
+            "port_md5": hashlib.md5(port_seq.encode()).hexdigest(),
+            "first_differing_step": int(bad[0]) if len(bad) else None,
+            "jax_s": round(t1 - t0, 1), "port_s": round(t2 - t1, 1)}),
+            flush=True)
+
+
 def main(indices):
     import jax
 
@@ -140,5 +194,7 @@ def main(indices):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--diverge"]:
         diverge(int(sys.argv[2]))
+    elif sys.argv[1:2] == ["--port-exact"]:
+        port_exact([int(a) for a in sys.argv[2:]] or list(range(8)))
     else:
         main([int(a) for a in sys.argv[1:]] or list(range(8)))

@@ -4,6 +4,8 @@
     python3 tools/kernel_waves.py --waves beam1d [--reads 32,264,1056]
                                   [--reps 3] TREE ...
     python3 tools/kernel_waves.py --waves pair [--reps 3] TREE ...
+    python3 tools/kernel_waves.py --waves kinds|exact [--reps 3] TREE ...
+    python3 tools/kernel_waves.py --waves plain [--reps 1] TREE ...
     python3 tools/kernel_waves.py --waves e2e [--reps 3] TREE ...
 
 Each TREE is a directory holding a ``poreover_tpu_torch`` package (this
@@ -21,6 +23,16 @@ checkout's simulator and stages:
   the 8 simulated pairs (seed 7, 5200-8200 bases,
   ``--reverse_complement``) with their envelopes, and their anchored boxes
   (``--skip_matches --skip_threshold 10``);
+- ``kinds``: the pair kernel on phase 10's waves: those 8 pairs as bonito
+  and flip-flop traces (one wave per kind);
+- ``exact``: the pair kernel's graveyard instances (``exact=True``) on
+  phase 17's waves: those 8 pairs as plain CTC, bonito and flip-flop
+  traces;
+- ``plain``: the pair kernel's plain version (``planned_scan``) on the
+  card, on the first PLAIN_WAVE_STEPS plan steps of the first two pairs
+  of each kind of the ``exact`` waves, windowed and exact; it runs
+  hundreds of small launches per plan step, so its time is the host's
+  (the wall time of the run, by CUDA events);
 - ``e2e``: the same 8 pairs and 32 reads as files, and the 8 pairs and
   the 32 reads as flip-flop traces, through each tree's CLI end to end
   (phases 3, 8, 12, 10 and 6): ``pair-decode --reverse_complement
@@ -106,6 +118,11 @@ def make_inputs(waves: str, d: str) -> None:
     import chip_smoke as cs
     from poreover_tpu_torch.sim import write_pairs
 
+    if waves in ("kinds", "exact", "plain"):
+        with open(os.path.join(d, "waves.pkl"), "wb") as f:
+            pickle.dump({kind: cs.sim_workloads(8, 7, 5200, 8200, kind)
+                         for kind in ("poreover", "bonito", "flipflop")}, f)
+        return
     with tempfile.TemporaryDirectory() as t:
         pairs_txt, _ = write_pairs(t, 8, seed=7, lo=5200, hi=8200)
         files = cs.pair_files(pairs_txt)
@@ -134,12 +151,62 @@ def prepared_waves(waves: str, d: str, sizes):
 
     with open(os.path.join(d, "waves.pkl"), "rb") as f:
         inputs = pickle.load(f)
+    if waves == "plain":
+        yield from plain_waves(inputs)
+        return
+    if waves in ("kinds", "exact"):
+        exact = waves == "exact"
+        for kind, wave in inputs.items():
+            if not exact and kind == "poreover":
+                continue  # the ``pair`` waves
+            prep = pbb.prepare_pairs(wave, device="cuda", exact=exact,
+                                     model=MODELS[kind])
+            yield (f"{kind} {'exact' if exact else 'pair'} wave", prep,
+                   pbb.launch_prepared, int(prep["meta"][:, 7].max()))
+        return
     for name, prep, launch in (
             ("pair wave", pbb.prepare_pairs(inputs["pair"], device="cuda"),
              pbb.launch_prepared),
             ("box wave", bb.prepare_boxes(inputs["box"], device="cuda"),
              bb.launch_boxes)):
         yield name, prep, launch, int(prep["meta"][:, 7].max())
+
+
+MODELS = dict(poreover="ctc", bonito="ctc_merge_repeats",
+              flipflop="ctc_flipflop")
+PLAIN_WAVE_STEPS = 200
+
+
+def plain_waves(inputs):
+    """``prepared_waves`` of ``--waves plain``: per kind and mode the first
+    two pairs cut to their first PLAIN_WAVE_STEPS plan steps (at the full
+    plans' storage widths), packed by the tree's own ``pack_pairs``."""
+    import torch
+    from poreover_tpu_torch.ops import beam2d_planned as bp
+
+    def launch(prep):
+        return bp.planned_scan(*prep["dev"], prep["W"], prep["A"],
+                               model_id=prep["model_id"], G=prep["G"],
+                               grace=prep["grace"])
+
+    for kind, wave in inputs.items():
+        pairs = wave[:2]
+        plans = [bp.build_plan(env, len(y1), len(y2))
+                 for y1, y2, env in pairs]
+        for mode, (G, grace) in (("windowed", (0, 1)),
+                                 ("exact", (bp.EXACT_G, bp.EXACT_GRACE))):
+            packed = bp.pack_pairs(
+                pairs, model=MODELS[kind], G=G,
+                plans=[{k: v[:PLAIN_WAVE_STEPS] for k, v in p.items()}
+                       for p in plans],
+                wst=[bp.plan_wst(p) for p in plans])
+            prep = dict(W=packed["W"], A=packed["A"], G=G, grace=grace,
+                        model_id=bp._MODEL_IDS[MODELS[kind]],
+                        dev=[torch.as_tensor(packed[k], device="cuda")
+                             for k in ("planes1", "planes2", "plan",
+                                       "meta")])
+            yield (f"{kind} {mode} plain, 2 pairs", prep, launch,
+                   PLAIN_WAVE_STEPS)
 
 
 def e2e_tree(d: str, reps: int) -> dict:
@@ -212,7 +279,9 @@ def time_tree(tree: str, waves: str, d: str, sizes, reps: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*")
-    ap.add_argument("--waves", choices=("beam1d", "pair", "e2e"),
+    ap.add_argument("--waves",
+                    choices=("beam1d", "pair", "kinds", "exact", "plain",
+                             "e2e"),
                     required=True)
     ap.add_argument("--reads", default="32,264,1056",
                     help="beam1d wave sizes")
