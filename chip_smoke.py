@@ -263,6 +263,24 @@ Phases (each fails the run if it fails):
      exact box waves' count and time. (d) phase 10's bonito and flip-flop
      pairs with ``--exact``: 8 records each, the wave's kernel time and
      cycles per plan step by phase.
+ 18. the pair prefix search (``pair-decode --algorithm prefix``). (a) the
+     gamma kernel (``csrc/pair_gamma.cu``) and the level kernel
+     (``csrc/pair_prefix.cu``) against their plain versions, bit for bit:
+     boxes.npz's boxes the JAX search takes, and two full-size pairs (the
+     DP's G on the last PREFIX_GAMMA_ROWS rows of each, and G and
+     gamma(0,0) whole on each pair cut to its first PREFIX_GAMMA_ROWS
+     rows; the search's first PREFIX_PLAIN_LEVELS levels: every level's
+     outputs); (b) the 8 pairs
+     through the CLI with ``--algorithm prefix``, and with
+     ``--skip_matches`` (counts zeroed just before, read just after: both
+     kernels launched; 8 records, no skip), levels per pair, and each
+     consensus's identity to the truth beside the beam consensus's,
+     recorded, not gated; (d) two small pairs byte-identical to
+     ``--device cpu``; (e) the gamma kernel's time per 8-pair wave and the
+     level kernel's per launch (the launch alone) over the wave's first
+     PREFIX_TIMED_LEVELS levels, with their bounds, and the consensus
+     stage's rest per level (and, with ``--parent``, the parent tree's
+     level kernel timed in turns).
 
 ``python3 chip_smoke.py --first-look`` runs only a short first check of
 the CTC kernels and the train step (``first_look``), ``--first-look dp``
@@ -270,9 +288,12 @@ one of the Viterbi and acceptor kernels (``first_look_dp``: builds,
 ``cuda`` tests, phase 2's cases, phase 10's and 12's full-size timings,
 clocks and latency floors), ``--first-look exact`` phase 17 alone
 (``first_look_exact``: the pair kernel's build and ``cuda`` exact tests
-first, ~4 minutes); none prints a result. ``--parent DIR`` (a ``git archive`` of the parent commit,
-unpacked) has phases 10 and 12, or ``--first-look dp``, time that tree's
-Viterbi and acceptor kernels in turns with this checkout's.
+first, ~4 minutes), ``--first-look prefix`` phase 18 alone
+(``first_look_prefix``: the two kernels' builds and ``cuda`` tests
+first, ~2 minutes); none prints a result. ``--parent DIR`` (a ``git
+archive`` of the parent commit, unpacked) has phases 10, 12 and 18, or
+``--first-look dp`` / ``prefix``, time that tree's Viterbi, acceptor and
+prefix-level kernels in turns with this checkout's.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each kernel instance with the model kinds it ran, and with
@@ -2961,6 +2982,392 @@ def exact_phase(gpu, kstats, cons_windowed):
     return entries
 
 
+# phase 18 (pair-decode --algorithm prefix): the gamma kernel is held to its
+# plain version on the last PREFIX_GAMMA_ROWS rows of every workload (G; the
+# boxes that have no more whole, gamma(0,0) too) and, whole, on a copy of
+# each full-size pair cut to its first PREFIX_GAMMA_ROWS rows
+# (``front_rows``: G and gamma(0,0) at full width); the level kernel on the
+# two full-size pairs' first PREFIX_PLAIN_LEVELS levels (the plain level
+# runs ~40 tensor ops on [2, 2, 4, T] and [2, 4, U, W] tensors, ~3.4 ms;
+# by level 1000 the front is past row 5000, across the kernel's 2048-row
+# envelope CTAs). The level kernel's time per launch is taken over the
+# 8-pair wave's first PREFIX_TIMED_LEVELS levels
+PREFIX_GAMMA_ROWS = 1000
+PREFIX_PLAIN_LEVELS = 1000
+PREFIX_TIMED_LEVELS = 300
+# cycles of the spin kernel (``torch.cuda._sleep``, ~0.1 ms) queued before a
+# timed level launch: the stream is busy while the host enqueues the launch,
+# so the span between its events is the kernel's alone
+PREFIX_SLEEP_CYCLES = 200_000
+# H100 SXM float64 (non-tensor) FLOP/s, NVIDIA data sheet: the level
+# kernel's label forward runs in float64
+F64_FLOPS = 34e12
+# float operations per envelope cell of the gamma DP: the alphabet's
+# log-sum-exp (A adds, A maxes, A subs, A exps, A-1 adds, a log, an add),
+# the cell's C, gap-sum and scan-input adds, the reverse scan's ~2
+# log-add-exps, the gap subtraction, the up term's add and log-add-exp
+# (a log-add-exp counted as 6: max, sub, abs, exp, log1p, add)
+GAMMA_OPS_PER_CELL = 6 * 4 + 3 + 2 * 6 + 1 + 1 + 6
+# float64 operations per frame and character of the label forward: the
+# emission add, the cw subtraction, ~2 log-add-exps of the scan, the cw add
+LEVEL_F64_OPS = 2 + 2 * 6 + 1
+# float32 operations per envelope cell and character of the reduction's
+# first pass (alpha*_2's add, the G add, the max); the exponentials of the
+# rows near the front are data-dependent and left out of the bound
+LEVEL_F32_OPS = 3
+
+
+def front_rows(wl, n):
+    """A copy of workload ``wl`` = (y1, y2, env [U, 2]) cut to its first
+    ``n`` rows: y1[:n], the envelope's first n rows, y2 up to their last
+    end. A workload of its own (the suffix masses are the cut reads'), at
+    the full pair's band width."""
+    y1, y2, env = wl
+    env = np.asarray(env)[:n]
+    V = max(int(env[:, 1].max()), 1)
+    return y1[:n], y2[:V], env
+
+
+def envelope_cells(prep) -> int:
+    """The envelope's cells over rows 0..U-1 of every workload of the
+    gamma DP's ``prep`` (each row's width end - start, at least 0): the
+    cells of G, and those the DP computes."""
+    from poreover_tpu_torch.ops import gamma as gm
+
+    m = prep["meta"]
+    env = prep["env"].cpu().numpy().astype(np.int64)
+    cells = 0
+    for row in m:
+        e = env[row[gm.M_EOFF]:row[gm.M_EOFF] + row[gm.M_U]]
+        cells += int(np.clip(e[:, 1] - e[:, 0], 0, None).sum())
+    return cells
+
+
+def prefix_gamma_bound_ms(prep) -> tuple[float, str]:
+    """The gamma DP's least time: its inputs (both reads, the envelope
+    rows, the suffix masses) read once and its outputs (G over the
+    envelope's cells, gamma(0,0)) written once, against
+    GAMMA_OPS_PER_CELL per envelope cell."""
+    from poreover_tpu_torch.ops import gamma as gm
+
+    m = prep["meta"]
+    U, V = m[:, gm.M_U], m[:, gm.M_V]
+    cells = envelope_cells(prep)
+    nbytes = int(((U + V) * (prep["A"] + 1) * 4 + (U + 1) * 8
+                  + (U + V + 2) * 4 + 4).sum()) + cells * 4
+    t_b = nbytes / HBM_BPS
+    t_o = cells * GAMMA_OPS_PER_CELL / F32_FLOPS
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def prefix_level_bound_ms(prep) -> tuple[float, str]:
+    """One level's least time over every workload of the gamma DP's
+    ``prep``: the frames' emissions and gap column, the chosen alpha rows
+    and the envelope rows read once (the gap column's float64 prefix sums,
+    ``cw``, are made from it once a search and not counted again), G read
+    once within the envelope, the A alpha rows written once; the label
+    forward's float64 operations over F64_FLOPS and the reduction's first
+    pass over F32_FLOPS."""
+    from poreover_tpu_torch.ops import gamma as gm
+
+    A, m = prep["A"], prep["meta"]
+    N = int((m[:, gm.M_U] + m[:, gm.M_V]).sum())
+    cells = envelope_cells(prep)
+    nbytes = N * ((A + 1) * 4 + 4 + A * 4) + int(m[:, gm.M_U].sum()) \
+        * 8 + cells * 4
+    t_b = nbytes / HBM_BPS
+    t_o = N * A * LEVEL_F64_OPS / F64_FLOPS + cells * A * LEVEL_F32_OPS \
+        / F32_FLOPS
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def clocked_search(wls, n_levels, route=None, mod=None, trace=None):
+    """The search over ``wls`` (``mod``: this tree's ``ops.pair_prefix``
+    or the parent tree's) for its first ``n_levels`` levels; returns
+    (results, mean ms a level step, steps). A kernel step is the launch
+    alone between CUDA events, behind a spin kernel of
+    PREFIX_SLEEP_CYCLES so that the host's call is not in the span; a
+    plain step (``route`` "plain") is ``level_plain``'s call between
+    events."""
+    import torch
+    from poreover_tpu_torch.ops import pair_prefix as pps
+
+    mod = mod or pps
+    spans = []
+
+    def clock(inner, sleep):
+        def clocked(*a):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            if sleep:
+                torch.cuda._sleep(PREFIX_SLEEP_CYCLES)
+            e0.record()
+            out = inner(*a)
+            e1.record()
+            spans.append((e0, e1))
+            return out
+        return clocked
+
+    if route == "plain":
+        owner, name = mod, "level_plain"
+    else:
+        owner, name = mod.load_kernel(), "pair_prefix_launch"
+    inner = getattr(owner, name)
+    setattr(owner, name, clock(inner, route != "plain"))
+    try:
+        res = mod.pair_prefix_search_batch(wls, device=DEVICE,
+                                           max_levels=n_levels, trace=trace,
+                                           route=route)
+    finally:
+        setattr(owner, name, inner)
+    torch.cuda.synchronize()
+    if not spans:
+        fail(f"phase 18: the search ran no level ({name})")
+    return res, float(np.mean([a.elapsed_time(b) for a, b in spans])), \
+        len(spans)
+
+
+def prefix_kernel_cases(full2):
+    """Phase 18(a): both kernels against their plain versions on the card,
+    bit for bit: boxes.npz's anchor boxes (those the JAX search takes) and
+    two full-size pairs. The gamma kernel runs whole; its G is held to the
+    plain version's last PREFIX_GAMMA_ROWS rows of each workload (every
+    row, and gamma(0,0), of the boxes that have no more), and on each
+    full-size pair's ``front_rows`` copy G and gamma(0,0) whole (both
+    timed there). The level kernel is held on the search's first
+    PREFIX_PLAIN_LEVELS levels of the full-size pairs, the boxes' searches
+    whole (every level's outputs and the strings so far). Returns timings
+    for the kernels line, the levels' per step."""
+    import torch
+    from poreover_tpu_torch.ops import gamma as gm
+    from poreover_tpu_torch.ops import pair_prefix as pps
+
+    d = np.load(os.path.join(HERE, "tests", "data", "boxes.npz"))
+    bxs = [(d[f"y1_{i}"], d[f"y2_{i}"], d[f"env_{i}"])
+           for i in range(int(d["n"]))]
+    bxs = [b for b in bxs if pps.workload_error(*b) is None]
+    n_rows = PREFIX_GAMMA_ROWS
+    front = [front_rows(wl, n_rows) for wl in full2]
+    cases = [(f"boxes.npz, {len(bxs)} boxes", bxs, None),
+             ("two full-size pairs", full2, PREFIX_PLAIN_LEVELS),
+             (f"two full-size pairs' first {n_rows} rows", front, 0)]
+    out = {}
+
+    def same(what, name, b, x, y):
+        if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+            fail(f"phase 18 gamma, {name}, workload {b}: {what} differs "
+                 "from the plain version")
+
+    for name, wls, n_levels in cases:
+        prep = gm.prepare_gamma(wls, device=DEVICE)
+        whole = n_levels == 0
+        (kG, kg), k_ms = timed(lambda: gm.gamma_cuda(prep))
+        (_, pG, pg), p_ms = timed(
+            lambda: gm.gamma_plain(prep, None if whole else n_rows))
+        n_whole = 0
+        for b in range(len(wls)):
+            U = int(prep["meta"][b, gm.M_U])
+            lo = 0 if whole else max(U - n_rows, 0)
+            same("G", name, b, *(gm.unpack_g(prep, x, b)[lo:]
+                                 for x in (kG, pG)))
+            if lo == 0:
+                n_whole += 1
+                same("gamma00", name, b, kg[b:b + 1], pg[b:b + 1])
+        if whole:
+            g00 = kg.cpu().numpy()
+            if not np.isfinite(g00).all():
+                fail(f"phase 18 gamma, {name}: gamma(0,0) {g00} not finite")
+            k_ms = event_ms(lambda: gm.gamma_cuda(prep), reps=2)
+            out["front"] = dict(gamma_ms=k_ms, gamma_plain_ms=p_ms,
+                                gamma_bound=prefix_gamma_bound_ms(prep)[0])
+            log(f"phase 18(a) {name}: gamma kernel {k_ms:.3f} ms, plain "
+                f"{p_ms:.1f} ms; G and gamma(0,0) ({g00[0]:.6g}, "
+                f"{g00[1]:.6g}) bit-equal")
+            continue
+        tk, tpl = [], []
+        k_res, lk_ms, n_k = clocked_search(wls, n_levels, trace=tk)
+        p_res, lp_ms, n_p = clocked_search(wls, n_levels, route="plain",
+                                           trace=tpl)
+        if k_res != p_res or n_k != n_p or not all(
+                np.array_equal(a.view(np.int32), b.view(np.int32))
+                for a, b in zip(tk, tpl)):
+            fail(f"phase 18 levels, {name}: the level kernel differs from "
+                 "its plain version")
+        log(f"phase 18(a) {name}: gamma kernel {k_ms:.2f} ms, plain "
+            f"{p_ms:.1f} ms (G of each workload's last {n_rows} rows; "
+            f"{n_whole} of {len(wls)} whole, gamma(0,0) too); {n_k} "
+            f"levels, the level kernel {lk_ms:.3f} ms a launch, the plain "
+            f"level {lp_ms:.1f} ms; G and every level's outputs bit-equal")
+        out[name] = dict(levels=n_k, level_ms=lk_ms, level_plain_ms=lp_ms)
+    return out
+
+
+def prefix_phase(gpu, truth, cons_beam):
+    """Phase 18: ``pair-decode --algorithm prefix`` at full size. (a)
+    ``prefix_kernel_cases``; (b) phase 3's 8 CTC pairs through the CLI:
+    8 records, both kernels launched, levels per pair, each consensus's
+    identity to the truth beside the beam consensus's (``cons_beam``),
+    recorded, not gated; (c) the same with ``--skip_matches``; (d) two
+    small pairs byte-identical to ``--device cpu``; (e) timings. Returns
+    the two kernels' entries of the kernels line."""
+    import torch
+    from poreover_tpu_torch.ops import gamma as gm
+    from poreover_tpu_torch.ops import pair_prefix as pps
+    from poreover_tpu_torch.sim import write_pairs
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        pairs_txt, _ = write_pairs(d, 8, seed=7, lo=5200, hi=8200)
+        wave = [workload_of(d, r1, r2) for r1, r2 in pair_files(pairs_txt)]
+        cases = prefix_kernel_cases(wave[:2])
+        runs = {}
+        for name, extra in (("envelope", ()), ("anchored",
+                                                ("--skip_matches",))):
+            gm.launch_count = pps.launch_count = 0
+            pps.levels_run.clear()
+            cons, _, rows, wall, tmr = pair_decode_cli(
+                d, pairs_txt, "poreover", f"p_{name}",
+                ("--algorithm", "prefix", *extra))
+            launches = (gm.launch_count, pps.launch_count)
+            if len(cons) != 8 or any(r[-1] != "0" for r in rows):
+                fail(f"phase 18 {name}: expected 8 consensus records and no "
+                     f"skips; got {len(cons)}, rows {rows}")
+            if min(launches) < 1:
+                fail(f"phase 18 {name}: launches (gamma, level) {launches}")
+            ids = [identity(c, t) for c, t in zip(cons, truth)]
+            ids_b = [identity(c, t) for c, t in zip(cons_beam, truth)]
+            if not all(np.isfinite(ids)) or min(len(c) for c in cons) < 1:
+                fail(f"phase 18 {name}: an empty or unscorable consensus")
+            levels = list(pps.levels_run)
+            runs[name] = dict(wall=wall, launches=launches, ids=ids,
+                              cons_s=tmr.get("consensus_2d", float("nan")))
+            log(f"phase 18(b) pair-decode --algorithm prefix "
+                f"{' '.join(extra)}: 8 pairs, {launches[0]} gamma and "
+                f"{launches[1]} level launches, end-to-end {wall:.1f} s, "
+                f"consensus stage {runs[name]['cons_s']:.1f} s; "
+                f"{len(levels)} searches, {sum(levels)} levels"
+                + (f" (per pair {levels})" if name == "envelope" else
+                   f" (most {max(levels)})"))
+            log("  identity to the truth, prefix: "
+                + " ".join(f"{x:.4f}" for x in ids) + "; beam: "
+                + " ".join(f"{x:.4f}" for x in ids_b))
+        # (d) two small pairs, the card against the CPU, byte for byte
+        small = os.path.join(d, "small")
+        os.makedirs(small)
+        spairs, _ = write_pairs(small, 2, seed=21, lo=250, hi=320)
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            pair_decode_cli(small, spairs, "poreover", f"s_{dev}",
+                            ("--algorithm", "prefix"),
+                            device=None if dev == "cuda" else "cpu")
+            outs[dev] = [open(os.path.join(small, f"s_{dev}{s}"), "rb").read()
+                         for s in (".1d.fasta", ".2d.fasta")]
+        if outs["cuda"] != outs["cpu"]:
+            fail("phase 18(d): two small pairs differ from --device cpu")
+        log("phase 18(d) two small pairs: .1d/.2d.fasta byte-identical to "
+            "--device cpu")
+        # (e) timings on the 8-pair wave
+        prep8 = gm.prepare_gamma(wave, device=DEVICE)
+        g_ms = event_ms(lambda: gm.gamma_cuda(prep8), reps=2)
+        g_bound, g_by = prefix_gamma_bound_ms(prep8)
+        _, l_ms, l_n = clocked_search(wave, PREFIX_TIMED_LEVELS)
+        l_bound, l_by = prefix_level_bound_ms(prep8)
+        if PARENT and os.path.isfile(os.path.join(
+                PARENT, "poreover_tpu_torch", "ops", "pair_prefix.py")):
+            old = parent_module("pair_prefix")
+            ts = [clocked_search(wave, PREFIX_TIMED_LEVELS, mod=m)[1]
+                  for m in (None, old, old, None)]
+            log(f"  in turns with {PARENT}'s level kernel, the wave's first "
+                f"{PREFIX_TIMED_LEVELS} levels: this tree "
+                f"{ts[0]:.3f} / {ts[3]:.3f} ms a launch, the parent "
+                f"{ts[1]:.3f} / {ts[2]:.3f} ms")
+    full, front = cases["two full-size pairs"], cases["front"]
+    env_run = runs["envelope"]
+    host_ms = (env_run["cons_s"] * 1e3 - g_ms) / env_run["launches"][1] \
+        - l_ms
+    log(f"phase 18(e) [{gpu}]: gamma kernel {g_ms:.1f} ms per 8-pair wave "
+        f"(bound {g_bound:.4f} ms, {g_by}); level kernel {l_ms:.4f} ms per "
+        f"launch over the wave's first {l_n} levels (bound {l_bound:.4f} "
+        f"ms, {l_by}); the consensus stage's rest per level (host loop and "
+        f"copies): {host_ms:.4f} ms; plain level "
+        f"{full['level_plain_ms']:.1f} ms a step on two pairs (the kernel "
+        f"{full['level_ms']:.4f} ms there); phase "
+        f"{time.perf_counter() - t0:.0f} s")
+    return [{
+        "name": "pair_gamma", "route": "cuda",
+        "source": "poreover_tpu_torch/csrc/pair_gamma.cu",
+        "replaces": "poreover_tpu/ops/gamma.py:42 (_gamma_scan, a lax.scan, "
+                    "not a Pallas kernel)",
+        "launches": runs["envelope"]["launches"][0], "max_abs_err": 0.0,
+        "ms": g_ms, "plain_ms": front["gamma_plain_ms"], "bound_ms": g_bound,
+        "bound_by": g_by, "library_ms": None,
+        "plain_input": f"two full-size pairs cut to their first "
+                       f"{PREFIX_GAMMA_ROWS} rows",
+        "ms_on_plain_input": front["gamma_ms"],
+        "bound_ms_on_plain_input": front["gamma_bound"],
+        "anchored_launches": runs["anchored"]["launches"][0],
+    }, {
+        "name": "pair_prefix", "route": "cuda",
+        "source": "poreover_tpu_torch/csrc/pair_prefix.cu",
+        "replaces": "poreover_tpu/ops/pair_prefix.py:36 (_extend_all) and "
+                    ":59 (_level_step), XLA, not Pallas kernels",
+        "launches": runs["envelope"]["launches"][1], "max_abs_err": 0.0,
+        "ms": l_ms, "plain_ms": full["level_plain_ms"], "bound_ms": l_bound,
+        "bound_by": l_by, "library_ms": None,
+        "plain_input": f"two full-size pairs, first {PREFIX_PLAIN_LEVELS} "
+                       "levels (per level step)",
+        "ms_on_plain_input": full["level_ms"],
+        "host_ms_per_level": host_ms,
+        "anchored_launches": runs["anchored"]["launches"][1],
+        "e2e_s": runs["envelope"]["wall"],
+        "anchored_e2e_s": runs["anchored"]["wall"],
+        "identity_to_truth": runs["envelope"]["ids"],
+        "anchored_identity_to_truth": runs["anchored"]["ids"],
+    }]
+
+
+def first_look_prefix():
+    """``--first-look prefix``: phase 18 alone (a few minutes): the two
+    kernels' builds and ptxas reports, their ``cuda``-marked tests of
+    tests/test_torch_kernel.py, then ``prefix_phase`` (phase 3's beam
+    consensus decoded first, for the identities). Prints the kernels
+    line, no result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, HERE)
+    from poreover_tpu_torch import build, native
+    from poreover_tpu_torch.ops import gamma as gm
+    from poreover_tpu_torch.ops import pair_prefix as pps
+    from poreover_tpu_torch.sim import write_pairs
+
+    gpu = gpu_line()
+    log(gpu)
+    log(sys.version.split()[0], torch.__version__, torch.version.cuda)
+    t0 = time.perf_counter()
+    native.load()
+    gm.load_kernel()
+    pps.load_kernel()
+    log(f"build {time.perf_counter() - t0:.1f} s")
+    for name in ("pair_gamma", "pair_prefix"):
+        for line in build.ptxas_report(name):
+            log(f"ptxas {name}: {line}")
+    tests = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
+         "-k", "gamma or level", "-p", "no:cacheprovider", "-p",
+         "no:warnings", "--tb=short",
+         os.path.join(HERE, "tests", "test_torch_kernel.py")],
+        capture_output=True, text=True, cwd=HERE)
+    log(tests.stdout.strip().splitlines()[-1])
+    if tests.returncode != 0:
+        fail(f"the prefix tests: {tests.stdout[-4000:]}{tests.stderr[-2000:]}")
+    with tempfile.TemporaryDirectory() as d:
+        pairs_txt, truth = write_pairs(d, 8, seed=7, lo=5200, hi=8200)
+        cons = pair_decode_cli(d, pairs_txt, "poreover", "w")[0]
+    log(json.dumps({"kernels": prefix_phase(gpu, truth, cons)}))
+
+
 def first_look_exact():
     """``--first-look exact``: phase 17 alone (a few minutes): the pair
     kernel's build and ptxas report, its ``cuda``-marked exact tests of
@@ -3003,8 +3410,8 @@ def first_look_exact():
 
 
 def build_all():
-    """Phase 1: the host runtime, the six kernels and their instrumented
-    builds, and the latency probe (``csrc/latency.cu``), one compiler
+    """Phase 1: the host runtime, the eight kernels, the instrumented
+    builds of six of them, and the latency probe (``csrc/latency.cu``), one compiler
     process each, in parallel; prints the compiler's register / spill
     report."""
     from poreover_tpu_torch import build, native
@@ -3012,7 +3419,9 @@ def build_all():
     from poreover_tpu_torch.ops import beam1d
     from poreover_tpu_torch.ops import box_beam as bb
     from poreover_tpu_torch.ops import ctc
+    from poreover_tpu_torch.ops import gamma as gm
     from poreover_tpu_torch.ops import pair_beam_batch as pbb
+    from poreover_tpu_torch.ops import pair_prefix as pps
     from poreover_tpu_torch.ops import viterbi as tv
 
     t0 = time.perf_counter()
@@ -3027,7 +3436,7 @@ def build_all():
     ths = [threading.Thread(target=run, args=(f,))
            for f in (native.load, pbb.load_kernel, beam1d.load_kernel,
                      bb.load_kernel, tv.load_kernel, ta.load_kernel,
-                     ctc.load_kernel,
+                     ctc.load_kernel, gm.load_kernel, pps.load_kernel,
                      lambda: ctc.load_kernel(True),
                      lambda: pbb.load_kernel(True),
                      lambda: bb.load_kernel(True),
@@ -3043,7 +3452,7 @@ def build_all():
         fail(f"build: {errs[0]}")
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s")
     for kernel in ("pair_beam_batch", "beam1d", "box_beam", "viterbi",
-                   "acceptor", "ctc"):
+                   "acceptor", "ctc", "pair_gamma", "pair_prefix"):
         for line in build.ptxas_report(kernel):
             log(f"  ptxas {kernel}: {line}")
 
@@ -3497,6 +3906,10 @@ def main():
     del full, full_ctc
     log(f"phase 17 done: {time.perf_counter() - t_start:.0f} s elapsed")
 
+    # ---- phase 18: pair prefix search (pair-decode --algorithm prefix)
+    prefix_entries = prefix_phase(gpu, truth3, cons_full)
+    log(f"phase 18 done: {time.perf_counter() - t_start:.0f} s elapsed")
+
     kernels = [{
         "name": "pair_beam_batch", "kinds": ["ctc"], "route": "cuda",
         "source": "poreover_tpu_torch/csrc/pair_beam_batch.cu",
@@ -3571,7 +3984,7 @@ def main():
         "input": f"one train step's batch: B {TRAIN_BATCH}, T "
                  f"{TRAIN_WINDOW}, labels of seeded windows",
         "train_step_ms": tr["step_ms"],
-    }] + exact_entries
+    }] + exact_entries + prefix_entries
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"ok": True, "device": {
@@ -3713,6 +4126,8 @@ if __name__ == "__main__":
         first_look()
     elif argv == ["--first-look", "exact"]:
         first_look_exact()
+    elif argv == ["--first-look", "prefix"]:
+        first_look_prefix()
     elif argv == ["--first-look", "dp"]:
         first_look_dp()
     elif argv:

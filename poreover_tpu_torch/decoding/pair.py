@@ -3,7 +3,10 @@
 Port of ``poreover_tpu/decoding/pair.py`` for the main path: poreover,
 bonito and flip-flop traces, ``--method envelope``, ``--algorithm beam``,
 ``row_col``, ``--single viterbi|beam``, and its anchored mode
-``--skip_matches``. Stages per pair (reference pair_decode.py:305-529):
+``--skip_matches``; and ``--algorithm prefix`` for poreover (CTC) pairs,
+the pair prefix search (``ops/pair_prefix.py``), whose waves of pairs, or
+of their anchor boxes, search in one batch. Stages per pair (reference
+pair_decode.py:305-529):
   1. 1D basecall of both reads: ``--single viterbi``, the per-step argmax
      (numpy; a flip-flop pair's two Viterbi DPs in one batched call on the
      device); ``--single beam``, the 1D beam search and the banded Viterbi
@@ -369,6 +372,11 @@ def pair_decode_helper(args, _workload_sink=None):
         )
 
     # ---- stage 4: consensus ----
+    if args.algorithm == "prefix":
+        # the pair prefix search takes plain-CTC pairs only, as in the
+        # JAX package, whose `pair_decode` logs another pair as failed
+        # and skipped
+        assert MODEL_STRING[kind] == "ctc"
     if args.skip_matches:
         # anchored mode: the pair's boxes join the wave's pooled box
         # launch; the finish continuation stitches the box consensi with
@@ -377,6 +385,7 @@ def pair_decode_helper(args, _workload_sink=None):
             y1, y2, alignment_envelope, basecall_boxes
         )
         boxes = [(wl[1], wl[2], wl[3]) for wl in box_workloads]
+        _check_prefix(args, boxes)
 
         def _finish_boxes(seqs):
             joined = "".join(s for _, s in sorted(
@@ -388,18 +397,95 @@ def pair_decode_helper(args, _workload_sink=None):
         if _workload_sink is not None:
             _workload_sink(boxes, _finish_boxes, summary, kind)
             return None
-        return _finish_boxes(_batched_box_consensus([boxes], args, kind)[0])
+        return _finish_boxes(_box_consensus(args)([boxes], args, kind)[0])
     workload = (y1, y2, alignment_envelope)
+    _check_prefix(args, [workload])
     if _workload_sink is not None:
         _workload_sink(workload, _format_result, summary, kind)
         return None
-    return _format_result(_batched_consensus([workload], args, kind)[0])
+    return _format_result(_consensus(args)([workload], args, kind)[0])
 
 
 def _dtype(args):
     """The float type of the plain versions: float64 under ``--f64`` (the
     JAX package's x64 host run), else float32."""
     return np.float64 if args.f64 else np.float32
+
+
+def _check_prefix(args, workloads):
+    """Under ``--algorithm prefix``, raise what the JAX package's search
+    raises on a workload before any result (its `pair_decode` then
+    skips the pair)."""
+    if args.algorithm != "prefix":
+        return
+    from ..ops.pair_prefix import workload_error
+
+    for wl in workloads:
+        err = workload_error(*wl)
+        if err is not None:
+            raise err
+
+
+def _consensus(args):
+    """The stage-4 decoder of whole-pair workloads for ``args``."""
+    return _prefix_consensus if args.algorithm == "prefix" else \
+        _batched_consensus
+
+
+def _box_consensus(args):
+    """The stage-4 decoder of anchored mode's boxes for ``args``."""
+    return _prefix_box_consensus if args.algorithm == "prefix" else \
+        _batched_box_consensus
+
+
+# anchor boxes per batched prefix search, sorted by length
+PREFIX_BOX_WAVE = 64
+
+
+def _prefix_search(workloads, args):
+    """The pair prefix search of (y1, y2, envelope) workloads in one
+    lockstep batch (``ops/pair_prefix.py``: one kernel launch per level on
+    the card, the plain version on the CPU or under ``--f64``); the
+    consensus strings, in order."""
+    from ..ops.pair_prefix import pair_prefix_search_batch
+
+    _t0 = time.perf_counter()
+    out = [s for s, _ in pair_prefix_search_batch(
+        workloads, device=args.device, dtype=_dtype(args))]
+    timers.seconds["consensus_2d"] += time.perf_counter() - _t0
+    timers.add_work(
+        "consensus_2d",
+        float(sum(np.sum(env[:, 1] - env[:, 0]) for _, _, env in workloads)),
+    )
+    return out
+
+
+def _prefix_consensus(workloads, args, kind: str = "poreover"):
+    """``--algorithm prefix``: the pairs of a wave of ``--threads`` pairs
+    in one batched search (the JAX package decodes them one by one; the
+    strings are the same). ``--exact`` does not apply, as in the JAX
+    package."""
+    log.info("%s prefix consensus: %d pairs in one batched search", kind,
+             len(workloads))
+    return _prefix_search(workloads, args)
+
+
+def _prefix_box_consensus(box_lists, args, kind: str = "poreover"):
+    """``--algorithm prefix --skip_matches``: the anchor boxes of a wave's
+    pairs, sorted by length, in batched searches of ``PREFIX_BOX_WAVE``
+    boxes. Returns one list of box sequences per input pair, in order."""
+    wls = [wl for boxes in box_lists for wl in boxes]
+    log.info("anchored %s prefix consensus: %d boxes across %d pairs", kind,
+             len(wls), len(box_lists))
+    order = sorted(range(len(wls)),
+                   key=lambda i: len(wls[i][0]) + len(wls[i][1]))
+    seqs = [None] * len(wls)
+    for i in range(0, len(order), PREFIX_BOX_WAVE):
+        sel = order[i:i + PREFIX_BOX_WAVE]
+        for j, s in zip(sel, _prefix_search([wls[j] for j in sel], args)):
+            seqs[j] = s
+    it = iter(seqs)
+    return [[next(it) for _ in boxes] for boxes in box_lists]
 
 
 def _batched_consensus(workloads, args, kind: str = "poreover"):
@@ -556,8 +642,8 @@ def pair_decode(args) -> None:
             queue = pending.pop(kind, [])
             if not queue:
                 return
-            consensus = (_batched_box_consensus if args.skip_matches
-                         else _batched_consensus)
+            consensus = (_box_consensus(args) if args.skip_matches
+                         else _consensus(args))
             seqs = consensus([wl for _, wl, _, _ in queue], args, kind)
             for (idx, _, finish, _), seq in zip(queue, seqs):
                 results[idx] = finish(seq)

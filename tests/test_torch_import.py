@@ -32,6 +32,8 @@ MODULES = [
     "poreover_tpu_torch.ops.beam1d",
     "poreover_tpu_torch.ops.viterbi",
     "poreover_tpu_torch.ops.prefix",
+    "poreover_tpu_torch.ops.gamma",
+    "poreover_tpu_torch.ops.pair_prefix",
     "poreover_tpu_torch.ops.acceptor",
     "poreover_tpu_torch.io.fast5",
     "poreover_tpu_torch.io.tf_checkpoint",
@@ -130,3 +132,19 @@ def test_train_needs_the_card_or_cpu(monkeypatch, tmp_path):
     main(argv + ["--device", "cpu"])
     (run,) = tmp_path.glob("conv1_bigru3_run_*")
     assert (run / "final").is_file()
+
+
+def test_prefix_search_needs_the_card_or_cpu(monkeypatch):
+    """The pair prefix search and the gamma band API take the card unless
+    asked for the CPU; without a card they raise rather than fall back."""
+    from poreover_tpu_torch.ops.gamma import pair_gamma_log
+    from poreover_tpu_torch.ops.pair_prefix import pair_prefix_search_log
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    y = np.log(np.full((4, 5), 0.2, np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pair_prefix_search_log(y, y)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pair_gamma_log(y, y)
+    assert isinstance(pair_prefix_search_log(y, y, device="cpu")[0], str)
+    assert pair_gamma_log(y, y, device="cpu").shape == (5, 5)

@@ -1,5 +1,5 @@
 """The CUDA kernels' wrappers (ops/pair_beam_batch.py, ops/box_beam.py,
-ops/beam1d.py, ops/viterbi.py).
+ops/beam1d.py, ops/viterbi.py, ops/gamma.py, ops/pair_prefix.py).
 
 On the CPU: argument checks, the packed layout both the pair-beam kernel
 and its plain version read, and the plain route (the 1D kernel's CPU side
@@ -19,6 +19,8 @@ from poreover_tpu_torch.ops import beam1d
 from poreover_tpu_torch.ops import beam2d
 from poreover_tpu_torch.ops import beam2d_planned as tp
 from poreover_tpu_torch.ops import box_beam as bb
+from poreover_tpu_torch.ops import gamma as gm
+from poreover_tpu_torch.ops import pair_prefix as pps
 from poreover_tpu_torch.ops import pair_beam_batch as pbb
 from poreover_tpu_torch.sim import exact_style_cases, stuttered
 
@@ -726,3 +728,98 @@ def test_exact_kernel_matches_plain_on_card(cuda_device, model, S, grace):
             for a, b in zip(k, p):
                 assert torch.equal(a.cpu().view(torch.int8),
                                    b.cpu().view(torch.int8))
+
+
+def _prefix_workloads():
+    """Small pair prefix workloads: the pairs above with U-row envelopes
+    (some starting below 0), a box-like envelope with zero-width and
+    stepping rows, and a dense pair."""
+    out = [(y1, y2, env[:len(y1)]) for y1, y2, env in _pairs()]
+    y1, y2, _ = out[0]
+    out.append((y1[:7], y2[:5], np.array([[0, 2], [1, 3], [1, 5], [3, 5],
+                                          [4, 5], [4, 5], [5, 5]])))
+    out.append((y1[:9], y2[:11], np.array([[-3, 4]] * 9)))
+    out.append((y1[:6], y2[:4], np.tile([0, 4], (6, 1))))
+    return out
+
+
+def test_gamma_kernel_refuses_cpu_tensors():
+    prep = gm.prepare_gamma(_prefix_workloads(), device="cpu")
+    with pytest.raises(ValueError, match="expected cuda"):
+        gm.gamma_cuda(prep)
+
+
+def test_level_kernel_refuses_cpu_tensors():
+    st = pps.prepare_search(_prefix_workloads(), device="cpu")
+    live = torch.arange(len(st["meta"]), dtype=torch.int32)
+    with pytest.raises(ValueError, match="expected cuda"):
+        pps.level_cuda(st, 1, live, torch.zeros_like(live), 1)
+
+
+def test_cpu_search_takes_the_plain_version():
+    before = (gm.launch_count, pps.launch_count)
+    got = pps.pair_prefix_search_batch(_prefix_workloads(), device="cpu")
+    assert (gm.launch_count, pps.launch_count) == before
+    assert len(got) == 6 and all(isinstance(s, str) for s, _ in got)
+
+
+def _bits_differ(name, a, b):
+    """'' when the float32 tensors are bit-equal, else where they part."""
+    a = a.cpu().reshape(-1).view(torch.int32)
+    b = b.cpu().reshape(-1).view(torch.int32)
+    bad = (a != b).nonzero().reshape(-1)
+    if not len(bad):
+        return ""
+    i = int(bad[0])
+    return (f"{name}: {len(bad)} of {len(a)} differ, first at {i}: "
+            f"{a[i:i + 1].view(torch.float32).item()!r} (kernel) vs "
+            f"{b[i:i + 1].view(torch.float32).item()!r}, max "
+            f"{int((a.long() - b.long()).abs().max())} ulp")
+
+
+@pytest.mark.cuda
+def test_gamma_kernel_matches_plain_on_card(cuda_device):
+    """G and gamma(0,0), what the search reads, bit-equal to the plain
+    version."""
+    prep = gm.prepare_gamma(_prefix_workloads(), device=cuda_device)
+    before = gm.launch_count
+    k = gm.gamma_cuda(prep)
+    p = gm.gamma_plain(prep)[1:]
+    torch.cuda.synchronize()
+    assert gm.launch_count == before + 1
+    msg = "; ".join(m for m in (_bits_differ(n, a, b) for n, a, b in zip(
+        ("G", "gamma00"), k, p)) if m)
+    assert not msg, msg
+
+
+@pytest.mark.cuda
+def test_level_kernel_matches_plain_on_card(cuda_device):
+    """Every level's outputs bit-equal to the plain version's, and the
+    labels equal; one launch per level."""
+    wls = _prefix_workloads()
+    tk, tpl = [], []
+    before = pps.launch_count
+    k = pps.pair_prefix_search_batch(wls, device=cuda_device, trace=tk)
+    assert pps.launch_count == before + len(tk)
+    p = pps.pair_prefix_search_batch(wls, device=cuda_device, trace=tpl,
+                                     route="plain")
+    assert len(tk) == len(tpl)
+    for lv, (a, b) in enumerate(zip(tk, tpl)):
+        msg = _bits_differ(f"level {lv + 1}", torch.from_numpy(a),
+                           torch.from_numpy(b))
+        assert not msg, msg
+    assert k == p
+
+
+def test_gamma_packs_fortran_ordered_traces_contiguously():
+    """The kernels take C-ordered packed frames: a Fortran-ordered trace
+    (as some stored boxes are) is copied into order when packed."""
+    wls = [(np.asfortranarray(y1), np.asfortranarray(y2), env)
+           for y1, y2, env in _prefix_workloads()]
+    prep = gm.prepare_gamma(wls, device="cpu")
+    for k in ("y", "env", "S1", "S2", "meta_t"):
+        assert prep[k].is_contiguous(), k
+    want = gm.gamma_plain(gm.prepare_gamma(_prefix_workloads(),
+                                           device="cpu"))
+    for a, b in zip(gm.gamma_plain(prep), want):
+        assert torch.equal(a, b)
