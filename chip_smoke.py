@@ -8,10 +8,10 @@ Run from a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases (each fails the run if it fails):
-  1. build: the C++ host runtime (g++), the six CUDA kernels (nvcc,
+  1. build: the C++ host runtime (g++), the eight CUDA kernels (nvcc,
      sm_90a; the pair kernels with one template instance per model kind)
-     and their instrumented builds (``-DPOREOVER_PHASE_CLOCKS``), and the
-     latency probe ``csrc/latency.cu`` (phases 10 and 12), one process
+     and seven instrumented builds (``-DPOREOVER_PHASE_CLOCKS``), and the
+     latency probe ``csrc/latency.cu`` (phases 10, 12 and 18), one process
      each, all from the checkout's sources, in parallel; prints build
      seconds and the compiler's register / shared memory / spill report.
   2. kernels vs plain versions on the card.
@@ -280,7 +280,16 @@ Phases (each fails the run if it fails):
      level kernel's per launch (the launch alone) over the wave's first
      PREFIX_TIMED_LEVELS levels, with their bounds, and the consensus
      stage's rest per level (and, with ``--parent``, the parent tree's
-     level kernel timed in turns).
+     level kernel timed in turns); the gamma kernel's launches of both
+     runs (the wave, and the anchored run's searches of PREFIX_BOX_WAVE
+     boxes): each launch's W and row widths, ms per launch of the
+     instance the main path takes, the anchored boxes' last
+     GAMMA_ANCHORED_PLAIN_ROWS rows bit-equal to the plain version, cycles
+     per row by phase of the instrumented build on the wave and the first
+     search, and the latency floor (``gamma_floor_ms``, from
+     ``csrc/latency.cu``'s log-add-exp); (f) the gamma kernel at
+     GAMMA_WIDTHS, bit for bit, each width through the instance it takes
+     (``gamma_width_cases``).
 
 ``python3 chip_smoke.py --first-look`` runs only a short first check of
 the CTC kernels and the train step (``first_look``), ``--first-look dp``
@@ -290,10 +299,23 @@ clocks and latency floors), ``--first-look exact`` phase 17 alone
 (``first_look_exact``: the pair kernel's build and ``cuda`` exact tests
 first, ~4 minutes), ``--first-look prefix`` phase 18 alone
 (``first_look_prefix``: the two kernels' builds and ``cuda`` tests
-first, ~2 minutes); none prints a result. ``--parent DIR`` (a ``git
+first, ~2 minutes), ``--first-look gamma`` the gamma kernel alone
+(``first_look_gamma``: builds, ``cuda`` tests, phase 18(f), timings and
+clocks of both instances, GAMMA_INSTANCES; ~1 minute); none prints a result. ``--parent DIR`` (a ``git
 archive`` of the parent commit, unpacked) has phases 10, 12 and 18, or
 ``--first-look dp`` / ``prefix``, time that tree's Viterbi, acceptor and
 prefix-level kernels in turns with this checkout's.
+
+Worker processes: phase 2's checks and phase 17(a)'s graveyard cases run
+in CARD_WORKERS processes that share the card, started before the build
+(they reach the card meanwhile) and stopped at the end of phase 2, while
+this process waits (nothing is
+timed meanwhile: each number of the kernels line is taken here, alone on
+the card). The CPU references (the ``--device cpu`` runs of phases 6, 10,
+12 and 18(d), phase 16's ``benchmark`` and phase 17's trie) run in
+CPU_WORKERS processes that see no card, beside the whole run, on inputs
+made from the same seeds as the card's (their digests must agree). A
+failure in a worker fails the run; every worker is stopped on exit.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each kernel instance with the model kinds it ran, and with
@@ -305,10 +327,13 @@ CUDA device or without the package beside it.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import hashlib
+import io
 import json
 import math
+import multiprocessing
 import os
 import shutil
 import subprocess
@@ -316,6 +341,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 
 import numpy as np
 
@@ -469,9 +495,142 @@ def log(*a):
     print(*a, flush=True)
 
 
+T_START = time.perf_counter()
+
+
+def done(what):
+    log(f"{what} done: {time.perf_counter() - T_START:.0f} s elapsed")
+
+
+class CheckFailed(Exception):
+    """``fail`` in a worker process; the main process fails the run."""
+
+
 def fail(msg):
+    if WORKER:
+        raise CheckFailed(msg)
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    stop_workers()
     sys.exit(1)
+
+
+# ---- worker processes
+# The plain versions are bound by the host (hundreds of small launches a
+# step), and the CPU references (--device cpu runs, the host's f64 trie)
+# by the host's cores. Phase 2's checks and phase 17's graveyard cases run
+# in CARD_WORKERS processes that share the card while the main process
+# waits (nothing is timed meanwhile, and they are stopped before phase 3);
+# the CPU references run in CPU_WORKERS processes that see no card, beside
+# the whole run, each on inputs made from the same seeds as the card's
+# (their files' digests are compared). A plain version runs slower in a
+# worker than alone, since the processes take turns on the card, so no
+# number of the kernels line is taken in a worker; phase 2 logs the
+# workers' summed job time beside its own.
+CARD_WORKERS = 4
+CPU_WORKERS = 2
+CPU_WORKER_THREADS = 2
+WORKER = None  # "card" or "cpu" in a worker process
+_POOLS = {}
+
+
+def _worker_init(kind):
+    global WORKER
+    WORKER = kind
+    if kind == "cpu":
+        os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    import torch
+
+    torch.set_num_threads(CPU_WORKER_THREADS if kind == "cpu" else 1)
+    if kind == "card":
+        torch.zeros(1, device=DEVICE)  # the context, while the main builds
+
+
+def _run_job(name, args, kwargs):
+    """One job in a worker: (ok, result or the failure, its output)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+            out = True, globals()[name](*args, **kwargs)
+    except CheckFailed as exc:
+        out = False, str(exc)
+    except Exception:  # the main process fails the run with it
+        out = False, traceback.format_exc()
+    return (*out, buf.getvalue(), time.perf_counter() - t0)
+
+
+class Job:
+    """A call of a function of this module in a worker process."""
+
+    def __init__(self, where, fn, args, kwargs):
+        self.name = fn.__name__
+        self.res = _POOLS[where].apply_async(_run_job,
+                                             (self.name, args, kwargs))
+
+    def wait(self):
+        """Blocks until the job is done; fails the run now if it failed."""
+        ok, _, _, self.seconds = self.res.get()
+        if not ok:
+            self.result()
+
+    def result(self):
+        """The function's result, after its output; fails the run if it
+        failed. ``self.seconds``: the job's time in its worker."""
+        ok, out, text, self.seconds = self.res.get()
+        if text:
+            sys.stdout.write(text)
+            sys.stdout.flush()
+        if not ok:
+            fail(f"{self.name} (in a worker process): {out}")
+        return out
+
+
+def start_workers(where, n):
+    if not _POOLS:
+        atexit.register(stop_workers)
+    _POOLS[where] = multiprocessing.get_context("spawn").Pool(
+        n, _worker_init, (where,))
+
+
+def card_job(fn, *args, **kwargs) -> Job:
+    return Job("card", fn, args, kwargs)
+
+
+def cpu_job(fn, *args, **kwargs) -> Job:
+    return Job("cpu", fn, args, kwargs)
+
+
+def stop_workers(*which):
+    for where in which or list(_POOLS):
+        pool = _POOLS.pop(where, None)
+        if pool is not None:
+            pool.terminate()
+            pool.join()
+
+
+def merge_stats(into, more):
+    """Adds a worker's stats dict (``compare`` and its kin) to ``into``:
+    the largest error, the union of sets, the sum of counts."""
+    for k, v in more.items():
+        if k == "max_abs_err":
+            into[k] = max(into.get(k, 0.0), v)
+        elif isinstance(v, set):
+            into.setdefault(k, set()).update(v)
+        elif isinstance(v, (int, float)):
+            into[k] = into.get(k, 0) + v
+        else:
+            into[k] = v
+    return into
+
+
+def digest(d, names) -> str:
+    """md5 of the files ``names`` in ``d``, in order: the inputs a CPU
+    reference and the card's run share."""
+    h = hashlib.md5()
+    for n in names:
+        h.update(n.encode())
+        h.update(open(os.path.join(d, n), "rb").read())
+    return h.hexdigest()
 
 
 def gpu_line() -> str:
@@ -749,44 +908,78 @@ def compare_boxes(name, bxs, stats, few_ctas=None, model="ctc",
     return sp, t_k, t_p, prep
 
 
-def pair_kinds_phase2(kstats, kstats_box):
-    """Phase 2 for the bonito and flip-flop kinds: the pair kernel against
-    its plain version on the five envelope cases (S = 5 / 8; their storage
-    is over the shared-memory limit, so it lives in global scratch) and on
-    two simulated pairs of ~200 bases (in shared memory, then forced into
-    global scratch); the box kernel on the anchored boxes of two ~600-base
-    pairs (plans of at most BOX_PLAIN_STEPS steps) at FEW_CTAS CTAs and at
-    the default grid. ``kstats`` / ``kstats_box``
-    hold a stats dict per kind; both sweep paths must be exercised."""
+def pair_batches_job(which):
+    """Phase 2's CTC pair batches, kernel vs plain version (``compare``):
+    ``which`` "cases" (the five envelope cases of tests/test_pallas.py
+    alone, then at B=4 and B=8), "boxes" (the boxes.npz boxes with plans of
+    at most REAL_BOX_STEPS steps, one batch) or "sims" (two simulated
+    pairs of ~300 bases). Returns the stats."""
+    from poreover_tpu_torch.ops.beam2d_planned import pack_pairs
+
+    if which == "cases":
+        cs = pallas_cases()
+        batches = [(f"case{i}", [c]) for i, c in enumerate(cs)]
+        batches += [("cases B=4", cs[:4]), ("cases B=8", (cs * 2)[:8])]
+    elif which == "boxes":
+        real = boxes()
+        batches = [(f"boxes.npz, the {len(real)} with plans of <= "
+                    f"{REAL_BOX_STEPS} steps", real)]
+    else:
+        batches = [("sim pairs ~300 bases B=2",
+                    sim_workloads(2, seed=3, lo=280, hi=320))]
+    stats = {"max_abs_err": 0.0}
+    for name, batch in batches:
+        compare(name, upload(pack_pairs(batch)), stats)
+    return stats
+
+
+def box_cases_job():
+    """Phase 2's box kernel on the boxes.npz boxes (``compare_boxes``, at
+    FEW_CTAS CTAs and at the default grid). Returns (stats, the boxes over
+    the storage limit)."""
+    stats = {"max_abs_err": 0.0}
+    prep = compare_boxes("box beam, boxes.npz", boxes(), stats,
+                         few_ctas=FEW_CTAS)[3]
+    return stats, prep["overflow"]
+
+
+def kind_phase2_job(kind, part):
+    """Phase 2 for the bonito and flip-flop kinds, one ``part`` each:
+    "cases", the pair kernel against its plain version on the five
+    envelope cases (S = 5 / 8; their storage is over the shared-memory
+    limit, so it lives in global scratch); "sims", on two simulated pairs
+    of ~200 bases (in shared memory, then forced into global scratch);
+    "boxes", the box kernel on the anchored boxes of two ~600-base pairs
+    (plans of at most BOX_PLAIN_STEPS steps) at FEW_CTAS CTAs and at the
+    default grid. Returns (the pair kernel's stats, the box kernel's);
+    the main process checks that the parts together take both sweep paths
+    and both storage places."""
     from poreover_tpu_torch.ops.beam2d_planned import pack_pairs
     from poreover_tpu_torch.sim import write_pairs
 
-    for kind in ("bonito", "flipflop"):
-        model = KIND_MODEL[kind]
-        stats, stats_box = kstats[kind], kstats_box[kind]
-        cs = pallas_cases(8 if kind == "flipflop" else 5)
+    model = KIND_MODEL[kind]
+    stats, stats_box = {"max_abs_err": 0.0}, {"max_abs_err": 0.0}
+    if part == "cases":
+        compare(f"{kind}: cases B=5", upload(pack_pairs(
+            pallas_cases(8 if kind == "flipflop" else 5), model=model)),
+            stats)
+    elif part == "sims":
         sims = sim_workloads(2, seed=3, lo=180, hi=220, kind=kind)
+        compare(f"{kind}: sim pairs ~200 bases B=2",
+                upload(pack_pairs(sims, model=model)), stats,
+                also_global=True)
+    else:
         with tempfile.TemporaryDirectory() as d:
             pairs_txt, _ = write_pairs(d, 2, seed=3, lo=550, hi=650,
                                        kind=kind)
             bxs = [b for r1, r2 in pair_files(pairs_txt)
                    for b in anchored_boxes_of(d, r1, r2, kind)[0]
                    if plan_steps(b) <= BOX_PLAIN_STEPS]
-        compare(f"{kind}: cases B=5", upload(pack_pairs(cs, model=model)),
-                stats)
-        compare(f"{kind}: sim pairs ~200 bases B=2",
-                upload(pack_pairs(sims, model=model)), stats,
-                also_global=True)
         compare_boxes(
             f"{kind}: box beam, the anchored boxes of two ~600-base pairs "
             f"(plans of <= {BOX_PLAIN_STEPS} steps)", bxs, stats_box,
             few_ctas=FEW_CTAS, model=model)
-        if not stats["narrow"] or not stats["general"]:
-            fail(f"phase 2 does not exercise both sweep paths of the pair "
-                 f"kernel for {kind}")
-        if stats["paths"] != {"shared", "global"}:
-            fail(f"phase 2 does not put {kind} storage in both shared "
-                 "memory and global scratch")
+    return stats, stats_box
 
 
 def viterbi_mask(S, seed):
@@ -1118,28 +1311,29 @@ def compare_beam1d(name, prep, stats, engine_ys=None):
     return sk, t_k, t_p
 
 
-def beam1d_cases(stats):
-    """Phase 2's 1D cases: kernel vs plain version (and the engine) on the
-    mixed lengths, a T=1 read among them, for each model kind at each
-    width of BEAM1D_WIDTHS."""
+def beam1d_cases(model):
+    """Phase 2's 1D cases of one model kind: kernel vs plain version (and
+    the engine) on the mixed lengths, a T=1 read among them, at each width
+    of BEAM1D_WIDTHS, then the waves of BEAM1D_WAVES reads. Returns the
+    stats."""
     from poreover_tpu_torch.ops import beam1d
 
-    for model, S in (("ctc", 5), ("ctc_merge_repeats", 5),
-                     ("ctc_flipflop", 8)):
-        for W in BEAM1D_WIDTHS:
-            rng = np.random.default_rng(7)
-            ys = [softmax_log(rng, T, S) for T in MIXED_LENGTHS[model]]
-            prep = beam1d.prepare_beam1d(ys, beam_width=W, model=model,
-                                         device=DEVICE)
-            compare_beam1d(f"beam1d {model} W={W}", prep, stats,
-                           engine_ys=ys)
-        for B in BEAM1D_WAVES:
-            rng = np.random.default_rng(B)
-            lens = MIXED_LENGTHS[model]
-            ys = [softmax_log(rng, lens[i % len(lens)], S) for i in range(B)]
-            prep = beam1d.prepare_beam1d(ys, beam_width=25, model=model,
-                                         device=DEVICE)
-            compare_beam1d(f"beam1d {model} W=25, {B} reads", prep, stats)
+    stats = {"max_abs_err": 0.0}
+    S = 8 if model == "ctc_flipflop" else 5
+    for W in BEAM1D_WIDTHS:
+        rng = np.random.default_rng(7)
+        ys = [softmax_log(rng, T, S) for T in MIXED_LENGTHS[model]]
+        prep = beam1d.prepare_beam1d(ys, beam_width=W, model=model,
+                                     device=DEVICE)
+        compare_beam1d(f"beam1d {model} W={W}", prep, stats, engine_ys=ys)
+    for B in BEAM1D_WAVES:
+        rng = np.random.default_rng(B)
+        lens = MIXED_LENGTHS[model]
+        ys = [softmax_log(rng, lens[i % len(lens)], S) for i in range(B)]
+        prep = beam1d.prepare_beam1d(ys, beam_width=25, model=model,
+                                     device=DEVICE)
+        compare_beam1d(f"beam1d {model} W=25, {B} reads", prep, stats)
+    return stats
 
 
 def beam1d_timing(wave1d, gpu):
@@ -1245,7 +1439,8 @@ def decode_cli(d, inputs, basecaller, algorithm, out, device=None,
         argv += ["--device", device]
     t0 = time.perf_counter()
     cli_main(argv)
-    torch.cuda.synchronize()
+    if device != "cpu":
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return (fasta_records(os.path.join(d, out + ".fasta")), wall,
             dict(timers.seconds))
@@ -1274,12 +1469,144 @@ def pair_decode_cli(d, pairs_txt, basecaller, out, extra=(), device=None,
         argv += ["--device", device]
     t0 = time.perf_counter()
     cli_main(argv)
-    torch.cuda.synchronize()
+    if device != "cpu":
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rows = [r.split("\t") for r in open(out + ".log").read().splitlines()
             if not r.startswith("#")]
     return (read_fasta(out + ".2d.fasta"), read_fasta(out + ".1d.fasta"),
             rows, wall, dict(timers.seconds))
+
+
+def cpu_decode_ref(kind):
+    """Phase 6's CPU reference, in a CPU worker: ``decode --device cpu``,
+    ``beam`` then ``viterbi``, of N_CPU_READS seeded reads of the kind.
+    Returns (the inputs' digest, {algorithm: (FASTA bytes, seconds)})."""
+    from poreover_tpu_torch.sim import write_reads
+
+    with tempfile.TemporaryDirectory() as d:
+        write_reads(d, N_CPU_READS, seed=5, lo=900, hi=1000, kind=kind)
+        inputs, dig = cpu_decode_inputs(d, kind)
+        out = {}
+        for alg in ("beam", "viterbi"):
+            _, t_cpu, _ = decode_cli(d, inputs, BASECALLER[kind], alg,
+                                     f"{alg}_cpu", device="cpu")
+            out[alg] = (open(os.path.join(d, f"{alg}_cpu.fasta"),
+                             "rb").read(), t_cpu)
+    return dig, out
+
+
+def cpu_decode_inputs(d, kind):
+    """The inputs of phase 6's small decodes in ``d``, and their digest."""
+    names = sorted(os.listdir(d))
+    inputs = [d] if kind == "bonito" else [
+        os.path.join(d, f"r{i}.csv") for i in range(N_CPU_READS)]
+    return inputs, digest(d, names)
+
+
+def cpu_pair_ref(kind, n, seed, lo, hi, extra=(), stage1=False):
+    """A CPU reference, in a CPU worker: ``pair-decode --device cpu`` (with
+    ``extra``) of n seeded pairs of the kind (``write_pairs``). Returns (the
+    inputs' digest, {suffix: the output file's bytes}, seconds, and with
+    ``stage1`` each pair's ``--single beam`` stage 1 on the CPU)."""
+    from poreover_tpu_torch.io.trace import model_from_trace
+    from poreover_tpu_torch.models.transducer import beam_acceptor_batch
+    from poreover_tpu_torch.sim import write_pairs
+
+    with tempfile.TemporaryDirectory() as d:
+        pairs_txt, _ = write_pairs(d, n, seed=seed, lo=lo, hi=hi, kind=kind)
+        dig = digest(d, sorted(os.listdir(d)))
+        wall = pair_decode_cli(d, pairs_txt, BASECALLER[kind], "cpu", extra,
+                               device="cpu")[3]
+        files = {suf: open(os.path.join(d, "cpu" + suf), "rb").read()
+                 for suf in (".1d.fasta", ".2d.fasta", ".log")}
+        s1 = None
+        if stage1:
+            s1 = []
+            for r1, r2 in pair_files(pairs_txt):
+                ms = [model_from_trace(os.path.join(d, r), BASECALLER[kind])
+                      for r in (r1, r2)]
+                ms[1].reverse_complement()
+                s1.append(beam_acceptor_batch(ms, device="cpu"))
+    return dig, files, wall, s1
+
+
+def same_as_cpu_ref(what, dig, job, outs):
+    """The card's run against its CPU reference (``cpu_pair_ref``'s job):
+    the same inputs (``dig``, the digest of the card's) and byte-equal
+    files (a ``.log`` from its third line: the first two name the run);
+    ``outs``: {suffix: the card's file}. Returns the reference."""
+    ref = job.result()
+    dig_ref, files = ref[0], ref[1]
+    if dig_ref != dig:
+        fail(f"{what}: the CPU reference ran on other inputs")
+    for suf, path in outs.items():
+        a, b = open(path, "rb").read(), files[suf]
+        if suf == ".log":
+            a, b = (x.splitlines()[2:] for x in (a, b))
+        if a != b:
+            fail(f"{what}: the card's {suf} differs from --device cpu")
+    return ref
+
+
+def trie_ref(wave, threads=CPU_WORKER_THREADS):
+    """Phase 17's reference, in a CPU worker: each pair of ``wave`` through
+    the reference's unbounded trie (``native.pair_beam_row_col_cpu``, f64
+    on the host), ``threads`` pairs at a time. Returns (the wave's digest,
+    the strings, seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from poreover_tpu_torch import native
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(threads) as ex:
+        tries = list(ex.map(lambda wl: native.pair_beam_row_col_cpu(
+            *wl, beam_width=5), wave))
+    return wave_digest(wave), tries, time.perf_counter() - t0
+
+
+def likelihoods(y, strings):
+    """Phase 6's check, in a CPU worker: log P(string | y) of each of
+    ``strings`` (``sim.ctc_log_likelihood``, float64). Returns ({name:
+    log-likelihood}, seconds)."""
+    from poreover_tpu_torch.sim import ctc_log_likelihood
+
+    t0 = time.perf_counter()
+    return ({k: ctc_log_likelihood(y, q) for k, q in strings.items()},
+            time.perf_counter() - t0)
+
+
+def wave_digest(wave) -> str:
+    h = hashlib.md5()
+    for wl in wave:
+        for a in wl:
+            h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+class InProcess:
+    """A job's ``result`` for a call made in this process (the first-look
+    runs, which start no workers)."""
+
+    def __init__(self, fn, *args, **kwargs):
+        self.call = lambda: fn(*args, **kwargs)
+
+    def result(self):
+        return self.call()
+
+
+def cpu_reference_jobs():
+    """The CPU references whose inputs come from seeds alone, started in the
+    CPU workers at phase 2."""
+    refs = {("decode", k): cpu_job(cpu_decode_ref, k)
+            for k in ("bonito", "flipflop")}
+    for k in ("bonito", "flipflop"):
+        refs["pairs", k] = cpu_job(cpu_pair_ref, k, 2, 5, 280, 320)
+        refs["single", k] = cpu_job(cpu_pair_ref, k, 3, 17, 70, 100,
+                                   ("--single", "beam"), stage1=True)
+    refs["prefix"] = cpu_job(cpu_pair_ref, "poreover", 2, 21, 250, 320,
+                            ("--algorithm", "prefix"))
+    return refs
 
 
 def closer_than_1d(what, ids, ids1):
@@ -1349,13 +1676,14 @@ def viterbi_bound_ms(lengths, S=8) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def pair_kind_full(kind, gpu, stats, stats_box):
+def pair_kind_full(kind, gpu, stats, stats_box, cpu_ref):
     """Phase 10 for one kind (bonito or flip-flop): 8 full-size pairs
     through ``pair-decode``, then with ``--skip_matches``; the kernels
     timed on those waves and held to their plain versions (the box kernel
     on pair 0's boxes in a launch with the wave's shared memory per CTA);
-    two ~300-base pairs on the card against ``--device cpu``. Returns the
-    kind's entries of the kernels line."""
+    two ~300-base pairs on the card against ``--device cpu``
+    (``cpu_ref``, ``cpu_pair_ref``'s job). Returns the kind's entries of
+    the kernels line."""
     from poreover_tpu_torch.ops import box_beam as bb
     from poreover_tpu_torch.ops import pair_beam_batch as pbb
     from poreover_tpu_torch.ops import viterbi as tv
@@ -1533,16 +1861,16 @@ def pair_kind_full(kind, gpu, stats, stats_box):
     # ---- small pairs on the card against --device cpu
     with tempfile.TemporaryDirectory() as d:
         pairs_txt, _ = write_pairs(d, 2, seed=5, lo=280, hi=320, kind=kind)
+        dig = digest(d, sorted(os.listdir(d)))
         on_card = pair_decode_cli(d, pairs_txt, bc, "card")
-        on_cpu = pair_decode_cli(d, pairs_txt, bc, "cpu", device="cpu")
-        for suf in (".1d.fasta", ".2d.fasta"):
-            a = open(os.path.join(d, "card" + suf), "rb").read()
-            b = open(os.path.join(d, "cpu" + suf), "rb").read()
-            if a != b or len(on_card[0]) != 2:
-                fail(f"{kind}: the card's {suf} differs from --device cpu")
+        if len(on_card[0]) != 2:
+            fail(f"{kind}: {len(on_card[0])} consensus records of 2 pairs")
+        ref = same_as_cpu_ref(kind, dig, cpu_ref, {
+            suf: os.path.join(d, "card" + suf)
+            for suf in (".1d.fasta", ".2d.fasta")})
         log(f"  {kind}: 2 pairs of ~300 bases byte-identical to --device cpu "
             f"(.1d.fasta, .2d.fasta); card {on_card[3]:.2f} s, cpu "
-            f"{on_cpu[3]:.2f} s")
+            f"{ref[2]:.2f} s (in a CPU worker)")
     tag = f" ({model})"
     out = [{
         "name": "pair_beam_batch" + tag, "kinds": [model], "route": "cuda",
@@ -1716,7 +2044,12 @@ def instruction_latencies() -> dict:
     one dependent round of each kind: ``add``, ``max`` (an add then a max,
     less the add), ``shfl_max`` (a shuffle then a max), ``warp_rt`` and
     ``cta_rt`` (a store, ``__syncwarp`` / ``__syncthreads`` of 256
-    threads, a load of another thread's word)."""
+    threads, a load of another thread's word), ``lse`` (a log-add-exp,
+    ``common.cuh:lse``, of two ready operands 1 apart: the probe's round
+    less the add that makes its second operand), ``lse_near`` (operands
+    0.05 apart), ``lse_mixed`` (the lanes' operands 0.05-7.8 apart),
+    ``lse_two`` (a round of two independent chains), ``lse_flat`` and
+    ``lse_flat_two`` (``common.cuh:lse_flat``, one and two chains)."""
     import ctypes
 
     from poreover_tpu_torch import build
@@ -1727,12 +2060,16 @@ def instruction_latencies() -> dict:
         lib.latency_probe.restype = ctypes.c_int
         lib.latency_probe.argtypes = [ctypes.POINTER(ctypes.c_double),
                                       ctypes.c_int]
-        out = (ctypes.c_double * 5)()
+        out = (ctypes.c_double * 11)()
         if lib.latency_probe(out, 4096):
             fail("the latency probe failed")
-        add, add_max, shfl_max, warp_rt, cta_rt = out
+        (add, add_max, shfl_max, warp_rt, cta_rt, lse, near, mixed, two,
+         flat, flat_two) = out
         LATENCIES = dict(add=add, max=add_max - add, shfl_max=shfl_max,
-                         warp_rt=warp_rt, cta_rt=cta_rt)
+                         warp_rt=warp_rt, cta_rt=cta_rt, lse=lse - add,
+                         lse_near=near - add, lse_mixed=mixed - add,
+                         lse_two=two - add, lse_flat=flat - add,
+                         lse_flat_two=flat_two - add)
         if min(LATENCIES.values()) < 1:
             fail(f"the latency probe's rounds were folded: {LATENCIES}")
     return LATENCIES
@@ -1807,7 +2144,7 @@ def mixed_pairs_file():
         "consensus equals its own run's")
 
 
-def single_beam_phase(gpu, truth, cons_viterbi):
+def single_beam_phase(gpu, truth, cons_viterbi, cpu_refs):
     """Phase 12: ``pair-decode --single beam`` on phase 3's 8 full-size CTC
     pairs through the CLI (launch counts zeroed just before, read just
     after: one 1D beam and one acceptor launch per pair, one pair-kernel
@@ -1818,7 +2155,8 @@ def single_beam_phase(gpu, truth, cons_viterbi):
     the labels the 1D beam wrote, timed per read and per pair launch; the
     small bonito and flip-flop pairs of the CPU tests byte-identical to
     ``--device cpu``, and their stage 1 paths on the card equal to the
-    CPU's. Returns the acceptor's entry of the kernels line."""
+    CPU's (``cpu_refs``: kind -> ``cpu_pair_ref``'s job). Returns the
+    acceptor's entry of the kernels line."""
     from poreover_tpu_torch import native
     from poreover_tpu_torch.io.trace import model_from_trace
     from poreover_tpu_torch.models.transducer import beam_acceptor_batch
@@ -1880,30 +2218,28 @@ def single_beam_phase(gpu, truth, cons_viterbi):
         with tempfile.TemporaryDirectory() as d:
             pairs_txt, _ = write_pairs(d, 3, seed=17, lo=70, hi=100,
                                        kind=kind)
-            outs = [pair_decode_cli(d, pairs_txt, BASECALLER[kind], f"o_{dv}",
-                                    sb, device=dv) for dv in (DEVICE, "cpu")]
-            for suffix in (".1d.fasta", ".2d.fasta", ".log"):
-                a, b = (open(os.path.join(d, f"o_{dv}{suffix}")).read()
-                        for dv in (DEVICE, "cpu"))
-                if suffix == ".log":
-                    a, b = a.splitlines()[2:], b.splitlines()[2:]
-                if a != b:
-                    fail(f"--single beam {kind}: {suffix} differs between "
-                         "the card and --device cpu")
+            dig = digest(d, sorted(os.listdir(d)))
+            rows = pair_decode_cli(d, pairs_txt, BASECALLER[kind], "o_cuda",
+                                   sb)[2]
+            ref = same_as_cpu_ref(f"--single beam {kind}", dig,
+                                  cpu_refs[kind], {
+                                      suffix: os.path.join(d, "o_cuda"
+                                                           + suffix)
+                                      for suffix in (".1d.fasta",
+                                                     ".2d.fasta", ".log")})
             ext = ".csv" if kind == "flipflop" else ".npy"
             bad = 0
-            for r1, r2 in pair_files(pairs_txt):
+            for (r1, r2), cpu_s1 in zip(pair_files(pairs_txt), ref[3]):
                 ms = [model_from_trace(os.path.join(d, r), BASECALLER[kind])
                       for r in (r1, r2)]
                 ms[1].reverse_complement()
-                on_card, on_cpu = (beam_acceptor_batch(ms, device=dv)
-                                   for dv in (DEVICE, "cpu"))
+                on_card = beam_acceptor_batch(ms, device=DEVICE)
                 bad += sum(a[0] != b[0] or not np.array_equal(a[1], b[1])
-                           for a, b in zip(on_card, on_cpu))
+                           for a, b in zip(on_card, cpu_s1))
             if bad:
                 fail(f"--single beam {kind}: {bad} stage 1 results differ "
                      "between the card and the CPU")
-            n_ok = sum(r[-1] == "0" for r in outs[0][2])
+            n_ok = sum(r[-1] == "0" for r in rows)
         log(f"  --single beam {kind} ({ext} traces): 3 small pairs, files "
             f"byte-identical to --device cpu ({n_ok} decoded, the others "
             "skipped as in the JAX package); stage 1 strings and paths "
@@ -2726,16 +3062,16 @@ def benchmark_csv(path):
     return len(ids), len(rows), float(np.mean(ids)) if ids else float("nan")
 
 
-def benchmark_phase(gpu, keep, truth3, truth6):
-    """Phase 16: ``benchmark --fasta_pair`` on phase 3's FASTA files (16
-    1D calls, 8 consensi) against the 8 simulated templates, and
-    ``benchmark --fasta`` on phase 6's 32 Viterbi calls against their 32
-    true sequences (host code). Gates: every file's CSV holds a row per
-    record; phase 6's calls (identity >= IDENTITY_FLOOR, few insertions)
-    all map. Phase 3's records are mapped as far as the built-in k-mer
-    aligner finds them: the argmax calls of the simulator's noisy reads
-    carry ~18% inserted bases, which spread the aligner's diagonal votes
-    (ROADMAP §C); the counts are printed."""
+def benchmark_phase(keep, truth3, truth6):
+    """Phase 16, in a CPU worker: ``benchmark --fasta_pair`` on phase 3's
+    FASTA files (16 1D calls, 8 consensi) against the 8 simulated
+    templates, and ``benchmark --fasta`` on phase 6's 32 Viterbi calls
+    against their 32 true sequences (host code). Gates: every file's CSV
+    holds a row per record; phase 6's calls (identity >= IDENTITY_FLOOR,
+    few insertions) all map. Phase 3's records are mapped as far as the
+    built-in k-mer aligner finds them: the argmax calls of the
+    simulator's noisy reads carry ~18% inserted bases, which spread the
+    aligner's diagonal votes (ROADMAP §C); the counts are printed."""
     from poreover_tpu_torch.cli import main as cli_main
 
     def reference(name, seqs):
@@ -2766,57 +3102,66 @@ def benchmark_phase(gpu, keep, truth3, truth6):
     return wall, counts
 
 
-def exact_kernel_cases(full_pairs):
-    """Phase 17(a): the graveyard instance of each kind against the plain
-    graveyard engine on the card (``compare``: provenance, scores bits,
-    validity): tests/test_exact.py's cases at EXACT_GRACES (CTC) or the
-    first and last of them, in each storage path; the same cases on plans
-    that step back
-    (EXACT_STUTTER); the first EXACT_PLAIN_STEPS steps of ``full_pairs``
-    (two full-size pairs per kind) at their full storage widths. Fails
-    unless the runs turned rows away from a full graveyard, resumed
-    graveyard rows, and resumed one that had moved back while buried
-    (the plain version's GY_COUNTS). Returns per kind its stats, with
-    (kernel ms, plain ms, bound ms) of the truncated pairs. The cases on
-    plans that step back past the storage window (EXACT_WRAP) run in
-    every storage path and must carry live graveyard rows across the wrap
-    of the JAX engine's shift and resume some of them (``gwrap``,
-    ``gresume_wrap``)."""
+def exact_cases(kind):
+    """Phase 17(a)'s cases of one kind: the graveyard instance against the
+    plain graveyard engine on the card (``compare``: provenance, scores
+    bits, validity) on tests/test_exact.py's cases at EXACT_GRACES (CTC)
+    or the first and last of them, the last in each storage path; the same
+    cases on plans that step back (EXACT_STUTTER); on plans that step back
+    past the storage window (EXACT_WRAP), in every storage path, which
+    must carry live graveyard rows across the wrap of the JAX engine's
+    shift and resume some of them (``gwrap``, ``gresume_wrap``). Returns
+    the stats, with the plain version's GY_COUNTS."""
     from poreover_tpu_torch.ops.beam2d_planned import (
         EXACT_G, GY_COUNTS, pack_pairs,
     )
     from poreover_tpu_torch.sim import exact_style_cases, stuttered
 
+    model = KIND_MODEL[kind]
+    stats = {"max_abs_err": 0.0}
+    cs = exact_style_cases(8 if kind == "flipflop" else 5)
+    graces = EXACT_GRACES if kind == "poreover" else (
+        EXACT_GRACES[0], EXACT_GRACES[-1])
+    for g in graces:
+        compare(f"{kind} exact: cases B=3, grace {g}",
+                upload(pack_pairs(cs, model=model, G=EXACT_G)), stats,
+                also_global=g == graces[-1], grace=g)
+    pl, ws = stuttered(cs, *EXACT_STUTTER)
+    compare(f"{kind} exact: cases B=3, plans stepping back",
+            upload(pack_pairs(cs, model=model, G=EXACT_G, plans=pl,
+                              wst=ws)), stats)
+    pl, ws = stuttered(cs, *EXACT_WRAP)
+    wrap = {"max_abs_err": 0.0}
+    compare(f"{kind} exact: cases B=3, plans stepping back past the "
+            "storage window", upload(pack_pairs(
+                cs, model=model, G=EXACT_G, plans=pl, wst=ws)), wrap,
+            also_global=True)
+    if not wrap["gwrap"] or not wrap["gresume_wrap"]:
+        fail(f"{kind} exact: the wrap case carried {wrap['gwrap']} live "
+             f"graveyard rows across a wrapping shift and resumed "
+             f"{wrap['gresume_wrap']} of them")
+    for c in GY_COUNTS:
+        stats[c] = stats.get(c, 0) + wrap[c]
+    stats["max_abs_err"] = max(stats["max_abs_err"], wrap["max_abs_err"])
+    return stats
+
+
+def exact_kernel_cases(full_pairs, case_jobs=None):
+    """Phase 17(a): per kind ``exact_cases`` (``case_jobs``: their jobs in
+    the card's workers, else run here), then the first EXACT_PLAIN_STEPS
+    steps of ``full_pairs`` (two full-size pairs per kind) at their full
+    storage widths. Fails unless the runs turned rows away from a full
+    graveyard, resumed graveyard rows, and resumed one that had moved
+    back while buried (the plain version's GY_COUNTS). Returns per kind
+    its stats, with (kernel ms, plain ms, bound ms) of the truncated
+    pairs."""
+    from poreover_tpu_torch.ops.beam2d_planned import EXACT_G, GY_COUNTS
+
     out = {}
     for kind in ("poreover", "bonito", "flipflop"):
-        model = KIND_MODEL[kind]
-        stats = {"max_abs_err": 0.0}
-        cs = exact_style_cases(8 if kind == "flipflop" else 5)
-        graces = EXACT_GRACES if kind == "poreover" else (
-            EXACT_GRACES[0], EXACT_GRACES[-1])
-        for g in graces:
-            compare(f"{kind} exact: cases B=3, grace {g}",
-                    upload(pack_pairs(cs, model=model, G=EXACT_G)), stats,
-                    also_global=g == graces[-1], grace=g)
-        pl, ws = stuttered(cs, *EXACT_STUTTER)
-        compare(f"{kind} exact: cases B=3, plans stepping back",
-                upload(pack_pairs(cs, model=model, G=EXACT_G, plans=pl,
-                                  wst=ws)), stats)
-        pl, ws = stuttered(cs, *EXACT_WRAP)
-        wrap = {"max_abs_err": 0.0}
-        compare(f"{kind} exact: cases B=3, plans stepping back past the "
-                "storage window", upload(pack_pairs(
-                    cs, model=model, G=EXACT_G, plans=pl, wst=ws)), wrap,
-                also_global=True)
-        if not wrap["gwrap"] or not wrap["gresume_wrap"]:
-            fail(f"{kind} exact: the wrap case carried {wrap['gwrap']} live "
-                 f"graveyard rows across a wrapping shift and resumed "
-                 f"{wrap['gresume_wrap']} of them")
-        for c in GY_COUNTS:
-            stats[c] = stats.get(c, 0) + wrap[c]
-        stats["max_abs_err"] = max(stats["max_abs_err"], wrap["max_abs_err"])
+        stats = case_jobs[kind].result() if case_jobs else exact_cases(kind)
         short = upload(pack_truncated(full_pairs[kind], EXACT_PLAIN_STEPS,
-                                      model, EXACT_G))
+                                      KIND_MODEL[kind], EXACT_G))
         t_k, t_p = compare(f"{kind} exact: two full-size pairs, first "
                            f"{EXACT_PLAIN_STEPS} steps", short, stats)
         stats["short"] = (t_k, t_p, bound_ms(short)[0])
@@ -2831,15 +3176,15 @@ def exact_kernel_cases(full_pairs):
     return out
 
 
-def exact_phase(gpu, kstats, cons_windowed):
+def exact_phase(gpu, kstats, cons_windowed, trie_job=None):
     """Phase 17: exact mode (``pair-decode --exact``) at full size, after
     ``exact_kernel_cases`` (``kstats``). (b) phase 3's 8 CTC pairs through
     the CLI with ``--exact``: 8 records, the graveyard instance launched
     and the windowed one not, each string's md5 the JAX exact engine's
     (EXACT_CTC_MD5); the wave's kernel time by CUDA events and its cycles
     per plan step by phase (the graveyard's share apart); each
-    consensus beside the reference's unbounded trie
-    (``native.pair_beam_row_col_cpu``, f64 on the host, one thread per
+    consensus beside the reference's unbounded trie (``trie_ref``:
+    ``trie_job``, in a CPU worker since phase 3, else here, one thread per
     pair): ``trie_match``, every identity >= EXACT_TRIE_FLOOR and >= that
     of phase 3's windowed consensus (``cons_windowed``) to the trie; pair
     0 through the single-pair entry byte-identical to its string in the
@@ -2848,7 +3193,6 @@ def exact_phase(gpu, kstats, cons_windowed):
     bonito and 8 flip-flop pairs (phase 10's) with ``--exact``: 8 records
     each, the wave's kernel time and cycles by phase. Returns the
     graveyard instance's entries of the kernels line, one per kind."""
-    from poreover_tpu_torch import native
     from poreover_tpu_torch.ops import box_beam as bb
     from poreover_tpu_torch.ops import pair_beam_batch as pbb
     from poreover_tpu_torch.sim import write_pairs
@@ -2913,25 +3257,18 @@ def exact_phase(gpu, kstats, cons_windowed):
             if bad:
                 fail(f"--exact: pairs {bad} differ from the JAX exact "
                      f"engine's strings (md5 {[md5s[i] for i in bad]})")
-            t0 = time.perf_counter()
-            tries = [None] * len(wave)
-
-            def trie(i):
-                tries[i] = native.pair_beam_row_col_cpu(*wave[i],
-                                                        beam_width=5)
-
-            ths = [threading.Thread(target=trie, args=(i,))
-                   for i in range(len(wave))]
-            for th in ths:
-                th.start()
-            for th in ths:
-                th.join()
+            where = "in a CPU worker" if trie_job else "here"
+            dig, tries, t_trie = (trie_job or InProcess(
+                trie_ref, wave, len(wave))).result()
+            if dig != wave_digest(wave):
+                fail("--exact: the trie ran on another wave than this "
+                     "phase's")
             ids = [identity(c, t) for c, t in zip(cons, tries)]
             match = sum(c == t for c, t in zip(cons, tries))
             wids = [identity(c, w) for c, w in zip(cons, cons_windowed)]
             wtids = [identity(w, t) for w, t in zip(cons_windowed, tries)]
             log(f"  trie_match {match}/8 (the unbounded trie, f64 on the "
-                f"host, {time.perf_counter() - t0:.1f} s); identity to it "
+                f"host, {t_trie:.1f} s {where}); identity to it "
                 + " ".join(f"{x:.6f}" for x in ids)
                 + f", lowest {min(ids):.6f}; phase 3's windowed consensus "
                 "to it " + " ".join(f"{x:.6f}" for x in wtids)
@@ -2999,6 +3336,19 @@ PREFIX_TIMED_LEVELS = 300
 # timed level launch: the stream is busy while the host enqueues the launch,
 # so the span between its events is the kernel's alone
 PREFIX_SLEEP_CYCLES = 200_000
+# the gamma kernel's instances (ops/gamma.py: INSTANCES) that
+# ``--first-look gamma`` times and clocks on phase 18's launches: the main
+# path's, and the CTA-wide one (the first design) beside it; the full run
+# times the main path's alone
+GAMMA_INSTANCES = ("warp", "wide")
+# phase 18(f): band widths on both sides of each boundary of the gamma
+# kernel: a warp's 32 E cells at E = 1, 2 and 4 cells a lane, and the
+# CTA-wide instance past ops/gamma.py:MAX_WARP_W (128)
+GAMMA_WIDTHS = (31, 32, 33, 63, 64, 65, 127, 128, 129, 511, 512, 513)
+GAMMA_WIDTH_ROWS = 160  # five chunks of 32 rows: the ring of four wraps
+# the anchored searches' last rows of each box held to the plain version
+# (boxes of up to 7205 rows; all those of up to 1000 whole)
+GAMMA_ANCHORED_PLAIN_ROWS = 1000
 # H100 SXM float64 (non-tensor) FLOP/s, NVIDIA data sheet: the level
 # kernel's label forward runs in float64
 F64_FLOPS = 34e12
@@ -3081,6 +3431,210 @@ def prefix_level_bound_ms(prep) -> tuple[float, str]:
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
+def gamma_searches(d, pairs_txt):
+    """The gamma DP's launches in phase 18's two runs of the pairs of
+    ``pairs_txt``: the 8-pair wave (one search) and the anchored run's
+    searches (the boxes sorted by length, PREFIX_BOX_WAVE to a search, as
+    ``decoding/pair.py:_prefix_box_consensus`` batches them). Returns
+    (wave, [boxes of each search])."""
+    from poreover_tpu_torch.decoding.pair import PREFIX_BOX_WAVE
+
+    files = pair_files(pairs_txt)
+    wave = [workload_of(d, r1, r2) for r1, r2 in files]
+    bxs = [b for r1, r2 in files for b in anchored_boxes_of(d, r1, r2)[0]]
+    bxs.sort(key=lambda b: len(b[0]) + len(b[1]))
+    return wave, [bxs[i:i + PREFIX_BOX_WAVE]
+                  for i in range(0, len(bxs), PREFIX_BOX_WAVE)]
+
+
+def band_rows(prep):
+    """Per workload of the gamma DP's ``prep``: (W, its rows' widths end -
+    start, u = 0..U-1)."""
+    from poreover_tpu_torch.ops import gamma as gm
+
+    env = prep["env"].cpu().numpy().astype(np.int64)
+    out = []
+    for m in prep["meta"]:
+        e = env[m[gm.M_EOFF]:m[gm.M_EOFF] + m[gm.M_U]]
+        out.append((int(m[gm.M_W]), e[:, 1] - e[:, 0]))
+    return out
+
+
+def band_line(name, prep) -> str:
+    """The W and row-width distribution of a launch's workloads."""
+    rows = band_rows(prep)
+    Ws = [W for W, _ in rows]
+    wd = np.concatenate([w for _, w in rows])
+    q = np.percentile(wd, [50, 90, 99])
+    return (f"{name}: {len(rows)} workloads, W {min(Ws)}-{max(Ws)}, rows "
+            f"{len(wd)} (longest {max(len(w) for _, w in rows)}); row width "
+            f"end - start mean {wd.mean():.2f}, p50 {q[0]:.0f}, p90 "
+            f"{q[1]:.0f}, p99 {q[2]:.0f}, max {wd.max()}; rows wider than "
+            f"31: {np.mean(wd > 31):.4f}")
+
+
+def gamma_row_levels(W, width):
+    """Per row of a band of W cells: the levels of the reverse scan's tree
+    (the odd/even tree of jax.lax.associative_scan over the flipped row)
+    that hold a node with a cell of the row on both sides. The cells at w
+    >= width are -inf and come first in the flipped row, and a node with
+    one side all -inf returns the other side, so the other levels take
+    no log-add-exp on the chain."""
+    a = W - np.asarray(width, np.int64)
+    n = np.zeros(a.shape, np.int64)
+    s = 1
+    while 2 * s <= W:
+        n += (W // (2 * s)) * 2 * s - 1 - s >= a  # up: the last node
+        m = (W - s) // (2 * s)  # down: the last node, s + 2 s m - 1
+        if m >= 1:
+            n += 2 * s * m - 1 >= a
+        s *= 2
+    return n
+
+
+def gamma_floor_cycles(lat, W, width, lse="lse"):
+    """The least dependent chain of each row of a band (csrc/pair_gamma.cu)
+    at the latencies ``lat``: the row below's diagonal cell plus the
+    alphabet's log-sum-exp, plus the gap prefix sum (two adds), the scan's
+    levels (``gamma_row_levels``, a log-add-exp each), the prefix sum
+    taken off again (an add) and the final log-add-exp with the up term;
+    a row with no cell in range has none. ``lse``: the log-add-exp's
+    latency, ``lat["lse"]`` (common.cuh:lse) or ``lat["lse_flat"]``
+    (common.cuh:lse_flat, the same bits without branches)."""
+    width = np.asarray(width, np.int64)
+    lv = gamma_row_levels(W, width)
+    return np.where(width > 0, 3 * lat["add"] + (lv + 1) * lat[lse], 0.0)
+
+
+def gamma_floor_ms(prep, lat, mhz, lse="lse") -> float:
+    """A launch's latency floor: the longest of its workloads' chains
+    (``gamma_floor_cycles`` over every row) at ``mhz``."""
+    return max(float(gamma_floor_cycles(lat, W, wd, lse).sum())
+               for W, wd in band_rows(prep)) / (mhz * 1e3)
+
+
+def gamma_timings(gpu, wave, searches, instances=("warp",), reps=2):
+    """The gamma kernel on the 8-pair wave and on each anchored search, per
+    instance (the main path's; ``--first-look gamma`` GAMMA_INSTANCES,
+    held bit-equal to each other on every launch): ms per launch (CUDA
+    events), the clocked build's cycles per row by phase
+    (``clock_breakdown``), the bytes bound and the latency floor; the
+    anchored boxes' last GAMMA_ANCHORED_PLAIN_ROWS rows held to the plain
+    version, and G and gamma(0,0) of the clocked build to the normal
+    build's. Returns {instance: {"wave": ms, "anchored": [ms per search],
+    "cycles": {...}}} and the floors."""
+    import torch
+    from poreover_tpu_torch.ops import gamma as gm
+
+    lat = instruction_latencies()
+    mhz = sm_clock_mhz()
+    preps = [("8-pair wave", gm.prepare_gamma(wave, device=DEVICE))] + [
+        (f"anchored search {i}", gm.prepare_gamma(b, device=DEVICE))
+        for i, b in enumerate(searches)]
+    for name, prep in preps:
+        log("  " + band_line(name, prep))
+    floors = [gamma_floor_ms(prep, lat, mhz, "lse_flat") for _, prep in preps]
+    floors_lse = [gamma_floor_ms(prep, lat, mhz) for _, prep in preps]
+    bounds = [prefix_gamma_bound_ms(prep)[0] for _, prep in preps]
+    log(f"  [{gpu}] gamma latency floor (lse_flat {lat['lse_flat']:.1f}, "
+        f"two chains {lat['lse_flat_two']:.1f} a round; add "
+        f"{lat['add']:.1f} cycles at {mhz:.0f} MHz): 8-pair wave "
+        f"{floors[0]:.3f} ms, anchored searches "
+        + " ".join(f"{x:.3f}" for x in floors[1:])
+        + f" ms (sum {sum(floors[1:]):.3f}); at lse's {lat['lse']:.1f} "
+        f"(operands 0.05 apart {lat['lse_near']:.1f}, the lanes' spread "
+        f"{lat['lse_mixed']:.1f}; two chains {lat['lse_two']:.1f} a round): "
+        f"{floors_lse[0]:.3f} / sum {sum(floors_lse[1:]):.3f} ms; bytes "
+        f"bound {bounds[0]:.4f} / "
+        + " ".join(f"{x:.4f}" for x in bounds[1:]) + " ms")
+    # every launch's instances bit-equal; the anchored searches' last
+    # GAMMA_ANCHORED_PLAIN_ROWS rows of each box to the plain version
+    n = GAMMA_ANCHORED_PLAIN_ROWS
+    n_whole = 0
+    for name, prep in preps:
+        outs = [gm.gamma_cuda(prep, instance=inst) for inst in instances]
+        for inst, o in zip(instances[1:], outs[1:]):
+            same_gamma(f"gamma {name}: {instances[0]} against {inst}", prep,
+                       outs[0], o)
+        if name.startswith("anchored"):
+            n_whole += same_gamma(f"gamma {name}", prep, outs[0],
+                                  gm.gamma_plain(prep, n)[1:], n)
+    log(f"  gamma kernel, instances {instances}: the anchored boxes' last "
+        f"{n} rows bit-equal to the plain version ({n_whole} of "
+        f"{sum(len(b) for b in searches)} boxes whole)"
+        + (" and the instances bit-equal on the wave and every anchored "
+           "search" if len(instances) > 1 else ""))
+    out = {}
+    for inst in instances:
+        ms = [event_ms(lambda: gm.gamma_cuda(prep, instance=inst), reps)
+              for _, prep in preps]
+        cyc = {}
+        for name, prep in preps[:2]:
+            want = gm.gamma_cuda(prep, instance=inst)
+            got = []
+            cyc[name], _ = clock_breakdown(
+                f"{name}, instance {inst}", gm,
+                lambda: got.append(gm.gamma_cuda(prep, instance=inst)))
+            torch.cuda.synchronize()
+            if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(got[0], want)):
+                fail(f"gamma {name}: the instrumented build's G differs")
+        log(f"  [{gpu}] gamma kernel, instance {inst}: 8-pair wave "
+            f"{ms[0]:.3f} ms ({ms[0] / floors[0]:.2f}x the floor), "
+            f"anchored searches " + " ".join(f"{x:.3f}" for x in ms[1:])
+            + f" ms (sum {sum(ms[1:]):.3f})")
+        out[inst] = dict(wave=ms[0], anchored=ms[1:], cycles=cyc)
+    return out, dict(wave=floors[0], anchored=floors[1:], lat=lat,
+                     wave_at_lse=floors_lse[0],
+                     anchored_at_lse=floors_lse[1:], bound=bounds[0],
+                     anchored_bound=bounds[1:])
+
+
+def same_gamma(name, prep, got, want, n_rows=None):
+    """Fails unless the gamma kernel's (G, gamma00) ``got`` equal ``want``
+    bit for bit: each workload's G rows u >= U - ``n_rows`` (all with
+    None), and gamma(0,0) of the workloads compared whole. Returns how
+    many were whole."""
+    import torch
+    from poreover_tpu_torch.ops import gamma as gm
+
+    def same(what, b, x, y):
+        if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+            fail(f"{name}, workload {b}: {what} differs")
+
+    n_whole = 0
+    for b in range(len(prep["meta"])):
+        U = int(prep["meta"][b, gm.M_U])
+        lo = 0 if n_rows is None else max(U - n_rows, 0)
+        same("G", b, *(gm.unpack_g(prep, x[0], b)[lo:] for x in (got, want)))
+        if lo == 0:
+            n_whole += 1
+            same("gamma00", b, got[1][b:b + 1], want[1][b:b + 1])
+    return n_whole
+
+
+def gamma_width_cases():
+    """Phase 18(f): the gamma kernel at GAMMA_WIDTHS
+    (``sim.gamma_band_cases``, GAMMA_WIDTH_ROWS rows), bit for bit against
+    its plain version, each width through the instance it takes
+    (``ops/gamma.py:instance_for``). Returns the launches compared."""
+    from poreover_tpu_torch.ops import gamma as gm
+    from poreover_tpu_torch.sim import gamma_band_cases
+
+    taken = {}
+    for W in GAMMA_WIDTHS:
+        prep = gm.prepare_gamma(gamma_band_cases(W, GAMMA_WIDTH_ROWS, W),
+                                device=DEVICE)
+        inst = gm.instance_for(prep["W_max"])
+        same_gamma(f"phase 18(f) gamma, W {W}, instance {inst}", prep,
+                   gm.gamma_cuda(prep), gm.gamma_plain(prep)[1:])
+        taken.setdefault(inst, []).append(W)
+    log(f"phase 18(f) gamma kernel at band widths {GAMMA_WIDTHS} "
+        f"({GAMMA_WIDTH_ROWS} rows): each bit-equal to the plain version "
+        f"through the instance it takes ({taken})")
+    return len(GAMMA_WIDTHS)
+
+
 def clocked_search(wls, n_levels, route=None, mod=None, trace=None):
     """The search over ``wls`` (``mod``: this tree's ``ops.pair_prefix``
     or the parent tree's) for its first ``n_levels`` levels; returns
@@ -3138,7 +3692,6 @@ def prefix_kernel_cases(full2):
     PREFIX_PLAIN_LEVELS levels of the full-size pairs, the boxes' searches
     whole (every level's outputs and the strings so far). Returns timings
     for the kernels line, the levels' per step."""
-    import torch
     from poreover_tpu_torch.ops import gamma as gm
     from poreover_tpu_torch.ops import pair_prefix as pps
 
@@ -3152,27 +3705,14 @@ def prefix_kernel_cases(full2):
              ("two full-size pairs", full2, PREFIX_PLAIN_LEVELS),
              (f"two full-size pairs' first {n_rows} rows", front, 0)]
     out = {}
-
-    def same(what, name, b, x, y):
-        if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
-            fail(f"phase 18 gamma, {name}, workload {b}: {what} differs "
-                 "from the plain version")
-
     for name, wls, n_levels in cases:
         prep = gm.prepare_gamma(wls, device=DEVICE)
         whole = n_levels == 0
         (kG, kg), k_ms = timed(lambda: gm.gamma_cuda(prep))
         (_, pG, pg), p_ms = timed(
             lambda: gm.gamma_plain(prep, None if whole else n_rows))
-        n_whole = 0
-        for b in range(len(wls)):
-            U = int(prep["meta"][b, gm.M_U])
-            lo = 0 if whole else max(U - n_rows, 0)
-            same("G", name, b, *(gm.unpack_g(prep, x, b)[lo:]
-                                 for x in (kG, pG)))
-            if lo == 0:
-                n_whole += 1
-                same("gamma00", name, b, kg[b:b + 1], pg[b:b + 1])
+        n_whole = same_gamma(f"phase 18 gamma, {name}", prep, (kG, kg),
+                             (pG, pg), None if whole else n_rows)
         if whole:
             g00 = kg.cpu().numpy()
             if not np.isfinite(g00).all():
@@ -3202,7 +3742,7 @@ def prefix_kernel_cases(full2):
     return out
 
 
-def prefix_phase(gpu, truth, cons_beam):
+def prefix_phase(gpu, truth, cons_beam, cpu_ref=None):
     """Phase 18: ``pair-decode --algorithm prefix`` at full size. (a)
     ``prefix_kernel_cases``; (b) phase 3's 8 CTC pairs through the CLI:
     8 records, both kernels launched, levels per pair, each consensus's
@@ -3218,8 +3758,9 @@ def prefix_phase(gpu, truth, cons_beam):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         pairs_txt, _ = write_pairs(d, 8, seed=7, lo=5200, hi=8200)
-        wave = [workload_of(d, r1, r2) for r1, r2 in pair_files(pairs_txt)]
+        wave, searches = gamma_searches(d, pairs_txt)
         cases = prefix_kernel_cases(wave[:2])
+        gamma_width_cases()
         runs = {}
         for name, extra in (("envelope", ()), ("anchored",
                                                 ("--skip_matches",))):
@@ -3255,20 +3796,22 @@ def prefix_phase(gpu, truth, cons_beam):
         small = os.path.join(d, "small")
         os.makedirs(small)
         spairs, _ = write_pairs(small, 2, seed=21, lo=250, hi=320)
-        outs = {}
-        for dev in ("cuda", "cpu"):
-            pair_decode_cli(small, spairs, "poreover", f"s_{dev}",
-                            ("--algorithm", "prefix"),
-                            device=None if dev == "cuda" else "cpu")
-            outs[dev] = [open(os.path.join(small, f"s_{dev}{s}"), "rb").read()
-                         for s in (".1d.fasta", ".2d.fasta")]
-        if outs["cuda"] != outs["cpu"]:
-            fail("phase 18(d): two small pairs differ from --device cpu")
+        dig = digest(small, sorted(os.listdir(small)))
+        pair_decode_cli(small, spairs, "poreover", "s_cuda",
+                        ("--algorithm", "prefix"))
+        same_as_cpu_ref("phase 18(d), two small pairs", dig,
+                        cpu_ref or InProcess(cpu_pair_ref, "poreover", 2, 21,
+                                             250, 320,
+                                             ("--algorithm", "prefix")),
+                        {s: os.path.join(small, f"s_cuda{s}")
+                         for s in (".1d.fasta", ".2d.fasta")})
         log("phase 18(d) two small pairs: .1d/.2d.fasta byte-identical to "
             "--device cpu")
-        # (e) timings on the 8-pair wave
+        # (e) timings on the 8-pair wave (the gamma kernel's also on the
+        # anchored run's searches, clocked, beside its floor)
         prep8 = gm.prepare_gamma(wave, device=DEVICE)
-        g_ms = event_ms(lambda: gm.gamma_cuda(prep8), reps=2)
+        gt, gf = gamma_timings(gpu, wave, searches)
+        g_ms = gt["warp"]["wave"]
         g_bound, g_by = prefix_gamma_bound_ms(prep8)
         _, l_ms, l_n = clocked_search(wave, PREFIX_TIMED_LEVELS)
         l_bound, l_by = prefix_level_bound_ms(prep8)
@@ -3286,7 +3829,9 @@ def prefix_phase(gpu, truth, cons_beam):
     host_ms = (env_run["cons_s"] * 1e3 - g_ms) / env_run["launches"][1] \
         - l_ms
     log(f"phase 18(e) [{gpu}]: gamma kernel {g_ms:.1f} ms per 8-pair wave "
-        f"(bound {g_bound:.4f} ms, {g_by}); level kernel {l_ms:.4f} ms per "
+        f"(bound {g_bound:.4f} ms, {g_by}; latency floor {gf['wave']:.3f} "
+        f"ms), {sum(gt['warp']['anchored']):.2f} ms over the anchored run's "
+        f"{len(searches)} searches; level kernel {l_ms:.4f} ms per "
         f"launch over the wave's first {l_n} levels (bound {l_bound:.4f} "
         f"ms, {l_by}); the consensus stage's rest per level (host loop and "
         f"copies): {host_ms:.4f} ms; plain level "
@@ -3306,6 +3851,14 @@ def prefix_phase(gpu, truth, cons_beam):
         "ms_on_plain_input": front["gamma_ms"],
         "bound_ms_on_plain_input": front["gamma_bound"],
         "anchored_launches": runs["anchored"]["launches"][0],
+        "instance": gm.instance_for(prep8["W_max"]),
+        "anchored_ms": gt["warp"]["anchored"],
+        "latency_floor_ms": gf["wave"],
+        "anchored_latency_floor_ms": gf["anchored"],
+        "latency_floor_ms_at_lse": gf["wave_at_lse"],
+        "latencies": gf["lat"],
+        "cycles_per_row": {k: v["consumer"] for k, v in
+                           gt["warp"]["cycles"].items()},
     }, {
         "name": "pair_prefix", "route": "cuda",
         "source": "poreover_tpu_torch/csrc/pair_prefix.cu",
@@ -3368,6 +3921,51 @@ def first_look_prefix():
     log(json.dumps({"kernels": prefix_phase(gpu, truth, cons)}))
 
 
+def first_look_gamma():
+    """``--first-look gamma``: the gamma kernel alone (a few minutes): its
+    builds and ptxas report, its ``cuda`` tests of
+    tests/test_torch_kernel.py, ``gamma_width_cases``, then
+    ``gamma_timings`` on phase 18's launches. Prints no result."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, HERE)
+    from poreover_tpu_torch import build, native
+    from poreover_tpu_torch.ops import gamma as gm
+    from poreover_tpu_torch.sim import write_pairs
+
+    gpu = gpu_line()
+    log(gpu)
+    log(sys.version.split()[0], torch.__version__, torch.version.cuda)
+    t0 = time.perf_counter()
+    ths = [threading.Thread(target=f) for f in (
+        native.load, gm.load_kernel, lambda: gm.load_kernel(True),
+        lambda: build.build_kernel("latency"))]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join()
+    gm.load_kernel()
+    gm.load_kernel(True)
+    log(f"build {time.perf_counter() - t0:.1f} s")
+    for line in build.ptxas_report("pair_gamma"):
+        log(f"ptxas pair_gamma: {line}")
+    tests = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
+         "-k", "gamma", "-p", "no:cacheprovider", "-p", "no:warnings",
+         "--tb=short", os.path.join(HERE, "tests", "test_torch_kernel.py")],
+        capture_output=True, text=True, cwd=HERE)
+    log(tests.stdout.strip().splitlines()[-1])
+    if tests.returncode != 0:
+        fail(f"the gamma tests: {tests.stdout[-4000:]}{tests.stderr[-2000:]}")
+    gamma_width_cases()
+    with tempfile.TemporaryDirectory() as d:
+        pairs_txt, _ = write_pairs(d, 8, seed=7, lo=5200, hi=8200)
+        wave, searches = gamma_searches(d, pairs_txt)
+    gamma_timings(gpu, wave, searches, GAMMA_INSTANCES)
+
+
 def first_look_exact():
     """``--first-look exact``: phase 17 alone (a few minutes): the pair
     kernel's build and ptxas report, its ``cuda``-marked exact tests of
@@ -3411,7 +4009,7 @@ def first_look_exact():
 
 def build_all():
     """Phase 1: the host runtime, the eight kernels, the instrumented
-    builds of six of them, and the latency probe (``csrc/latency.cu``), one compiler
+    builds of seven of them, and the latency probe (``csrc/latency.cu``), one compiler
     process each, in parallel; prints the compiler's register / spill
     report."""
     from poreover_tpu_torch import build, native
@@ -3438,6 +4036,7 @@ def build_all():
                      bb.load_kernel, tv.load_kernel, ta.load_kernel,
                      ctc.load_kernel, gm.load_kernel, pps.load_kernel,
                      lambda: ctc.load_kernel(True),
+                     lambda: gm.load_kernel(True),
                      lambda: pbb.load_kernel(True),
                      lambda: bb.load_kernel(True),
                      lambda: beam1d.load_kernel(True),
@@ -3470,30 +4069,42 @@ def main():
     from poreover_tpu_torch.ops import box_beam as bb
     from poreover_tpu_torch.ops import pair_beam_batch as pbb
 
-    t_start = time.perf_counter()
     gpu = gpu_line()
     log(gpu)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
+    start_workers("card", CARD_WORKERS)
     build_all()
+    start_workers("cpu", CPU_WORKERS)
 
-    # ---- phase 2: kernels vs plain versions on the card
-    from poreover_tpu_torch.ops.beam2d_planned import (
-        build_plan, pack_pairs, plan_wst,
-    )
+    # ---- phase 2: kernels vs plain versions on the card, in the card's
+    # worker processes (started before the build), the longest jobs first;
+    # phase 17's graveyard cases and the CPU references join them
+    t2 = time.perf_counter()
+    jobs = {"boxes": card_job(pair_batches_job, "boxes"),
+            ("flipflop", "sims"): card_job(kind_phase2_job, "flipflop",
+                                          "sims"),
+            "sims": card_job(pair_batches_job, "sims")}
+    for kind, part in (("bonito", "sims"), ("flipflop", "boxes"),
+                       ("bonito", "boxes")):
+        jobs[kind, part] = card_job(kind_phase2_job, kind, part)
+    jobs.update({("exact", k): card_job(exact_cases, k)
+                 for k in ("poreover", "bonito", "flipflop")})
+    jobs["cases"] = card_job(pair_batches_job, "cases")
+    jobs["box"] = card_job(box_cases_job)
+    jobs.update({m: card_job(beam1d_cases, m)
+                 for m in ("ctc", "ctc_merge_repeats", "ctc_flipflop")})
+    jobs["viterbi"] = card_job(compare_viterbi)
+    jobs["flipflop", "cases"] = card_job(kind_phase2_job, "flipflop",
+                                        "cases")
+    jobs["acceptor"] = card_job(compare_acceptor_cases)
+    jobs["bonito", "cases"] = card_job(kind_phase2_job, "bonito", "cases")
+    cpu_refs = cpu_reference_jobs()
 
     stats = {"max_abs_err": 0.0}
-    cs = pallas_cases()
-    batches = [(f"case{i}", [c]) for i, c in enumerate(cs)]
-    real = boxes()
-    batches += [("cases B=4", cs[:4]), ("cases B=8", (cs * 2)[:8]),
-                (f"boxes.npz, the {len(real)} with plans of <= "
-                 f"{REAL_BOX_STEPS} steps", real),
-                ("sim pairs ~300 bases B=2",
-                 sim_workloads(2, seed=3, lo=280, hi=320))]
-    for name, batch in batches:
-        compare(name, upload(pack_pairs(batch)), stats)
+    for which in ("cases", "boxes", "sims"):
+        merge_stats(stats, jobs[which].result())
     log(f"  pair kernel sweeps in phase 2: {stats['narrow']} on the narrow "
         f"path (<= {pbb.NARROW_MAX} columns), {stats['general']} on the "
         "general path, counted from the plans")
@@ -3501,32 +4112,47 @@ def main():
         fail("phase 2 does not exercise both sweep paths of the pair kernel")
 
     stats1d = {"max_abs_err": 0.0}
-    beam1d_cases(stats1d)
+    for model in ("ctc", "ctc_merge_repeats", "ctc_flipflop"):
+        merge_stats(stats1d, jobs[model].result())
     log(f"  1D hash sizes taken: "
         f"{sorted(1 << b for b in stats1d['hash_bits'])} buckets")
     if len(stats1d["hash_bits"]) < 2:
         fail("phase 2 does not exercise more than one 1D hash size")
-    stats_box = {"max_abs_err": 0.0}
-    _, _, _, prep24 = compare_boxes("box beam, boxes.npz", real,
-                                    stats_box, few_ctas=FEW_CTAS)
-    if not prep24["overflow"]:
+    stats_box, overflow = jobs["box"].result()
+    if not overflow:
         fail("no box of boxes.npz is over the storage limit: the reroute "
              "is not exercised")
-    log(f"  the boxes over the limit {prep24['overflow']} went through the "
+    log(f"  the boxes over the limit {overflow} went through the "
         "pair kernel in 'boxes.npz' above, equal to their plain version")
-    del prep24
     kstats = {k: {"max_abs_err": 0.0} for k in ("bonito", "flipflop")}
     kstats_box = {k: {"max_abs_err": 0.0} for k in ("bonito", "flipflop")}
-    pair_kinds_phase2(kstats, kstats_box)
-    compare_viterbi()
-    compare_acceptor_cases()
-    log(f"phase 2 done: {time.perf_counter() - t_start:.0f} s elapsed")
+    for kind in ("bonito", "flipflop"):
+        for part in ("cases", "sims", "boxes"):
+            st, st_box = jobs[kind, part].result()
+            merge_stats(kstats[kind], st)
+            merge_stats(kstats_box[kind], st_box)
+        if not kstats[kind]["narrow"] or not kstats[kind]["general"]:
+            fail(f"phase 2 does not exercise both sweep paths of the pair "
+                 f"kernel for {kind}")
+        if kstats[kind]["paths"] != {"shared", "global"}:
+            fail(f"phase 2 does not put {kind} storage in both shared "
+                 "memory and global scratch")
+    jobs["viterbi"].result()
+    jobs["acceptor"].result()
+    exact_jobs = {k: jobs["exact", k] for k in ("poreover", "bonito",
+                                               "flipflop")}
+    for job in exact_jobs.values():
+        job.wait()
+    stop_workers("card")
+    log(f"  the card's workers: {len(jobs)} jobs (phase 17's graveyard "
+        f"cases among them), {sum(j.seconds for j in jobs.values()):.0f} s "
+        f"of job time in {CARD_WORKERS} processes, "
+        f"{time.perf_counter() - t2:.0f} s of wall time")
+    done("phase 2")
 
     # ---- phase 3: pair-decode at full size, through the CLI
     from poreover_tpu_torch.cli import main as cli_main
-    from poreover_tpu_torch.sim import (
-        ctc_log_likelihood, write_pairs, write_reads,
-    )
+    from poreover_tpu_torch.sim import write_pairs, write_reads
     from poreover_tpu_torch.utils.timers import timers
 
     with tempfile.TemporaryDirectory() as d:
@@ -3560,6 +4186,7 @@ def main():
             f"end-to-end {t_e2e:.2f} s, consensus stage {t_cons:.2f} s")
         wave = [workload_of(d, f"s{i}_1.npy", f"s{i}_2.npy")
                 for i in range(8)]
+    trie_job = cpu_job(trie_ref, wave)  # phase 17's reference
     t0 = time.perf_counter()
     oracle = native.pair_beam_row_col_cpu_emul(*wave[0], beam_width=5)
     ident = identity(cons0, oracle)
@@ -3569,10 +4196,15 @@ def main():
     if not np.isfinite(ident) or ident < 0.999:
         fail(f"pair 0 identity {ident} to the f64 oracle < 0.999")
 
+    done("phase 3")
+
     # ---- phase 4: the single-pair entry
     from poreover_tpu_torch.ops.beam2d import beam_search_2d
-    from poreover_tpu_torch.ops.beam2d_planned import beam_search_2d_planned
+    from poreover_tpu_torch.ops.beam2d_planned import (
+        beam_search_2d_planned, build_plan, pack_pairs, plan_wst,
+    )
 
+    cs = pallas_cases()
     for i, (y1, y2, env) in enumerate(cs):
         got = beam_search_2d(y1, y2, env, beam_width=5, method="row_col")
         want = beam_search_2d_planned(y1, y2, env, beam_width=5)
@@ -3592,6 +4224,8 @@ def main():
         f"pair 0 at full size equal to pair-decode's consensus, "
         f"{single_launches} launch(es), {single_ms:.1f} ms with host "
         f"prep, upload and fetch")
+
+    done("phase 4")
 
     # ---- phase 5: timing of the pair kernel on phase 3's wave
     prep = pbb.prepare_pairs(wave, device=DEVICE)
@@ -3644,6 +4278,8 @@ def main():
     full_ctc = wave[:2]  # phase 17 holds the graveyard instance on these
     del wave, prep, prep1, short, short1
 
+    done("phase 5")
+
     # ---- phase 6: decode at full size, through the CLI
     with tempfile.TemporaryDirectory() as d:
         truth = write_reads(d, 32, seed=11, lo=5200, hi=8200)
@@ -3668,6 +4304,7 @@ def main():
                                                  "viterbi", "vit")
         shutil.copy(os.path.join(d, "vit.fasta"),
                     os.path.join(keep, "vit.fasta"))
+        bench_job = cpu_job(benchmark_phase, keep, truth3, truth)
         if sorted(vrecs) != sorted(recs):
             fail("decode --algorithm viterbi: records missing")
         videns = [identity(vrecs[f"r{i}"], truth[i]) for i in range(32)]
@@ -3690,24 +4327,19 @@ def main():
     log(f"  beam vs true sequences, 32 reads: {n_ins} inserted, {n_miss} "
         f"missing, {n_sub} substituted bases; viterbi: {v_ins} inserted, "
         f"{v_miss} missing, {v_sub} substituted")
-    i = int(np.argmin([len(y) for y in wave1d]))
-    t0 = time.perf_counter()
-    ll = {k: ctc_log_likelihood(wave1d[i], q) for k, q in
-          (("beam", recs[f"r{i}"]), ("viterbi", vrecs[f"r{i}"]),
-           ("true", truth[i]))}
-    log(f"  read r{i} ({len(wave1d[i])} steps): log-likelihood of the "
-        f"beam's string {ll['beam']:.2f}, Viterbi's {ll['viterbi']:.2f}, "
-        f"the true sequence's {ll['true']:.2f} "
-        f"({time.perf_counter() - t0:.1f} s)")
-    if not ll["beam"] >= ll["viterbi"]:
-        fail(f"read r{i}: the beam's string is less likely ({ll['beam']}) "
-             f"than Viterbi's ({ll['viterbi']})")
+    ll_i = int(np.argmin([len(y) for y in wave1d]))
+    ll_steps = len(wave1d[ll_i])
+    ll_job = cpu_job(likelihoods, wave1d[ll_i], {
+        "beam": recs[f"r{ll_i}"], "viterbi": vrecs[f"r{ll_i}"],
+        "true": truth[ll_i]})  # read at the end of phase 7
     for kind, basecaller in (("bonito", "bonito"), ("flipflop", "flappie")):
         with tempfile.TemporaryDirectory() as d:
             truth4 = write_reads(d, N_CPU_READS, seed=5, lo=900, hi=1000,
                                  kind=kind)
-            inputs = [d] if kind == "bonito" else [
-                os.path.join(d, f"r{i}.csv") for i in range(N_CPU_READS)]
+            inputs, dig = cpu_decode_inputs(d, kind)
+            dig_ref, ref = cpu_refs["decode", kind].result()
+            if dig_ref != dig:
+                fail(f"decode {kind}: the CPU reference ran on other inputs")
             for alg in ("beam", "viterbi"):
                 beam1d.launch_count = 0
                 on_card, t_card, tm = decode_cli(d, inputs, basecaller, alg,
@@ -3715,10 +4347,8 @@ def main():
                 n_l = beam1d.launch_count
                 if alg == "beam" and n_l < 1:
                     fail(f"decode {kind} beam launched beam1d no time")
-                on_cpu, t_cpu, _ = decode_cli(d, inputs, basecaller, alg,
-                                              f"{alg}_cpu", device="cpu")
+                b, t_cpu = ref[alg]  # --device cpu, in a CPU worker
                 a = open(os.path.join(d, f"{alg}_cuda.fasta"), "rb").read()
-                b = open(os.path.join(d, f"{alg}_cpu.fasta"), "rb").read()
                 if a != b or len(on_card) != N_CPU_READS:
                     fail(f"decode {kind} {alg}: the card's FASTA differs "
                          "from --device cpu")
@@ -3733,7 +4363,7 @@ def main():
                 if min(ids) < IDENTITY_FLOOR:
                     fail(f"{kind} {alg} identity {min(ids)} < "
                          f"{IDENTITY_FLOOR}")
-    log(f"phase 6 done: {time.perf_counter() - t_start:.0f} s elapsed")
+    done("phase 6")
 
     # ---- phase 7: timing of the 1D kernel on phase 6's wave
     prep, b4_ms, b4_us, b4_bound, b4_by = beam1d_timing(wave1d, gpu)
@@ -3759,7 +4389,15 @@ def main():
     b4_waves = beam1d_larger_waves(wave1d, prep)
 
     del wave1d, prep
-    log(f"phase 7 done: {time.perf_counter() - t_start:.0f} s elapsed")
+    ll, t_ll = ll_job.result()
+    log(f"  read r{ll_i} ({ll_steps} steps): log-likelihood of the "
+        f"beam's string {ll['beam']:.2f}, Viterbi's {ll['viterbi']:.2f}, "
+        f"the true sequence's {ll['true']:.2f} ({t_ll:.1f} s in a CPU "
+        "worker)")
+    if not ll["beam"] >= ll["viterbi"]:
+        fail(f"read r{ll_i}: the beam's string is less likely "
+             f"({ll['beam']}) than Viterbi's ({ll['viterbi']})")
+    done("phase 7")
 
     # ---- phase 8: anchored pair-decode at full size, through the CLI
     with tempfile.TemporaryDirectory() as d:
@@ -3833,6 +4471,8 @@ def main():
     box0_bound = bound_ms(prep0, out_bytes=4)[0]
     del prep0
 
+    done("phase 8")
+
     # ---- phase 9: timing of the box kernel on phase 8's wave
     all_boxes = [b for bxs, _, _ in anch for b in bxs]
     prep = bb.prepare_boxes(all_boxes, device=DEVICE)
@@ -3868,47 +4508,54 @@ def main():
     else:
         log("  no box of this wave is over the storage limit")
     del prep, as_pairs, anch, all_boxes, in_kernel
-    log(f"phase 9 done: {time.perf_counter() - t_start:.0f} s elapsed")
+    done("phase 9")
 
     # ---- phase 10: pair-decode for bonito and flip-flop at full size
     kind_entries = []
     for kind in ("bonito", "flipflop"):
         kind_entries += pair_kind_full(kind, gpu, kstats[kind],
-                                       kstats_box[kind])
-        log(f"phase 10 {kind} done: {time.perf_counter() - t_start:.0f} s "
-            "elapsed")
+                                       kstats_box[kind],
+                                       cpu_refs["pairs", kind])
+        done(f"phase 10 {kind}")
 
     # ---- phase 11: a pairs file of mixed kinds
     mixed_pairs_file()
 
+    done("phase 11")
+
     # ---- phase 12: pair-decode --single beam at full size
-    acc = single_beam_phase(gpu, truth3, cons_full)
-    log(f"phase 12 done: {time.perf_counter() - t_start:.0f} s elapsed")
+    acc = single_beam_phase(gpu, truth3, cons_full,
+                            {k: cpu_refs["single", k]
+                             for k in ("bonito", "flipflop")})
+    done("phase 12")
 
     # ---- phases 13-14: call at full width, then the fused decodes
     call_and_fused_phases(gpu)
-    log(f"phase 14 done: {time.perf_counter() - t_start:.0f} s elapsed")
+    done("phase 14")
 
     # ---- phase 15: train at full width
     ctc_res = ctc_phase(gpu, train_windows(TRAIN_BATCH, seed=10))
+    done("phase 15a")
     tr = train_phase(gpu)
-    log(f"phase 15 done: {time.perf_counter() - t_start:.0f} s elapsed")
+    done("phase 15")
 
     # ---- phase 16: benchmark on phase 3's and phase 6's FASTA files
-    benchmark_phase(gpu, keep, truth3, truth)
+    bench_job.result()
     shutil.rmtree(keep)
+    done("phase 16")
 
     # ---- phase 17: exact mode (pair-decode --exact) at full size
     full = {"poreover": full_ctc}
     for kind in ("bonito", "flipflop"):
         full[kind] = sim_workloads(2, seed=7, lo=5200, hi=8200, kind=kind)
-    exact_entries = exact_phase(gpu, exact_kernel_cases(full), cons_full)
+    exact_entries = exact_phase(gpu, exact_kernel_cases(full, exact_jobs),
+                                 cons_full, trie_job)
     del full, full_ctc
-    log(f"phase 17 done: {time.perf_counter() - t_start:.0f} s elapsed")
+    done("phase 17")
 
     # ---- phase 18: pair prefix search (pair-decode --algorithm prefix)
-    prefix_entries = prefix_phase(gpu, truth3, cons_full)
-    log(f"phase 18 done: {time.perf_counter() - t_start:.0f} s elapsed")
+    prefix_entries = prefix_phase(gpu, truth3, cons_full, cpu_refs["prefix"])
+    done("phase 18")
 
     kernels = [{
         "name": "pair_beam_batch", "kinds": ["ctc"], "route": "cuda",
@@ -3985,8 +4632,9 @@ def main():
                  f"{TRAIN_WINDOW}, labels of seeded windows",
         "train_step_ms": tr["step_ms"],
     }] + exact_entries + prefix_entries
+    stop_workers()
     log(json.dumps({"kernels": kernels}))
-    log(f"total {time.perf_counter() - t_start:.0f} s")
+    log(f"total {time.perf_counter() - T_START:.0f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -4128,6 +4776,8 @@ if __name__ == "__main__":
         first_look_exact()
     elif argv == ["--first-look", "prefix"]:
         first_look_prefix()
+    elif argv == ["--first-look", "gamma"]:
+        first_look_gamma()
     elif argv == ["--first-look", "dp"]:
         first_look_dp()
     elif argv:

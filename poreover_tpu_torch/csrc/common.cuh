@@ -22,6 +22,21 @@ __device__ __forceinline__ float lse(float a, float b) {
   return m + log1pf(expf(-fabsf(a - b)));
 }
 
+// lse bit for bit, NaN included, without its early return, which puts a
+// branch on every call's chain: log1pf's argument, expf of a value <= 0
+// and so in [0, 1], is clamped to [0, 1] (a saturating multiply), which
+// leaves it as it is; at a == b = +-inf expf gives NaN, clamped to 0, and
+// m + log1pf(0) is a, as lse returns. The maximum is PTX's max.NaN, which
+// is fmaxf's max but NaN if an operand is NaN (fmaxf returns the other),
+// so that a NaN operand gives NaN, as lse does; it is off the chain, which
+// runs through expf and log1pf.
+__device__ __forceinline__ float lse_flat(float a, float b) {
+  float m;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(m) : "f"(a), "f"(b));
+  const float e = fminf(fmaxf(expf(-fabsf(a - b)), 0.0f), 1.0f);
+  return m + log1pf(e);
+}
+
 // Reads a kernel's phase clocks (below): copies the sums to out[n]
 // (blocking) and, with reset, zeroes them; returns a cudaError_t
 // (cudaErrorInvalidValue unless n is the slots' count).

@@ -1,8 +1,8 @@
 // Dependent latencies of the instructions the DP kernels' chains are made
 // of, CUDA for sm_90a. A measuring probe, on no path: chip_smoke.py works
-// out the latency floors of viterbi.cu (a step) and acceptor.cu (a label
-// row) from them, as the least dependent chain of the code at these
-// latencies.
+// out the latency floors of viterbi.cu (a step), acceptor.cu (a label
+// row) and pair_gamma.cu (a row) from them, as the least dependent chain
+// of the code at these latencies.
 //
 // One CTA of NT threads; thread 0 times (clock64) a loop of `iters`
 // dependent rounds of each kind: a float add; an add then a max (the max
@@ -10,8 +10,13 @@
 // could be folded, an add then a max cannot); a shuffle then a max (a
 // scan level); a round trip through shared memory within a warp (store,
 // __syncwarp, load of another lane's word), and within the CTA (store,
-// __syncthreads of NT threads, load). Runtime values throughout, so that
-// nothing folds; the result feeds a sink.
+// __syncthreads of NT threads, load); a log-add-exp (common.cuh: lse, IEEE
+// expf and log1pf) of the last result and that result less a constant
+// near 1 (the kernels' operands differ by a few units), less 0.05, and
+// less 0.05 + lane / 4 (the lanes' operands spread over 0.05-7.8); two
+// independent log-add-exp chains a round; the same two with lse_flat, and
+// lse_flat alone. Runtime values
+// throughout, so that nothing folds; the result feeds a sink.
 //
 // Interface (plain C, loaded with ctypes): latency_probe(out, iters)
 // writes the cycles per round of each kind to out[P_N] (host doubles) and
@@ -19,12 +24,15 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int NT = 256;  // the acceptor's threads per CTA
 constexpr int U = 8;     // rounds per loop iteration, unrolled
 constexpr unsigned FULL = 0xffffffffu;
-enum { P_ADD, P_ADD_MAX, P_SHFL_MAX, P_WARP_RT, P_CTA_RT, P_N };
+enum { P_ADD, P_ADD_MAX, P_SHFL_MAX, P_WARP_RT, P_CTA_RT, P_LSE,
+       P_LSE_NEAR, P_LSE_MIXED, P_LSE_TWO, P_FLAT, P_FLAT_TWO, P_N };
 
 __global__ void __launch_bounds__(NT)
 latency_kernel(long long* out, int iters) {
@@ -32,6 +40,8 @@ latency_kernel(long long* out, int iters) {
   const int tid = threadIdx.x;
   float x = tid * 1e-3f;
   const float c = iters * 1e-6f;
+  const float d = 1.0f + c;
+  const float dn = 0.05f + c, dm = 0.05f + 0.25f * (tid % 32) + c;
   long long cyc[P_N];
   long long t;
 
@@ -91,6 +101,70 @@ latency_kernel(long long* out, int iters) {
     }
   }
   cyc[P_CTA_RT] = clock64() - t;
+
+  __syncthreads();
+  t = clock64();
+  if (tid < 32)
+    for (int i = 0; i < iters; ++i) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) x = poreover::lse(x, x - d);
+    }
+  cyc[P_LSE] = clock64() - t;
+
+  __syncthreads();  // operands 0.05 apart: expf's result near 1
+  t = clock64();
+  if (tid < 32)
+    for (int i = 0; i < iters; ++i) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) x = poreover::lse(x, x - dn);
+    }
+  cyc[P_LSE_NEAR] = clock64() - t;
+
+  __syncthreads();  // each lane's operands 0.05 + lane / 4 apart
+  t = clock64();
+  if (tid < 32)
+    for (int i = 0; i < iters; ++i) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) x = poreover::lse(x, x - dm);
+    }
+  cyc[P_LSE_MIXED] = clock64() - t;
+
+  // two independent chains a round (x and z), then lse_flat alone and
+  // in two chains
+  float z = x + 0.5f;
+  __syncthreads();
+  t = clock64();
+  if (tid < 32)
+    for (int i = 0; i < iters; ++i) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        x = poreover::lse(x, x - d);
+        z = poreover::lse(z, z - d);
+      }
+    }
+  cyc[P_LSE_TWO] = clock64() - t;
+
+  __syncthreads();
+  t = clock64();
+  if (tid < 32)
+    for (int i = 0; i < iters; ++i) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) x = poreover::lse_flat(x, x - d);
+    }
+  cyc[P_FLAT] = clock64() - t;
+
+  __syncthreads();
+  t = clock64();
+  if (tid < 32)
+    for (int i = 0; i < iters; ++i) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        x = poreover::lse_flat(x, x - d);
+        z = poreover::lse_flat(z, z - d);
+      }
+    }
+  cyc[P_FLAT_TWO] = clock64() - t;
+  x += z;
 
   if (tid == 0)
     for (int p = 0; p < P_N; ++p) out[p] = cyc[p];

@@ -250,16 +250,17 @@ def ctc_cuda(logp, labels, label_lengths, logit_lengths,
 
 
 def _fold(x: torch.Tensor) -> torch.Tensor:
-    """[B, SP] -> [B]: the kernel's sum of per-state terms, each lane's
-    states in round order, then the warp's xor butterfly."""
-    B, SP = x.shape
-    x = x.view(B, SP // 32, 32)
+    """[..., SP] -> [...]: the kernel's sum of per-state terms, each lane's
+    states in round order, then the warp's xor butterfly (every row alone:
+    the classes of a step go through one fold, one launch a round)."""
+    *lead, SP = x.shape
+    x = x.reshape(-1, SP // 32, 32)
     acc = torch.zeros_like(x[:, 0])
     for k in range(x.shape[1]):
         acc = acc + x[:, k]
     for off in (16, 8, 4, 2, 1):
         acc = acc[:, :off] + acc[:, off:2 * off]
-    return acc[:, 0]
+    return acc[:, 0].reshape(lead)
 
 
 def _tables(labels, label_lengths, logit_lengths, T, SP, merge, C):
@@ -366,7 +367,7 @@ def _plain_backward(logp, labels, label_lengths, logit_lengths, merge,
     zero = torch.zeros((), dtype=logp.dtype, device=logp.device)
     mgo = -grad_out
     grad = torch.zeros_like(logp)
-    masks = [(cls == c) & valid for c in range(C)]
+    masks = torch.stack([(cls == c) & valid for c in range(C)])  # [C, B, SP]
     for t in reversed(range(T)):
         act = t < Tb
         a, an, y = alphas[:, t], alphas[:, t + 1], logp[:, t]
@@ -378,14 +379,13 @@ def _plain_backward(logp, labels, label_lengths, logit_lengths, merge,
             ge[:, 0] = 0.0
             gs = torch.where(valid, gam * torch.exp(x2 - an), zero)
             gs[:, 0] = gam[:, 0]
-            sums = [_fold(torch.where(masks[c], ge, zero))
-                    for c in range(C - 1)] + [_fold(torch.where(valid, gs,
-                                                                zero))]
+            sums = _fold(torch.cat([torch.where(masks[:C - 1], ge, zero),
+                                    torch.where(valid, gs, zero)[None]]))
             new_gam = torch.where(valid, gs + _unshift(ge, 1), zero)
         else:
             em = gam if t > 0 else torch.where(
                 torch.arange(SP, device=a.device) < 2, gam, zero)
-            sums = [_fold(torch.where(masks[c], em, zero)) for c in range(C)]
+            sums = _fold(torch.where(masks, em, zero))
             if t > 0:
                 sh1 = _shift(a, 1, _NEG_INF)
                 sk = torch.where(skip, _shift(a, 2, _NEG_INF), _NEG_INF)
@@ -402,7 +402,7 @@ def _plain_backward(logp, labels, label_lengths, logit_lengths, merge,
                 new_gam = torch.where(valid, v, zero)
             else:
                 new_gam = gam
-        g_t = torch.stack([mgo * s for s in sums], 1)
+        g_t = (mgo * sums).t()
         grad[:, t] = torch.where(act[:, None], g_t, zero)
         gam = torch.where(act[:, None], new_gam, gam)
     return grad

@@ -29,10 +29,12 @@ row is clamped as ``lax.dynamic_slice`` clamps it.
 
 A batch of workloads (pairs or anchor boxes) is packed into flat tensors
 (``prepare_gamma``). For tensors on a CUDA device ``gamma_cuda`` runs the
-DP in one launch of the kernel (a CTA per workload, the band across its
-threads) and raises if it does not build or launch; there is no
-fallback. For tensors on the CPU ``gamma_plain`` runs the same rows in
-lockstep over the batch, a few tensor ops per row. Both give what the
+DP in one launch of the kernel (per workload a warp on the rows' chain
+and two warps computing ahead of it what does not depend on the row
+below; bands wider than MAX_WARP_W cells across a CTA) and raises if it
+does not build or launch; there is no fallback. For tensors on the CPU
+``gamma_plain`` runs the same rows in lockstep over the batch, a few
+tensor ops per row. Both give what the
 prefix search reads, ``G[u, w] = gamma(u+1, env[u,0]+w+1)`` of the
 search rows (stored w-major) and gamma(0,0), and they agree bit for bit
 on the card; the band itself is an output of the plain version only
@@ -59,7 +61,25 @@ launch_count = 0
 (M_O1, M_U, M_O2, M_V, M_EOFF, M_W, M_G, M_S2) = range(8)
 META_COLS = 8
 
-_lib = None
+PHASE_CLOCKS = "POREOVER_PHASE_CLOCKS"  # macro of the instrumented build
+# the instrumented build's slots (csrc/pair_gamma.cu: CK_*): each part's
+# phases, then its count of rows; read by chip_smoke.py:clock_breakdown
+CLOCK_PARTS = (("wide", ("load", "cumsum", "up", "down", "final",
+                         "gwrite", "barrier"), "row"),
+               ("consumer", ("wait", "load", "up", "down", "final"), "row"),
+               ("producer", ("wait", "flush", "stage", "inner", "cumsum",
+                             "hand"), "row"))
+CLOCK_SLOTS = sum(len(p) + 1 for _, p, _ in CLOCK_PARTS) + 1
+# the kernel's instances (pair_gamma_launch's ``instance``): per workload a
+# consumer warp and two producer warps, for bands of up to MAX_WARP_W cells
+# (the main path's are 13-83); a CTA across the band
+INSTANCES = {"warp": 1, "wide": 2}
+MAX_WARP_W = 128
+# zero frames after the packed reads: the kernel's bulk copies read whole
+# 16-byte words, up to 12 bytes past a read's last frame
+_Y_TAIL_ROWS = 4
+
+_libs = {}
 
 
 def _band_width(env: np.ndarray) -> int:
@@ -78,23 +98,32 @@ def extend_envelope(env, U: int) -> np.ndarray:
     return env
 
 
-def load_kernel():
-    """Build (once) and load the kernel library; returns the ctypes lib."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_kernel("pair_gamma")))
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.pair_gamma_launch.restype = i
-        lib.pair_gamma_launch.argtypes = [vp] * 5 + [i, i, i] + [vp] * 3
-        _lib = lib
-    return _lib
+def load_kernel(phase_clocks: bool = False):
+    """Build (once) and load the kernel library; returns the ctypes lib.
+    With ``phase_clocks`` the instrumented build (a library of its own,
+    with ``phase_clocks_read``)."""
+    if phase_clocks in _libs:
+        return _libs[phase_clocks]
+    lib = ctypes.CDLL(str(build_kernel(
+        "pair_gamma", (PHASE_CLOCKS,) if phase_clocks else ())))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.pair_gamma_launch.restype = i
+    lib.pair_gamma_launch.argtypes = [vp] * 5 + [i, i, i] + [vp] * 2 + [
+        i, vp]
+    if phase_clocks:
+        lib.phase_clocks_read.restype = i
+        lib.phase_clocks_read.argtypes = [
+            ctypes.POINTER(ctypes.c_ulonglong), i, i]
+    _libs[phase_clocks] = lib
+    return lib
 
 
 def prepare_gamma(workloads, device=None, dtype=np.float32):
     """Pack (y1 [U, A+1], y2 [V, A+1], env [U(+1), 2]) workloads for one
     launch: the frames of both reads of every workload back to back
     (``y``; read 1 of workload b at ``meta[b, M_O1]``, read 2 at
-    ``M_O2``), the extended envelopes' rows (``env``, int32, U+1 rows at
+    ``M_O2``; the storage holds a few zero frames past the last), the
+    extended envelopes' rows (``env``, int32, U+1 rows at
     ``M_EOFF``), the suffix gap masses (``S1`` beside the rows, ``S2`` at
     ``M_S2``) and the outputs' offsets. The reads are rounded to ``dtype``
     (float64 only for the plain version, ``--f64``). Returns a dict of
@@ -120,7 +149,8 @@ def prepare_gamma(workloads, device=None, dtype=np.float32):
         s2 += V + 1
     A = ys[0].shape[1] - 1
     meta = np.asarray(meta, dtype=np.int64).reshape(-1, META_COLS)
-    y = torch.as_tensor(np.concatenate(ys), device=dev)
+    ys.append(np.zeros((_Y_TAIL_ROWS, A + 1), dt))
+    y = torch.as_tensor(np.concatenate(ys), device=dev)[:o]
     env_t = torch.as_tensor(np.concatenate(envs).astype(np.int32),
                             device=dev)
     S1, S2 = _suffix_gap_masses(y, meta, A)
@@ -293,16 +323,29 @@ def _flatten_g(Gp, meta, prep):
     return out
 
 
-def gamma_cuda(prep):
+def instance_for(W_max: int) -> str:
+    """The kernel instance a launch whose widest band is ``W_max`` cells
+    takes: a warp's registers hold bands of up to MAX_WARP_W cells."""
+    return "warp" if W_max <= MAX_WARP_W else "wide"
+
+
+def gamma_cuda(prep, instance: str | None = None):
     """One launch of the kernel on the current stream over the packed
     workloads (float32, on one CUDA device). Returns (G, gamma00) as
-    ``gamma_plain`` does, without synchronising."""
+    ``gamma_plain`` does, without synchronising. The instance is
+    ``instance_for`` the widest band; ``instance`` ("warp" or "wide")
+    forces it, for the card's checks."""
     global launch_count
     dev = prep["device"]
     if dev.type != "cuda":
         raise ValueError(f"gamma_cuda: tensors on {dev}, expected cuda")
     if prep["dtype"] != torch.float32:
         raise TypeError(f"gamma_cuda: float32 only, got {prep['dtype']}")
+    instance = instance or instance_for(prep["W_max"])
+    if instance not in INSTANCES or (instance == "warp"
+                                     and prep["W_max"] > MAX_WARP_W):
+        raise ValueError(f"gamma_cuda: no {instance!r} instance for bands "
+                         f"of {prep['W_max']} cells")
     lib = load_kernel()
     B = len(prep["meta"])
     G = torch.empty(max(prep["n_g"], 1), dtype=torch.float32, device=dev)
@@ -317,7 +360,7 @@ def gamma_cuda(prep):
     with torch.cuda.device(dev):
         err = lib.pair_gamma_launch(
             *(t.data_ptr() for t in tensors), B, prep["A"], prep["W_max"],
-            G.data_ptr(), g00.data_ptr(), stream)
+            G.data_ptr(), g00.data_ptr(), INSTANCES[instance], stream)
     if err != 0:
         raise RuntimeError(f"pair_gamma kernel launch failed: CUDA error "
                            f"{err}")

@@ -11,7 +11,8 @@ emissions; single reads use the same rendering. Raw current traces
 labeled windows of a scaled current (``synth_training_windows``) its
 ``train``. Small envelope pairs for exact mode (``exact_style_cases``) and
 plans whose windows step back (``stuttered``) feed the graveyard engine's
-checks.
+checks; banded workloads of a given band width (``gamma_band_cases``) the
+gamma DP's.
 """
 from __future__ import annotations
 
@@ -278,3 +279,41 @@ def stuttered(pairs, every=7, back=2):
         plans.append({k: v[idx] for k, v in p.items()})
         wsts.append(plan_wst(p))
     return plans, wsts
+
+
+def gamma_band_cases(W, rows=40, seed=0, S=5, nan_frames=False):
+    """Three workloads of the gamma DP, (y1, y2, envelope [U, 2]), whose
+    widest row has W - 1 cells (a band of W): a diagonal band of rows of
+    8-21 cells (the main path's are ~15) with a tenth at other widths up
+    to W - 1, the last rows ending at read 2's end (its boundary cell);
+    the same starting below 0, with zero-width rows; and one of 17 rows.
+    Seeded log-softmax planes of S columns. With ``nan_frames`` the first
+    workload has a NaN in a frame of read 2 (an alphabet column, then the
+    gap column) and in one of read 1."""
+    rng = np.random.default_rng(seed)
+
+    def softmax_log(T):
+        x = rng.normal(size=(T, S)) * 2
+        return (x - np.log(np.exp(x).sum(1, keepdims=True))).astype(
+            np.float32)
+
+    out = []
+    for U, below in ((rows, False), (rows, True), (17, False)):
+        V = U + W + 8
+        lo = np.arange(U) * (V - W) // U - (6 if below else 0)
+        wid = np.minimum(rng.integers(8, 22, size=U), W - 1)
+        other = rng.random(U) < 0.1
+        wid[other] = rng.integers(0, W, size=int(other.sum()))
+        if below:
+            wid[rng.random(U) < 0.08] = 0
+        wid[U // 2] = W - 1
+        for i, k in enumerate((10, 6, 3)):  # end at V
+            wid[U - 3 + i] = min(k, W - 1)
+            lo[U - 3 + i] = V - wid[U - 3 + i]
+        env = np.stack([lo, lo + wid], 1).astype(np.int64)
+        out.append((softmax_log(U), softmax_log(V), env))
+    if nan_frames:
+        y1, y2, env = out[0]
+        y2[len(y2) // 2, 1] = y2[len(y2) // 3, -1] = np.nan
+        y1[len(y1) // 4, 2] = np.nan
+    return out

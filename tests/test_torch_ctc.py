@@ -207,6 +207,19 @@ def test_fold_is_the_warp_order():
     assert ctc._fold(y).item() == 0.0
 
 
+@pytest.mark.parametrize("sp", [32, 1056, 9632])
+def test_fold_of_stacked_classes_is_each_class_alone(sp):
+    """The backward pass folds a step's classes in one call ([C, B, SP]):
+    bit for bit the fold of each class's [B, SP] alone, the loop it
+    replaced."""
+    g = torch.Generator().manual_seed(sp)
+    x = torch.randn(5, 3, sp, generator=g) * torch.exp(
+        torch.randn(5, 3, sp, generator=g) * 8)
+    alone = torch.stack([ctc._fold(x[c]) for c in range(5)])
+    assert torch.equal(ctc._fold(x).view(torch.int32),
+                       alone.view(torch.int32))
+
+
 # ---- the kernels' launch geometry (ops/ctc.py:launch_geometry)
 
 

@@ -1,7 +1,9 @@
 """The port's gamma DP (``ops/gamma.py``, the plain version of
 ``csrc/pair_gamma.cu``) against the JAX package's ``ops/gamma.py`` with x64
 off, on the cases of tests/test_gamma.py, a U-row envelope, narrow and
-stepping bands, and a simulated pair.
+stepping bands, a simulated pair, and bands on both sides of each
+boundary of the kernel (``sim.gamma_band_cases``); the packing and the
+kernel instance a launch takes.
 
 Tolerance: every finite cell within ULP_TOL = 8 units in the last place of
 float32 of the JAX value, and -inf exactly where JAX has -inf. Both add in
@@ -19,7 +21,7 @@ import torch
 from poreover_tpu.ops import gamma as jg
 
 from poreover_tpu_torch.ops import gamma as tg
-from poreover_tpu_torch.sim import synth_read_pair
+from poreover_tpu_torch.sim import gamma_band_cases, synth_read_pair
 
 torch.set_num_threads(1)
 
@@ -106,15 +108,10 @@ def test_band_and_gamma00_match_jax(case):
     assert_ulps(np.float32(gg00), np.float32(g00))
 
 
-@pytest.mark.parametrize("case", CASES[3:], ids=[c[0] for c in CASES[3:]])
-def test_g_matches_the_jax_construction(case):
-    """G[u, w] = gamma(u+1, env[u,0]+w+1), built on the device, against
-    the JAX package's host loop (pair_prefix.py:103-115) over its band."""
-    _, y1, y2, env = case
+def _jax_g(y1, y2, env, band, offsets):
+    """G[u, w] as the JAX package's host loop (pair_prefix.py:103-115)
+    builds it from its band."""
     U = len(y1)
-    env = np.asarray(env)[:U]
-    with jax_f32():
-        band, offsets, _ = jg.pair_gamma_log_envelope(y1, y2, env)
     band = np.asarray(band)
     Wb = int(np.max(env[:, 1] - env[:, 0]))
     want = np.full((U, Wb), -np.inf)
@@ -125,9 +122,108 @@ def test_g_matches_the_jax_construction(case):
         valid = (take >= 0) & (take < band.shape[1])
         want[u, :e - s] = np.where(
             valid, band[u + 1][np.clip(take, 0, band.shape[1] - 1)], -np.inf)
+    return want
+
+
+@pytest.mark.parametrize("case", CASES[3:], ids=[c[0] for c in CASES[3:]])
+def test_g_matches_the_jax_construction(case):
+    """G[u, w] = gamma(u+1, env[u,0]+w+1), built on the device, against
+    the JAX package's host loop (pair_prefix.py:103-115) over its band."""
+    _, y1, y2, env = case
+    env = np.asarray(env)[:len(y1)]
+    with jax_f32():
+        band, offsets, _ = jg.pair_gamma_log_envelope(y1, y2, env)
+    want = _jax_g(y1, y2, env, band, offsets)
     prep = tg.prepare_gamma([(y1, y2, env)], device="cpu")
     _, G, _ = tg.gamma_plain(prep)
     assert_ulps(tg.unpack_g(prep, G, 0).numpy(), want)
+
+
+# band widths on both sides of each boundary of the kernel: a warp's 32 E
+# cells at E = 1, 2 and 4 cells a lane (31-33, 63-65, 127-129), and the
+# CTA-wide instance past MAX_WARP_W (129; 511-513 and 1023-1025 across its
+# 256 threads)
+BAND_WIDTHS = (31, 32, 33, 63, 64, 65, 127, 128, 129, 511, 512, 513, 1023,
+               1024, 1025)
+
+
+@pytest.mark.parametrize("W", BAND_WIDTHS)
+def test_band_widths_match_jax(W):
+    """``gamma_band_cases``: rows narrower than W, a band starting below
+    0 with zero-width rows, a boundary cell, 17 rows; the band, gamma(0,0)
+    and G against the JAX package's, all three in one lockstep batch."""
+    wls = gamma_band_cases(W)
+    prep = tg.prepare_gamma(wls, device="cpu")
+    assert prep["W_max"] == W
+    band, G, g00 = tg.gamma_plain(prep)
+    for b, (y1, y2, env) in enumerate(wls):
+        assert (env[:, 0] < 0).any() == (b == 1)
+        with jax_f32():
+            jband, offs, jg00 = jg.pair_gamma_log_envelope(y1, y2, env)
+        assert_ulps(tg.unpack_band(prep, band, b).numpy(), np.asarray(jband))
+        assert_ulps(g00[b].numpy(), np.float32(jg00))
+        assert_ulps(tg.unpack_g(prep, G, b).numpy(),
+                    _jax_g(y1, y2, env, jband, offs))
+
+
+def test_nan_frames_pass_on_as_in_jax():
+    """NaN frames (``gamma_band_cases(nan_frames=True)``) give NaN in the
+    same cells of the band, G and gamma(0,0) as the JAX package's, the
+    other cells as before (the kernel's instances pass NaN on the same
+    way: tests/test_torch_kernel.py)."""
+    wls = gamma_band_cases(40, nan_frames=True)
+    prep = tg.prepare_gamma(wls, device="cpu")
+    band, G, g00 = tg.gamma_plain(prep)
+    y1, y2, env = wls[0]
+    with jax_f32():
+        jband, offs, jg00 = jg.pair_gamma_log_envelope(y1, y2, env)
+    got = tg.unpack_band(prep, band, 0).numpy()
+    assert np.isnan(got).any() and not np.isnan(got).all()
+    assert_ulps(got, np.asarray(jband))
+    assert_ulps(g00[0].numpy(), np.float32(jg00))
+    assert_ulps(tg.unpack_g(prep, G, 0).numpy(),
+                _jax_g(y1, y2, env, jband, offs))
+
+
+def test_band_cases_reach_their_cells():
+    """The band cases hold rows of every kind the kernel branches on: a
+    row W - 1 cells wide, rows of zero width, rows ending at read 2's end
+    (the boundary cell), rows of fewer cells than a warp's lanes."""
+    for W in (33, 513):
+        a, b, c = gamma_band_cases(W)
+        for y1, y2, env in (a, b, c):
+            wid = env[:, 1] - env[:, 0]
+            assert wid.max() == W - 1 and (wid < 32).mean() > 0.5
+            assert (env[:, 1] == len(y2)).sum() == 3
+        assert (b[2][:, 1] - b[2][:, 0] == 0).any() and len(c[0]) == 17
+
+
+def test_packed_reads_have_zero_frames_past_the_end():
+    """The packed frames keep their shape, and their storage holds at
+    least 16 zero bytes past the last frame: the kernel's bulk copies read
+    whole 16-byte words."""
+    _, y1, y2, env = CASES[-1]
+    prep = tg.prepare_gamma([(y1, y2, env)], device="cpu")
+    y = prep["y"]
+    assert y.shape == (len(y1) + len(y2), y1.shape[1]) and y.is_contiguous()
+    flat = torch.tensor([], dtype=y.dtype).set_(y.untyped_storage())
+    tail = flat[y.numel():]
+    assert tail.numel() * tail.element_size() >= 16
+    assert not tail.any()
+
+
+def test_instance_choice(monkeypatch):
+    """A warp's registers hold bands of up to MAX_WARP_W cells; wider
+    launches take the CTA-wide instance, and forcing the warp instance
+    on them raises before any launch."""
+    assert tg.instance_for(1) == tg.instance_for(tg.MAX_WARP_W) == "warp"
+    assert tg.instance_for(tg.MAX_WARP_W + 1) == "wide"
+    prep = tg.prepare_gamma(gamma_band_cases(tg.MAX_WARP_W + 1),
+                            device="cpu")
+    prep["device"] = torch.device("cuda")
+    monkeypatch.setattr(tg, "load_kernel", lambda *a: pytest.fail("load"))
+    with pytest.raises(ValueError, match="no 'warp' instance"):
+        tg.gamma_cuda(prep, instance="warp")
 
 
 def test_batch_equals_one_at_a_time():

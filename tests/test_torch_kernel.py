@@ -22,7 +22,9 @@ from poreover_tpu_torch.ops import box_beam as bb
 from poreover_tpu_torch.ops import gamma as gm
 from poreover_tpu_torch.ops import pair_prefix as pps
 from poreover_tpu_torch.ops import pair_beam_batch as pbb
-from poreover_tpu_torch.sim import exact_style_cases, stuttered
+from poreover_tpu_torch.sim import (
+    exact_style_cases, gamma_band_cases, stuttered,
+)
 
 # the plain version runs many small ops: one intra-op thread is as fast
 # and does not oversubscribe the CPU when test workers run in parallel
@@ -790,6 +792,62 @@ def test_gamma_kernel_matches_plain_on_card(cuda_device):
     msg = "; ".join(m for m in (_bits_differ(n, a, b) for n, a, b in zip(
         ("G", "gamma00"), k, p)) if m)
     assert not msg, msg
+
+
+# both sides of each boundary of the gamma kernel: a warp's 32 E cells at
+# E = 1, 2 and 4 cells a lane, and the CTA-wide instance past 128 (wider
+# bands across its 256 threads)
+GAMMA_WIDTHS = (31, 32, 33, 63, 64, 65, 127, 128, 129, 255, 256, 257, 511,
+                512, 513, 1023, 1024, 1025)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", GAMMA_WIDTHS)
+def test_gamma_kernel_at_band_widths_on_card(cuda_device, W):
+    """G and gamma(0,0) bit-equal to the plain version on bands of W
+    cells (``gamma_band_cases``: rows narrower than W, a band starting
+    below 0, zero-width rows, a boundary cell, 17 rows)."""
+    prep = gm.prepare_gamma(gamma_band_cases(W), device=cuda_device)
+    k = gm.gamma_cuda(prep)
+    p = gm.gamma_plain(prep)[1:]
+    torch.cuda.synchronize()
+    msg = "; ".join(m for m in (_bits_differ(n, a, b) for n, a, b in zip(
+        ("G", "gamma00"), k, p)) if m)
+    assert not msg, msg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance", sorted(gm.INSTANCES))
+def test_gamma_kernel_instances_on_card(cuda_device, instance):
+    """Each instance bit-equal to the plain version on the small workloads
+    and a band of 40 cells."""
+    wls = _prefix_workloads() + gamma_band_cases(40)
+    prep = gm.prepare_gamma(wls, device=cuda_device)
+    k = gm.gamma_cuda(prep, instance=instance)
+    p = gm.gamma_plain(prep)[1:]
+    torch.cuda.synchronize()
+    msg = "; ".join(m for m in (_bits_differ(n, a, b) for n, a, b in zip(
+        ("G", "gamma00"), k, p)) if m)
+    assert not msg, msg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance", sorted(gm.INSTANCES))
+def test_gamma_kernel_passes_nan_on_on_card(cuda_device, instance):
+    """NaN frames (``gamma_band_cases(nan_frames=True)``) give NaN in the
+    cells where the plain version has NaN and nowhere else; the other
+    cells bit-equal."""
+    prep = gm.prepare_gamma(gamma_band_cases(40, nan_frames=True),
+                            device=cuda_device)
+    k = gm.gamma_cuda(prep, instance=instance)
+    p = gm.gamma_plain(prep)[1:]
+    torch.cuda.synchronize()
+    assert torch.isnan(p[0]).any()
+    for name, a, b in zip(("G", "gamma00"), k, p):
+        nan = torch.isnan(b)
+        assert torch.equal(torch.isnan(a), nan), name
+        msg = _bits_differ(name, a[~nan], b[~nan])
+        assert not msg, msg
 
 
 @pytest.mark.cuda

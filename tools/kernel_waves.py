@@ -6,6 +6,7 @@
     python3 tools/kernel_waves.py --waves pair [--reps 3] TREE ...
     python3 tools/kernel_waves.py --waves kinds|exact [--reps 3] TREE ...
     python3 tools/kernel_waves.py --waves plain [--reps 1] TREE ...
+    python3 tools/kernel_waves.py --waves gamma [--reps 3] TREE ...
     python3 tools/kernel_waves.py --waves e2e [--reps 3] TREE ...
 
 Each TREE is a directory holding a ``poreover_tpu_torch`` package (this
@@ -33,6 +34,11 @@ checkout's simulator and stages:
   of each kind of the ``exact`` waves, windowed and exact; it runs
   hundreds of small launches per plan step, so its time is the host's
   (the wall time of the run, by CUDA events);
+- ``gamma``: the pair gamma DP (``csrc/pair_gamma.cu``, as
+  ``gamma_cuda`` launches it) on phase 18's launches: the 8 pairs' wave
+  (``--algorithm prefix``, one search) and the anchored run's searches
+  (their boxes sorted by length, ``PREFIX_BOX_WAVE`` to a search), the
+  line's ms the wave's and, after it, the searches';
 - ``e2e``: the same 8 pairs and 32 reads as files, and the 8 pairs and
   the 32 reads as flip-flop traces, through each tree's CLI end to end
   (phases 3, 8, 12, 10 and 6): ``pair-decode --reverse_complement
@@ -118,6 +124,13 @@ def make_inputs(waves: str, d: str) -> None:
     import chip_smoke as cs
     from poreover_tpu_torch.sim import write_pairs
 
+    if waves == "gamma":
+        with tempfile.TemporaryDirectory() as t:
+            pairs_txt, _ = write_pairs(t, 8, seed=7, lo=5200, hi=8200)
+            wave, searches = cs.gamma_searches(t, pairs_txt)
+        with open(os.path.join(d, "waves.pkl"), "wb") as f:
+            pickle.dump(dict(wave=wave, searches=searches), f)
+        return
     if waves in ("kinds", "exact", "plain"):
         with open(os.path.join(d, "waves.pkl"), "wb") as f:
             pickle.dump({kind: cs.sim_workloads(8, 7, 5200, 8200, kind)
@@ -146,11 +159,20 @@ def prepared_waves(waves: str, d: str, sizes):
             yield (f"{B} reads", prep, beam1d.launch_beam1d,
                    int(prep["meta"][:, 1].max()))
         return
-    from poreover_tpu_torch.ops import box_beam as bb
-    from poreover_tpu_torch.ops import pair_beam_batch as pbb
-
     with open(os.path.join(d, "waves.pkl"), "rb") as f:
         inputs = pickle.load(f)
+    if waves == "gamma":
+        from poreover_tpu_torch.ops import gamma as gm
+
+        for name, wls in [("gamma 8-pair wave", inputs["wave"])] + [
+                (f"gamma anchored search {i}", b)
+                for i, b in enumerate(inputs["searches"])]:
+            prep = gm.prepare_gamma(wls, device="cuda")
+            yield (name, prep, gm.gamma_cuda,
+                   int(prep["meta"][:, gm.M_U].max()))
+        return
+    from poreover_tpu_torch.ops import box_beam as bb
+    from poreover_tpu_torch.ops import pair_beam_batch as pbb
     if waves == "plain":
         yield from plain_waves(inputs)
         return
@@ -281,7 +303,7 @@ def main() -> int:
     ap.add_argument("trees", nargs="*")
     ap.add_argument("--waves",
                     choices=("beam1d", "pair", "kinds", "exact", "plain",
-                             "e2e"),
+                             "gamma", "e2e"),
                     required=True)
     ap.add_argument("--reads", default="32,264,1056",
                     help="beam1d wave sizes")
@@ -328,9 +350,11 @@ def main() -> int:
                         + f"; outputs {x['digest']}"
                         f"{'' if same else ' DIFFER'}", flush=True)
                     continue
+                unit = ("row of the longest workload" if a.waves == "gamma"
+                        else "step of the longest plan")
                 print(f"{tree}: {name} {x['ms']:.3f} ms "
-                      f"({x['ms'] * 1e3 / x['longest']:.3f} us per step of "
-                      f"the longest plan) outputs {x['digest']}"
+                      f"({x['ms'] * 1e3 / x['longest']:.3f} us per {unit}) "
+                      f"outputs {x['digest']}"
                       f"{'' if same else ' DIFFER'}", flush=True)
     return 1 if bad else 0
 
