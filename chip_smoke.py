@@ -8,7 +8,7 @@ Run from a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases (each fails the run if it fails):
-  1. build: the C++ host runtime (g++), the eight CUDA kernels (nvcc,
+  1. build: the C++ host runtime (g++), the nine CUDA kernels (nvcc,
      sm_90a; the pair kernels with one template instance per model kind)
      and seven instrumented builds (``-DPOREOVER_PHASE_CLOCKS``), and the
      latency probe ``csrc/latency.cu`` (phases 10, 12 and 18), one process
@@ -290,6 +290,24 @@ Phases (each fails the run if it fails):
      ``csrc/latency.cu``'s log-add-exp); (f) the gamma kernel at
      GAMMA_WIDTHS, bit for bit, each width through the instance it takes
      (``gamma_width_cases``).
+ 19. the by-row search (``pair-decode --beam_search_method row``, the
+     kernel ``csrc/pair_row_beam.cu``; ``row_phase``). (a) phase 3's 8
+     pairs through the CLI with ``--beam_search_method row``, then with
+     ``--skip_matches --skip_threshold 10`` (counts zeroed just before,
+     read just after: the by-row kernel launched; 8 records, no skip);
+     pair 0 through the single-pair entry equal to the CLI's consensus.
+     (b) the kernel on phase 3's wave and phase 10's bonito and flip-flop
+     waves (their workloads kept from there), one launch each through the
+     library entry: ms a wave, us a row, the bound (``row_bound_ms``) and
+     a latency floor from ``csrc/latency.cu``'s log-add-exp
+     (``row_floor_ms``); phase 8's anchored boxes in one launch, timed.
+     (c) the kernel bit-equal to its plain version on the card (every
+     row's beam_src, the traceback, final validity and score bits): each
+     wave and the anchored boxes cut to their first ROW_PLAIN_ROWS rows,
+     the CTC cut once more with its storage in global scratch, timed
+     both. (d) two small pairs byte-identical to ``--device cpu`` (its run
+     in a CPU worker). (e) each consensus's identity to the truth beside
+     row_col's, recorded, not gated.
 
 ``python3 chip_smoke.py --first-look`` runs only a short first check of
 the CTC kernels and the train step (``first_look``), ``--first-look dp``
@@ -301,7 +319,10 @@ first, ~4 minutes), ``--first-look prefix`` phase 18 alone
 (``first_look_prefix``: the two kernels' builds and ``cuda`` tests
 first, ~2 minutes), ``--first-look gamma`` the gamma kernel alone
 (``first_look_gamma``: builds, ``cuda`` tests, phase 18(f), timings and
-clocks of both instances, GAMMA_INSTANCES; ~1 minute); none prints a result. ``--parent DIR`` (a ``git
+clocks of both instances, GAMMA_INSTANCES; ~1 minute), ``--first-look
+row`` phase 19 alone (``first_look_row``: the by-row kernel's build and
+``cuda`` tests, then ``row_phase`` on inputs made from the same seeds);
+none prints a result. ``--parent DIR`` (a ``git
 archive`` of the parent commit, unpacked) has phases 10, 12 and 18, or
 ``--first-look dp`` / ``prefix``, time that tree's Viterbi, acceptor and
 prefix-level kernels in turns with this checkout's.
@@ -1606,6 +1627,8 @@ def cpu_reference_jobs():
                                    ("--single", "beam"), stage1=True)
     refs["prefix"] = cpu_job(cpu_pair_ref, "poreover", 2, 21, 250, 320,
                             ("--algorithm", "prefix"))
+    refs["row"] = cpu_job(cpu_pair_ref, "poreover", 2, ROW_SEED, 250, 320,
+                          ("--beam_search_method", "row"))
     return refs
 
 
@@ -1655,8 +1678,10 @@ def zero_counts():
     from poreover_tpu_torch.ops import box_beam as bb
     from poreover_tpu_torch.ops import ctc
     from poreover_tpu_torch.ops import pair_beam_batch as pbb
+    from poreover_tpu_torch.ops import pair_row_beam as prb
     from poreover_tpu_torch.ops import viterbi as tv
 
+    prb.launch_count = 0
     pbb.launch_count = pbb.single_launch_count = 0
     pbb.exact_launch_count = 0
     bb.box_launch_count = 0
@@ -1676,14 +1701,15 @@ def viterbi_bound_ms(lengths, S=8) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def pair_kind_full(kind, gpu, stats, stats_box, cpu_ref):
+def pair_kind_full(kind, gpu, stats, stats_box, cpu_ref, row_waves):
     """Phase 10 for one kind (bonito or flip-flop): 8 full-size pairs
     through ``pair-decode``, then with ``--skip_matches``; the kernels
     timed on those waves and held to their plain versions (the box kernel
     on pair 0's boxes in a launch with the wave's shared memory per CTA);
     two ~300-base pairs on the card against ``--device cpu``
     (``cpu_ref``, ``cpu_pair_ref``'s job). Returns the kind's entries of
-    the kernels line."""
+    the kernels line; keeps the wave's workloads in ``row_waves[kind]``
+    (phase 19)."""
     from poreover_tpu_torch.ops import box_beam as bb
     from poreover_tpu_torch.ops import pair_beam_batch as pbb
     from poreover_tpu_torch.ops import viterbi as tv
@@ -1738,6 +1764,7 @@ def pair_kind_full(kind, gpu, stats, stats_box, cpu_ref):
                      f"identity to read 1's true sequence: {ids}")
         files = pair_files(pairs_txt)
         wave = [workload_of(d, r1, r2, kind) for r1, r2 in files]
+        row_waves[kind] = wave
         zero_counts()
         anch, _, arows, t_anch, atm = pair_decode_cli(
             d, pairs_txt, bc, "anch", ["--skip_matches", "--skip_threshold",
@@ -4007,8 +4034,353 @@ def first_look_exact():
     log(json.dumps({"kernels": exact_phase(gpu, kstats, cons)}))
 
 
+# ---- phase 19: the by-row pair beam search (--beam_search_method row)
+ROW_PLAIN_ROWS = 500  # rows per workload the plain version holds the kernel on
+ROW_SEED = 23  # phase 19(d): the small pairs against --device cpu
+# log-add-exp chains on a sweep's dependent path: ctc one, bonito two in
+# sequence (the total chain takes the no-gap chain), flip-flop two
+# independent ones
+ROW_CHAINS = {0: 1, 1: 2, 2: 1}
+
+
+def row_bytes(prep) -> int:
+    """Bytes a by-row wave must move: of each workload's inputs only what
+    its rows read (y1 and cum1 up to its last row u0 + R - 1; y2 and cum2
+    from its rows' first rs to their last re, and column 0, where its root
+    starts), its rows and meta once; beam_src, the final table and the
+    traceback written once. A wave cut to its first rows (``n_rows``)
+    keeps whole reads in its packed tensors but reads only this."""
+    from poreover_tpu_torch.ops.beam2d import RM_R, RM_ROW, RM_U, RM_U0
+
+    W, A = prep["W"], prep["A"]
+    C = W * (A + 1)
+    m, rows = prep["meta"], prep["rows"].astype(np.int64)
+    B, n = len(m), len(rows)
+    # an emission row and its cumulative gap mass
+    per = (prep["y1"].shape[1] + 1) * prep["y1"].itemsize
+    cols = 0
+    for b in range(B):
+        r = rows[m[b, RM_ROW]:m[b, RM_ROW] + m[b, RM_R]]
+        n1 = min(int(m[b, RM_U]), int(m[b, RM_U0] + m[b, RM_R]))
+        lo, hi = (int(r[:, 0].min()), int(r[:, 1].max())) if len(r) \
+            else (0, 1)
+        cols += max(n1, 1) + (hi - lo) + (lo > 0)
+    return (cols * per + prep["rows"].nbytes + m.nbytes
+            + n * (2 * W + 1) + B * (5 * C + 1))
+
+
+def row_bound_ms(prep) -> tuple[float, str, str]:
+    """Least time for a by-row wave: bytes (``row_bytes``) over HBM
+    bandwidth, vs float ops over f32 peak: per row the C candidates (the
+    table is full after the first rows) times the row's in-range cells,
+    at OPS_PER_CELL (the same chains as the pair kernel's sweeps).
+    Returns (ms, what bounds it, a line with both terms)."""
+    W, A = prep["W"], prep["A"]
+    C = W * (A + 1)
+    rows = prep["rows"].astype(np.int64)
+    nbytes = row_bytes(prep)
+    cells = int(C * np.clip(rows[:, 1] - rows[:, 0], 0, None).sum())
+    ops_cell = OPS_PER_CELL[prep["model_id"]]
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = cells * ops_cell / F32_FLOPS * 1e3
+    terms = (f"{nbytes} bytes -> {t_bytes:.4g} ms; {cells * ops_cell} "
+             f"float ops ({cells} swept cells x {ops_cell}) -> {t_ops:.4g} "
+             "ms")
+    return (t_bytes, "bytes", terms) if t_bytes >= t_ops else \
+        (t_ops, "operations", terms)
+
+
+def scan_levels(n):
+    """Levels of the odd/even scan tree over n elements that hold a
+    log-add-exp: up, one per halving while two remain; down, one per
+    level with an even element past the first."""
+    n = np.asarray(n, np.int64)
+    up = np.zeros(n.shape, np.int64)
+    down = np.zeros(n.shape, np.int64)
+    s = 1
+    while True:
+        more = (n // s) >= 2
+        if not more.any():
+            break
+        up += more
+        down += (n // s) >= 3
+        s *= 2
+    return up + down
+
+
+def row_floor_ms(prep, lat, mhz) -> float:
+    """A launch's latency floor (the longest workload's chain): per row,
+    two layers of sweeps (a child's after its parent's, every row has
+    both), each ROW_CHAINS[model] scans over the row's in-range cells
+    and its seed, a log-add-exp a level (``lat["lse"]``, common.cuh:lse),
+    at ``mhz``."""
+    rows = prep["rows"].astype(np.int64)
+    per_row = (2 * ROW_CHAINS[prep["model_id"]] * lat["lse"]
+               * scan_levels(np.clip(rows[:, 1] - rows[:, 0], 0, None) + 1))
+    m = prep["meta"]
+    from poreover_tpu_torch.ops.beam2d import RM_R, RM_ROW
+
+    return max(float(per_row[o:o + n].sum()) for o, n in
+               zip(m[:, RM_ROW], m[:, RM_R])) / (mhz * 1e3)
+
+
+def compare_rows(name, prep, storage=None):
+    """The by-row kernel (``pair_row_beam._launch``, counted nowhere)
+    against its plain version ``beam2d.row_scan`` on the card, on a
+    prepared wave: every row's beam_src, the final validity and the
+    traceback equal, the final scores bit for bit (both run the same ops
+    in the same order). Returns (kernel ms, plain ms, max abs error)."""
+    import torch
+    from poreover_tpu_torch.ops import beam2d
+    from poreover_tpu_torch.ops import pair_row_beam as prb
+
+    args = (*prep["dev"], prep["meta"], prep["W"], prep["A"],
+            prep["model_id"])
+    k, k_ms = timed(lambda: prb._launch(*args, storage=storage))
+    p, p_ms = timed(lambda: beam2d.row_scan(*args))
+    k, p = [[x.cpu() for x in o] for o in (k, p)]
+    for what, a, b in zip(("beam_src", "score", "valid", "chars", "first"),
+                          k, p):
+        if what == "score":
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            bad = (a != b).nonzero()[:5].tolist()
+            fail(f"{name}: the kernel's {what} differs from the plain "
+                 f"version's (first at {bad})")
+    fin = torch.isfinite(p[1])
+    err = float((k[1] - p[1])[fin].abs().max()) if fin.any() else 0.0
+    rows = prep["meta"][:, 5]
+    log(f"  {name}: kernel = plain version ({len(rows)} workloads, "
+        f"{int(rows.sum())} rows, storage {storage or 'by size'}: every "
+        f"beam_src row, traceback, final validity and score bits); kernel "
+        f"{k_ms:.1f} ms, plain {p_ms:.1f} ms")
+    return k_ms, p_ms, err
+
+
+def row_phase(gpu, truth, cons_rowcol, waves, ctc_boxes, cpu_ref):
+    """Phase 19: ``pair-decode --beam_search_method row``. (a) phase 3's 8
+    pairs through the CLI with ``--beam_search_method row`` and then with
+    ``--skip_matches --skip_threshold 10`` (counts zeroed just before,
+    read just after: the by-row kernel launched); 8/8 records, no skip;
+    the single-pair entry on pair 0 equal to the CLI's consensus. (b) the
+    kernel on the full-size waves ``waves`` (phase 3's CTC pairs, phase
+    10's bonito and flip-flop pairs, their envelopes as built there)
+    through the library entry (one launch each), timed per wave and row,
+    with its bound and latency floor; phase 8's anchored boxes
+    (``ctc_boxes``) timed in one launch. (c) the kernel bit-equal to its
+    plain version on the card: each wave and the anchored boxes cut to
+    their first ROW_PLAIN_ROWS rows, the CTC cut once more with its
+    storage forced into global scratch. (d) two small pairs
+    byte-identical to ``--device cpu`` (``cpu_ref``, run in a CPU
+    worker). (e) each consensus's identity to the truth beside row_col's
+    (``cons_rowcol``; none in the first look), recorded, not gated.
+    Returns the kernels line's entries, one per kind."""
+    import torch
+    from poreover_tpu_torch.ops import pair_row_beam as prb
+    from poreover_tpu_torch.ops.beam2d import RM_R, beam_search_2d
+    from poreover_tpu_torch.sim import write_pairs
+
+    t19 = time.perf_counter()
+    lat, mhz = instruction_latencies(), sm_clock_mhz()
+    with tempfile.TemporaryDirectory() as d:
+        pairs_txt, _ = write_pairs(d, 8, seed=7, lo=5200, hi=8200)
+        runs = {}
+        for name, extra in (("row", ()), ("anchored", (
+                "--skip_matches", "--skip_threshold", "10"))):
+            zero_counts()
+            cons, _, rows, wall, tm = pair_decode_cli(
+                d, pairs_txt, "poreover", name,
+                ("--beam_search_method", "row", *extra))
+            n_l = prb.launch_count
+            if n_l < 1:
+                fail(f"pair-decode --beam_search_method row ({name}) "
+                     "launched the by-row kernel no time")
+            if len(cons) != 8 or any(r[-1] != "0" for r in rows):
+                fail(f"--beam_search_method row ({name}): expected 8 "
+                     f"consensus records and no skips; got {len(cons)}, "
+                     f"log rows {rows}")
+            runs[name] = (cons, n_l)
+            log(f"phase 19 pair-decode --beam_search_method row ({name}): 8 "
+                f"pairs, {n_l} by-row launch(es), end-to-end {wall:.2f} s "
+                f"({8 / wall:.2f} pairs/s); stages "
+                + " ".join(f"{k}={v:.3f}s" for k, v in tm.items()))
+    cons_row, launches = runs["row"]
+    ids = [identity(c, t) for c, t in zip(cons_row, truth)]
+    aids = [identity(c, t) for c, t in zip(runs["anchored"][0], truth)]
+    line = "  identity to the truth, row / anchored row"
+    if cons_rowcol is not None:
+        line += " / row_col"
+        rc = [identity(c, t) for c, t in zip(cons_rowcol, truth)]
+    else:
+        rc = [None] * 8
+    log(line + ": " + " ".join(
+        f"{a:.4f}/{b:.4f}" + ("" if c is None else f"/{c:.4f}")
+        for a, b, c in zip(ids, aids, rc)) + " (recorded, not gated)")
+    zero_counts()
+    got = beam_search_2d(*waves["poreover"][0], beam_width=5, method="row",
+                         device=DEVICE)
+    if prb.launch_count != 1 or got != cons_row[0]:
+        fail(f"the single-pair entry ({prb.launch_count} launches) differs "
+             "from pair-decode's row consensus of pair 0")
+    log("  single-pair entry beam_search_2d(method='row'): pair 0 equal to "
+        "pair-decode's, 1 launch")
+
+    entries = []
+    for kind in ("poreover", "bonito", "flipflop"):
+        model = KIND_MODEL[kind]
+        wave = waves[kind]
+        prep = prb.prepare_rows(wave, device=DEVICE, model=model)
+        rows = prep["meta"][:, RM_R]
+        if kind == "poreover":
+            n_l = launches
+        else:
+            zero_counts()
+            seqs = prb.pair_row_beam(wave, device=DEVICE, model=model)
+            n_l = prb.launch_count
+            if n_l != 1 or len(seqs) != 8:
+                fail(f"{kind}: the by-row entry gave {n_l} launches, "
+                     f"{len(seqs)} strings")
+            # the JAX package's by-row engine collapses some of these
+            # pairs to a few bases too (ROADMAP §C): recorded, not gated
+            log(f"  {kind}: the by-row entry, 1 launch, consensus lengths "
+                f"{[len(q) for q in seqs]}")
+        args = (*prep["dev"], prep["meta"], prep["W"], prep["A"],
+                prep["model_id"])
+        if kind != "poreover" and prb.fetch_prepared(
+                prep, prb._launch(*args)) != seqs:
+            fail(f"{kind}: a second launch of the wave spells other strings")
+        wave_ms = event_ms(lambda: prb._launch(*args), reps=2)
+        bound, by, terms = row_bound_ms(prep)
+        floor = row_floor_ms(prep, lat, mhz)
+        log(f"  [{gpu}] by-row kernel, {kind}: {wave_ms:.1f} ms per 8-pair "
+            f"wave, {wave_ms * 1e3 / rows.max():.2f} us per row of the "
+            f"longest pair ({int(rows.max())} rows; storage "
+            f"{prb.storage_path(prep)}, widest window "
+            f"{int(prep['meta'][:, 7].max())}); bound {bound:.4f} ms "
+            f"({by}; {terms}); latency floor {floor:.3f} ms (two layers of "
+            f"{ROW_CHAINS[prep['model_id']]} scan(s) a row at lse "
+            f"{lat['lse']:.1f} cycles, {mhz:.0f} MHz), the kernel "
+            f"{wave_ms / floor:.1f}x it")
+        cut = prb.prepare_rows(wave, device=DEVICE, model=model,
+                               n_rows=[ROW_PLAIN_ROWS] * len(wave))
+        k_ms, p_ms, err = compare_rows(
+            f"{kind} wave, first {ROW_PLAIN_ROWS} rows per pair", cut)
+        cut_bound, cut_by, cut_terms = row_bound_ms(cut)
+        log(f"    bound on that cut {cut_bound:.5f} ms ({cut_by}; "
+            f"{cut_terms})")
+        entry = {
+            "name": f"row_beam ({model})", "kinds": [model],
+            "route": "cuda",
+            "source": "poreover_tpu_torch/csrc/pair_row_beam.cu",
+            "replaces": "poreover_tpu/ops/beam2d.py:379 (_beam2d_row_scan, "
+                        "a lax.scan, not a Pallas kernel)",
+            "launches": n_l, "max_abs_err": err, "ms": wave_ms,
+            "us_per_row": wave_ms * 1e3 / int(rows.max()),
+            "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+            "latency_floor_ms": floor, "library_ms": None,
+            "plain_input": f"the wave's first {ROW_PLAIN_ROWS} rows per pair",
+            "ms_on_plain_input": k_ms,
+            "bound_ms_on_plain_input": cut_bound,
+        }
+        if kind == "poreover":
+            g_ms, _, _ = compare_rows(
+                f"{kind} wave, first {ROW_PLAIN_ROWS} rows, storage in "
+                "global scratch", cut, storage="global")
+            bprep = prb.prepare_rows(ctc_boxes, device=DEVICE)
+            bargs = (*bprep["dev"], bprep["meta"], 5, 4, 0)
+            box_ms = event_ms(lambda: prb._launch(*bargs), reps=2)
+            brows = bprep["meta"][:, RM_R]
+            log(f"  [{gpu}] by-row kernel, phase 8's {len(ctc_boxes)} "
+                f"anchored boxes in one launch: {box_ms:.1f} ms (rows per "
+                f"box median {np.median(brows):.0f}, max {brows.max()}; "
+                f"bound {row_bound_ms(bprep)[0]:.4f} ms, latency floor "
+                f"{row_floor_ms(bprep, lat, mhz):.3f} ms)")
+            bcut = prb.prepare_rows(ctc_boxes, device=DEVICE,
+                                    n_rows=[ROW_PLAIN_ROWS] * len(ctc_boxes))
+            compare_rows(f"the anchored boxes, first {ROW_PLAIN_ROWS} rows "
+                         "per box", bcut)
+            entry.update(global_ms_on_plain_input=g_ms,
+                         anchored_ms=box_ms,
+                         anchored_launches=runs["anchored"][1])
+            del bprep, bcut
+        entries.append(entry)
+        del prep, cut
+    # ---- two small pairs on the card against --device cpu
+    with tempfile.TemporaryDirectory() as d:
+        pairs_txt, _ = write_pairs(d, 2, seed=ROW_SEED, lo=250, hi=320)
+        dig = digest(d, sorted(os.listdir(d)))
+        on_card = pair_decode_cli(d, pairs_txt, "poreover", "card",
+                                  ("--beam_search_method", "row"))
+        if len(on_card[0]) != 2:
+            fail(f"row: {len(on_card[0])} consensus records of 2 pairs")
+        ref = same_as_cpu_ref("--beam_search_method row", dig, cpu_ref, {
+            suf: os.path.join(d, "card" + suf)
+            for suf in (".1d.fasta", ".2d.fasta", ".log")})
+        log(f"  2 pairs of ~300 bases byte-identical to --device cpu "
+            f"(.1d.fasta, .2d.fasta, .log); card {on_card[3]:.2f} s, cpu "
+            f"{ref[2]:.2f} s")
+    torch.cuda.synchronize()
+    log(f"  phase 19: {time.perf_counter() - t19:.0f} s")
+    return entries
+
+
+def first_look_row():
+    """``--first-look row``: phase 19 alone (a few minutes): the by-row
+    kernel's build and ptxas report, its ``cuda`` tests
+    (tests/test_torch_row_kernel.py), then ``row_phase`` on inputs made
+    here (phase 3's pairs, phase 8's anchored boxes and phase 10's waves,
+    from the same seeds; no row_col consensus beside the identities).
+    Prints the kernels line, no result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, HERE)
+    from poreover_tpu_torch import build, native
+    from poreover_tpu_torch.ops import pair_row_beam as prb
+    from poreover_tpu_torch.sim import write_pairs
+
+    gpu = gpu_line()
+    log(gpu)
+    log(sys.version.split()[0], torch.__version__, torch.version.cuda)
+    t0 = time.perf_counter()
+    loads = [native.load, prb.load_kernel,
+             lambda: build.build_kernel("latency")]
+    ths = [threading.Thread(target=f) for f in loads]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join()
+    for f in loads:  # raises here if a build failed in its thread
+        f()
+    log(f"build {time.perf_counter() - t0:.1f} s")
+    for line in build.ptxas_report("pair_row_beam"):
+        log(f"ptxas pair_row_beam: {line}")
+    tests = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
+         "-p", "no:cacheprovider", "-p", "no:warnings", "--tb=short",
+         os.path.join(HERE, "tests", "test_torch_row_kernel.py")],
+        capture_output=True, text=True, cwd=HERE)
+    log(tests.stdout.strip().splitlines()[-1])
+    if tests.returncode != 0:
+        fail(f"the by-row tests: {tests.stdout[-4000:]}{tests.stderr[-2000:]}")
+    waves = {}
+    with tempfile.TemporaryDirectory() as d:
+        pairs_txt, truth = write_pairs(d, 8, seed=7, lo=5200, hi=8200)
+        files = pair_files(pairs_txt)
+        waves["poreover"] = [workload_of(d, r1, r2) for r1, r2 in files]
+        boxes = [b for r1, r2 in files
+                 for b in anchored_boxes_of(d, r1, r2)[0]]
+    for kind in ("bonito", "flipflop"):
+        waves[kind] = sim_workloads(8, seed=7, lo=5200, hi=8200, kind=kind)
+    cpu_ref = InProcess(cpu_pair_ref, "poreover", 2, ROW_SEED, 250, 320,
+                        ("--beam_search_method", "row"))
+    log(json.dumps({"kernels": row_phase(gpu, truth, None, waves, boxes,
+                                         cpu_ref)}))
+
+
 def build_all():
-    """Phase 1: the host runtime, the eight kernels, the instrumented
+    """Phase 1: the host runtime, the nine kernels, the instrumented
     builds of seven of them, and the latency probe (``csrc/latency.cu``), one compiler
     process each, in parallel; prints the compiler's register / spill
     report."""
@@ -4020,6 +4392,7 @@ def build_all():
     from poreover_tpu_torch.ops import gamma as gm
     from poreover_tpu_torch.ops import pair_beam_batch as pbb
     from poreover_tpu_torch.ops import pair_prefix as pps
+    from poreover_tpu_torch.ops import pair_row_beam as prb
     from poreover_tpu_torch.ops import viterbi as tv
 
     t0 = time.perf_counter()
@@ -4035,7 +4408,7 @@ def build_all():
            for f in (native.load, pbb.load_kernel, beam1d.load_kernel,
                      bb.load_kernel, tv.load_kernel, ta.load_kernel,
                      ctc.load_kernel, gm.load_kernel, pps.load_kernel,
-                     lambda: ctc.load_kernel(True),
+                     prb.load_kernel, lambda: ctc.load_kernel(True),
                      lambda: gm.load_kernel(True),
                      lambda: pbb.load_kernel(True),
                      lambda: bb.load_kernel(True),
@@ -4051,7 +4424,8 @@ def build_all():
         fail(f"build: {errs[0]}")
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s")
     for kernel in ("pair_beam_batch", "beam1d", "box_beam", "viterbi",
-                   "acceptor", "ctc", "pair_gamma", "pair_prefix"):
+                   "acceptor", "ctc", "pair_gamma", "pair_prefix",
+                   "pair_row_beam"):
         for line in build.ptxas_report(kernel):
             log(f"  ptxas {kernel}: {line}")
 
@@ -4276,6 +4650,7 @@ def main():
         stats_single)
     short1_bound = bound_ms(short1)[0]
     full_ctc = wave[:2]  # phase 17 holds the graveyard instance on these
+    row_waves = {"poreover": wave}  # phase 19 times the by-row kernel on it
     del wave, prep, prep1, short, short1
 
     done("phase 5")
@@ -4507,6 +4882,7 @@ def main():
             f"the pair kernel: {over_ms:.1f} ms")
     else:
         log("  no box of this wave is over the storage limit")
+    ctc_boxes = all_boxes  # phase 19 times the by-row kernel on them
     del prep, as_pairs, anch, all_boxes, in_kernel
     done("phase 9")
 
@@ -4515,7 +4891,7 @@ def main():
     for kind in ("bonito", "flipflop"):
         kind_entries += pair_kind_full(kind, gpu, kstats[kind],
                                        kstats_box[kind],
-                                       cpu_refs["pairs", kind])
+                                       cpu_refs["pairs", kind], row_waves)
         done(f"phase 10 {kind}")
 
     # ---- phase 11: a pairs file of mixed kinds
@@ -4556,6 +4932,12 @@ def main():
     # ---- phase 18: pair prefix search (pair-decode --algorithm prefix)
     prefix_entries = prefix_phase(gpu, truth3, cons_full, cpu_refs["prefix"])
     done("phase 18")
+
+    # ---- phase 19: the by-row search (pair-decode --beam_search_method row)
+    row_entries = row_phase(gpu, truth3, cons_full, row_waves, ctc_boxes,
+                            cpu_refs["row"])
+    del row_waves, ctc_boxes
+    done("phase 19")
 
     kernels = [{
         "name": "pair_beam_batch", "kinds": ["ctc"], "route": "cuda",
@@ -4631,7 +5013,7 @@ def main():
         "input": f"one train step's batch: B {TRAIN_BATCH}, T "
                  f"{TRAIN_WINDOW}, labels of seeded windows",
         "train_step_ms": tr["step_ms"],
-    }] + exact_entries + prefix_entries
+    }] + exact_entries + prefix_entries + row_entries
     stop_workers()
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - T_START:.0f} s")
@@ -4778,6 +5160,8 @@ if __name__ == "__main__":
         first_look_prefix()
     elif argv == ["--first-look", "gamma"]:
         first_look_gamma()
+    elif argv == ["--first-look", "row"]:
+        first_look_row()
     elif argv == ["--first-look", "dp"]:
         first_look_dp()
     elif argv:

@@ -241,11 +241,7 @@ def _benchmark(args):
 
 # pair-decode flags outside the ported main path: (flag, test, ROADMAP item)
 _PAIR_UNPORTED = [
-    ("--method split|align", lambda a: a.method != "envelope", "A13"),
-    # the prefix search reads no traversal, as in the JAX package
-    ("--beam_search_method row|grid",
-     lambda a: a.algorithm == "beam" and a.beam_search_method != "row_col",
-     "A13"),
+    ("--method split|align", lambda a: a.method != "envelope", "A13c"),
 ]
 
 

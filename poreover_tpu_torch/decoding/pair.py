@@ -19,13 +19,19 @@ pair_decode.py:305-529):
      CUDA kernel (ops/pair_beam_batch.py); on ``--device cpu`` its plain
      PyTorch version runs instead. ``--exact`` takes the kernel's graveyard
      instance (the reference's unbounded-memo semantics up to the
-     graveyard's depth), ``--f64`` the plain version in float64 on the
-     CPU (``cli.py`` sets the device).
+     graveyard's depth) whatever ``--beam_search_method`` says, as in the
+     JAX package; ``--f64`` the plain version in float64 on the CPU
+     (``cli.py`` sets the device). ``--beam_search_method row`` (the
+     reference's by-row traversal) decodes the same waves, or a wave's
+     anchored boxes, through one launch of the by-row kernel
+     (ops/pair_row_beam.py), ``grid`` pair by pair on the host
+     (decoding/replica2d.py), as the JAX package runs it.
 
-Unlike the JAX package, which decodes bonito and flip-flop pairs one by
-one through its XLA engine, the port batches every kind: a pairs file
-keeps one queue of pending pairs per kind, each flushed as its own waves,
-and the results are written in input order. The strings are the same.
+Unlike the JAX package, which decodes bonito and flip-flop pairs (and
+every pair under ``--beam_search_method row``) one by one through its XLA
+engines, the port batches every kind: a pairs file keeps one queue of
+pending pairs per kind, each flushed as its own waves, and the results
+are written in input order. The strings are the same.
 
 Anchored mode (reference pair_decode.py:412-452): stretches where the two
 1D basecalls agree for ``--skip_threshold`` bases are taken verbatim as
@@ -372,6 +378,13 @@ def pair_decode_helper(args, _workload_sink=None):
         )
 
     # ---- stage 4: consensus ----
+    if _traversal(args) == "grid":
+        # host code, pair by pair, as in the JAX package (its failures, as
+        # the 10M-cell guard's, are this pair's)
+        return _format_result(_grid_decode(
+            args, kind, basecall_anchors if args.skip_matches else None,
+            extract_box_workloads(y1, y2, alignment_envelope, basecall_boxes)
+            if args.skip_matches else [(0, y1, y2, alignment_envelope)]))
     if args.algorithm == "prefix":
         # the pair prefix search takes plain-CTC pairs only, as in the
         # JAX package, whose `pair_decode` logs another pair as failed
@@ -385,7 +398,7 @@ def pair_decode_helper(args, _workload_sink=None):
             y1, y2, alignment_envelope, basecall_boxes
         )
         boxes = [(wl[1], wl[2], wl[3]) for wl in box_workloads]
-        _check_prefix(args, boxes)
+        _check_workloads(args, boxes)
 
         def _finish_boxes(seqs):
             joined = "".join(s for _, s in sorted(
@@ -399,7 +412,7 @@ def pair_decode_helper(args, _workload_sink=None):
             return None
         return _finish_boxes(_box_consensus(args)([boxes], args, kind)[0])
     workload = (y1, y2, alignment_envelope)
-    _check_prefix(args, [workload])
+    _check_workloads(args, [workload])
     if _workload_sink is not None:
         _workload_sink(workload, _format_result, summary, kind)
         return None
@@ -412,14 +425,26 @@ def _dtype(args):
     return np.float64 if args.f64 else np.float32
 
 
-def _check_prefix(args, workloads):
-    """Under ``--algorithm prefix``, raise what the JAX package's search
-    raises on a workload before any result (its `pair_decode` then
-    skips the pair)."""
-    if args.algorithm != "prefix":
-        return
-    from ..ops.pair_prefix import workload_error
+def _traversal(args) -> str:
+    """The search stage 4 runs: ``prefix``, ``exact`` (the graveyard
+    engine; over any ``--beam_search_method``, as in the JAX package), or
+    the beam search's ``--beam_search_method`` (row_col, row, grid)."""
+    if args.algorithm == "prefix":
+        return "prefix"
+    return "exact" if args.exact else args.beam_search_method
 
+
+def _check_workloads(args, workloads):
+    """Under ``--algorithm prefix`` or ``--beam_search_method row``, raise
+    what the JAX package's search raises on a workload before any result
+    (its `pair_decode` then skips the pair)."""
+    how = _traversal(args)
+    if how == "prefix":
+        from ..ops.pair_prefix import workload_error
+    elif how == "row":
+        from ..ops.beam2d import workload_error
+    else:
+        return
     for wl in workloads:
         err = workload_error(*wl)
         if err is not None:
@@ -428,14 +453,83 @@ def _check_prefix(args, workloads):
 
 def _consensus(args):
     """The stage-4 decoder of whole-pair workloads for ``args``."""
-    return _prefix_consensus if args.algorithm == "prefix" else \
-        _batched_consensus
+    return {"prefix": _prefix_consensus, "row": _row_consensus}.get(
+        _traversal(args), _batched_consensus)
 
 
 def _box_consensus(args):
     """The stage-4 decoder of anchored mode's boxes for ``args``."""
-    return _prefix_box_consensus if args.algorithm == "prefix" else \
-        _batched_box_consensus
+    return {"prefix": _prefix_box_consensus, "row": _row_box_consensus}.get(
+        _traversal(args), _batched_box_consensus)
+
+
+def _grid_decode(args, kind, anchors, box_workloads):
+    """``--beam_search_method grid``: each (sort key, y1, y2, envelope)
+    workload by the reference's per-cell beam on the host
+    (``ops/beam2d.py:beam_search_2d(method="grid")``), stitched with the
+    anchors in anchored mode; the joined consensus."""
+    from ..ops.beam2d import beam_search_2d
+
+    _t0 = time.perf_counter()
+    seqs = [(k, beam_search_2d(y1_, y2_, envelope=env_,
+                               beam_width=args.beam_width,
+                               model=MODEL_STRING[kind], method="grid"))
+            for k, y1_, y2_, env_ in box_workloads]
+    timers.seconds["consensus_2d"] += time.perf_counter() - _t0
+    timers.add_work("consensus_2d", float(sum(
+        np.sum(env[:, 1] - env[:, 0]) for *_, env in box_workloads)))
+    if anchors is None:
+        return seqs[0][1]
+    return "".join(s for _, s in sorted(seqs + list(anchors)))
+
+
+def _row_consensus(workloads, args, kind: str = "poreover", wave=None):
+    """``--beam_search_method row``: (y1, y2, envelope) workloads of the
+    model ``kind`` in waves of ``wave`` (default ``--threads``), one launch
+    of the by-row kernel per wave (the plain version on the CPU, in
+    float64 under ``--f64``); the JAX package decodes them one by one, and
+    the strings are the same. Wave i+1's host prep and upload are enqueued
+    before wave i's results are fetched. A failed build or launch raises:
+    there is no per-pair, row_col or CPU fallback."""
+    from ..ops.pair_row_beam import (
+        fetch_prepared, launch_prepared, prepare_rows, storage_path,
+    )
+
+    wave = max(int(wave or args.threads), 1)
+    chunks = [workloads[i:i + wave] for i in range(0, len(workloads), wave)]
+    out: list[str] = []
+    _t0 = time.perf_counter()
+    pending = None
+    for i, chunk in enumerate(chunks):
+        prep = prepare_rows(chunk, beam_width=args.beam_width,
+                            device=args.device, model=MODEL_STRING[kind],
+                            dtype=_dtype(args))
+        log.info("%s by-row consensus wave %d/%d: %d workloads in one "
+                 "kernel launch (storage path %s)", kind, i + 1,
+                 len(chunks), len(chunk), storage_path(prep))
+        outs = launch_prepared(prep)
+        if pending is not None:
+            out.extend(fetch_prepared(*pending))
+        pending = (prep, outs)
+    if pending is not None:
+        out.extend(fetch_prepared(*pending))
+    timers.seconds["consensus_2d"] += time.perf_counter() - _t0
+    timers.add_work(
+        "consensus_2d",
+        float(sum(np.sum(env[:, 1] - env[:, 0]) for _, _, env in workloads)),
+    )
+    return out
+
+
+def _row_box_consensus(box_lists, args, kind: str = "poreover"):
+    """``--beam_search_method row --skip_matches``: the anchor boxes of a
+    wave's pairs (at most ``--threads`` pairs) in one launch. Returns one
+    list of box sequences per input pair, in order."""
+    wls = [wl for boxes in box_lists for wl in boxes]
+    log.info("anchored %s by-row consensus: %d boxes across %d pairs", kind,
+             len(wls), len(box_lists))
+    seqs = iter(_row_consensus(wls, args, kind, wave=len(wls)))
+    return [[next(seqs) for _ in boxes] for boxes in box_lists]
 
 
 # anchor boxes per batched prefix search, sorted by length

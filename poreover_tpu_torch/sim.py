@@ -85,6 +85,30 @@ def synth_read_pair(rng: np.random.Generator, n_bases: int):
     return synth_ctc_read(rng, seq), synth_ctc_read(rng, seq2)
 
 
+def template_pairs(model: str, seed: int, n: int, lo: int, hi: int,
+                   half_width=None):
+    """n seeded (y1, y2, envelope) workloads of ``model`` traces (ctc,
+    ctc_merge_repeats: [T, 5] CTC emissions; ctc_flipflop: [T, 8]) of
+    lo..hi bases, read 2 rendered in template orientation, each with a
+    diagonal envelope of ``half_width`` columns either side of the
+    diagonal (None: no envelope, the whole lattice)."""
+    rng = np.random.default_rng(seed)
+    render = synth_flipflop_read if model == "ctc_flipflop" else \
+        synth_ctc_read
+    out = []
+    for _ in range(n):
+        seq, seq2 = _pair_strands(rng, int(rng.integers(lo, hi)))
+        y1, y2 = render(rng, seq), render(rng, (3 - seq2)[::-1])
+        env = None
+        if half_width is not None:
+            U, V = len(y1), len(y2)
+            mid = np.arange(U) * V // U
+            env = np.stack([np.clip(mid - half_width, 0, V),
+                            np.clip(mid + half_width, 0, V)], 1)
+        out.append((y1, y2, env))
+    return out
+
+
 def _write_trace(stem: str, y: np.ndarray, kind: str) -> str:
     """One read's log-probs in the format ``--basecaller`` loads for
     ``kind``; returns the file's name."""

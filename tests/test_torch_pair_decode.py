@@ -93,7 +93,6 @@ def test_two_read_form(runs):
 
 @pytest.mark.parametrize("flags,item", [
     (["--method", "split"], "A13"),
-    (["--beam_search_method", "grid"], "A13"),
 ])
 def test_unported_flags_exit(tmp_path, capsys, flags, item):
     with pytest.raises(SystemExit, match=item):

@@ -39,15 +39,19 @@ def test_no_envelope_is_the_full_lattice():
 
 
 def test_unported_methods_and_kinds_name_their_item(monkeypatch):
+    """``row`` and ``grid`` decode now (tests/test_torch_row_beam.py,
+    tests/test_torch_grid.py); ``row_col_steps`` still names its item, and
+    the card's entries raise without a card."""
     y1, y2, env = CASES[2]
-    for method in ("row", "grid", "row_col_steps"):
-        with pytest.raises(NotImplementedError, match="A13"):
-            tb2.beam_search_2d(y1, y2, env, 5, method=method, device="cpu")
+    with pytest.raises(NotImplementedError, match="A13"):
+        tb2.beam_search_2d(y1, y2, env, 5, method="row_col_steps",
+                           device="cpu")
     with pytest.raises(ValueError, match="unsupported"):
         tb2.beam_search_2d(y1, y2, env, 5, method="diag", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        tb2.beam_search_2d(y1, y2, env, 5, method="row_col")
+    for method in ("row_col", "row"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tb2.beam_search_2d(y1, y2, env, 5, method=method)
 
 
 @pytest.mark.parametrize("model,S", [("ctc_merge_repeats", 5),

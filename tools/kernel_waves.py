@@ -7,6 +7,7 @@
     python3 tools/kernel_waves.py --waves kinds|exact [--reps 3] TREE ...
     python3 tools/kernel_waves.py --waves plain [--reps 1] TREE ...
     python3 tools/kernel_waves.py --waves gamma [--reps 3] TREE ...
+    python3 tools/kernel_waves.py --waves row [--reps 3] TREE ...
     python3 tools/kernel_waves.py --waves e2e [--reps 3] TREE ...
 
 Each TREE is a directory holding a ``poreover_tpu_torch`` package (this
@@ -39,6 +40,11 @@ checkout's simulator and stages:
   (``--algorithm prefix``, one search) and the anchored run's searches
   (their boxes sorted by length, ``PREFIX_BOX_WAVE`` to a search), the
   line's ms the wave's and, after it, the searches';
+- ``row``: the by-row pair beam kernel (``csrc/pair_row_beam.cu``,
+  ``pair-decode --beam_search_method row``) on phase 19's waves: the 8
+  pairs as plain CTC, bonito and flip-flop traces (one wave per kind) and
+  the CTC pairs' anchored boxes (``--skip_matches --skip_threshold 10``)
+  in one launch;
 - ``e2e``: the same 8 pairs and 32 reads as files, and the 8 pairs and
   the 32 reads as flip-flop traces, through each tree's CLI end to end
   (phases 3, 8, 12, 10 and 6): ``pair-decode --reverse_complement
@@ -131,10 +137,16 @@ def make_inputs(waves: str, d: str) -> None:
         with open(os.path.join(d, "waves.pkl"), "wb") as f:
             pickle.dump(dict(wave=wave, searches=searches), f)
         return
-    if waves in ("kinds", "exact", "plain"):
+    if waves in ("kinds", "exact", "plain", "row"):
+        inputs = {kind: cs.sim_workloads(8, 7, 5200, 8200, kind)
+                  for kind in ("poreover", "bonito", "flipflop")}
+        if waves == "row":
+            with tempfile.TemporaryDirectory() as t:
+                pairs_txt, _ = write_pairs(t, 8, seed=7, lo=5200, hi=8200)
+                inputs["box"] = [b for r1, r2 in cs.pair_files(pairs_txt)
+                                 for b in cs.anchored_boxes_of(t, r1, r2)[0]]
         with open(os.path.join(d, "waves.pkl"), "wb") as f:
-            pickle.dump({kind: cs.sim_workloads(8, 7, 5200, 8200, kind)
-                         for kind in ("poreover", "bonito", "flipflop")}, f)
+            pickle.dump(inputs, f)
         return
     with tempfile.TemporaryDirectory() as t:
         pairs_txt, _ = write_pairs(t, 8, seed=7, lo=5200, hi=8200)
@@ -170,6 +182,15 @@ def prepared_waves(waves: str, d: str, sizes):
             prep = gm.prepare_gamma(wls, device="cuda")
             yield (name, prep, gm.gamma_cuda,
                    int(prep["meta"][:, gm.M_U].max()))
+        return
+    if waves == "row":
+        from poreover_tpu_torch.ops import pair_row_beam as prb
+
+        for name, wls in inputs.items():
+            prep = prb.prepare_rows(wls, device="cuda",
+                                    model=MODELS.get(name, "ctc"))
+            yield (f"row {name} wave", prep, prb.launch_prepared,
+                   int(prep["meta"][:, 5].max()))
         return
     from poreover_tpu_torch.ops import box_beam as bb
     from poreover_tpu_torch.ops import pair_beam_batch as pbb
@@ -303,7 +324,7 @@ def main() -> int:
     ap.add_argument("trees", nargs="*")
     ap.add_argument("--waves",
                     choices=("beam1d", "pair", "kinds", "exact", "plain",
-                             "gamma", "e2e"),
+                             "gamma", "row", "e2e"),
                     required=True)
     ap.add_argument("--reads", default="32,264,1056",
                     help="beam1d wave sizes")
@@ -350,7 +371,8 @@ def main() -> int:
                         + f"; outputs {x['digest']}"
                         f"{'' if same else ' DIFFER'}", flush=True)
                     continue
-                unit = ("row of the longest workload" if a.waves == "gamma"
+                unit = ("row of the longest workload"
+                        if a.waves in ("gamma", "row")
                         else "step of the longest plan")
                 print(f"{tree}: {name} {x['ms']:.3f} ms "
                       f"({x['ms'] * 1e3 / x['longest']:.3f} us per {unit}) "
