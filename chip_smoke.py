@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """On-GPU smoke test of the PyTorch/CUDA port's main paths (pair-decode,
 decode and anchored pair-decode; pair-decode for all three model kinds;
-pair-decode --single beam; call and call --decode; train; benchmark).
+pair-decode --single beam, --exact, --algorithm prefix,
+--beam_search_method row and --method split|align; call and call
+--decode; train; benchmark).
 
 Run from a checkout on a machine with one CUDA card:
 
@@ -308,6 +310,30 @@ Phases (each fails the run if it fails):
      both. (d) two small pairs byte-identical to ``--device cpu`` (its run
      in a CPU worker). (e) each consensus's identity to the truth beside
      row_col's, recorded, not gated.
+ 20. the dense boxes of ``pair-decode --method split|align`` (each box
+     decoded whole, by the by-row kernel or the gamma and level kernels;
+     ``dense_phase``). (a) phase 3's 8 pairs with ``--method split`` and
+     ``--method align``, each under ``--algorithm beam`` and ``prefix``;
+     (b) phase 10's bonito and flip-flop pairs with each method under
+     ``--algorithm beam`` (each run: counts zeroed just before, read just
+     after, the path's kernels launched; 8 records, no skip); (c) in the
+     card's workers during phase 2 (``dense_job``, one a kind, its boxes
+     made once): the by-row kernel bit-equal to its plain version on pair
+     0's first DENSE_SPLIT_BOXES split boxes whole (shared memory) and on
+     the widest align box cut to its first DENSE_ROWS rows (global
+     scratch), per kind; the gamma kernel's wide instance on dense CTC
+     boxes and the level kernel on their search (every level's outputs):
+     split and ~1000-wide align boxes (rows in shared memory under 48 KB),
+     the widest align box cut to its first DENSE_PREFIX_ROWS rows (shared
+     memory past 48 KB) and a split box at ``--window DENSE_WIDE_WINDOW``
+     cut the same way (global scratch); (d) two
+     small pairs with each method byte-identical to ``--device cpu``
+     (runs in CPU workers); (e) the by-row kernel's ms per dense-box wave
+     of each run and its storage path, the gamma kernel's ms over each
+     prefix run's launches (CUDA events around each launch in the runs
+     themselves), the level kernel's ms a launch on the widest align
+     search, and each CTC consensus's identity to the truth beside phase
+     3's, recorded, not gated.
 
 ``python3 chip_smoke.py --first-look`` runs only a short first check of
 the CTC kernels and the train step (``first_look``), ``--first-look dp``
@@ -321,22 +347,26 @@ first, ~2 minutes), ``--first-look gamma`` the gamma kernel alone
 (``first_look_gamma``: builds, ``cuda`` tests, phase 18(f), timings and
 clocks of both instances, GAMMA_INSTANCES; ~1 minute), ``--first-look
 row`` phase 19 alone (``first_look_row``: the by-row kernel's build and
-``cuda`` tests, then ``row_phase`` on inputs made from the same seeds);
+``cuda`` tests, then ``row_phase`` on inputs made from the same seeds),
+``--first-look split`` phase 20 alone (``first_look_split``: the by-row,
+gamma and level kernels' builds and ``cuda`` tests on dense boxes, then
+``dense_phase`` with its checks and CPU references in this process);
 none prints a result. ``--parent DIR`` (a ``git
 archive`` of the parent commit, unpacked) has phases 10, 12 and 18, or
 ``--first-look dp`` / ``prefix``, time that tree's Viterbi, acceptor and
 prefix-level kernels in turns with this checkout's.
 
-Worker processes: phase 2's checks and phase 17(a)'s graveyard cases run
-in CARD_WORKERS processes that share the card, started before the build
-(they reach the card meanwhile) and stopped at the end of phase 2, while
-this process waits (nothing is
+Worker processes: phase 2's checks, phase 17(a)'s graveyard cases and
+phase 20(c)'s dense-box checks run in CARD_WORKERS processes that share
+the card, started before the build (they reach the card meanwhile) and
+stopped at the end of phase 2, while this process waits (nothing is
 timed meanwhile: each number of the kernels line is taken here, alone on
 the card). The CPU references (the ``--device cpu`` runs of phases 6, 10,
-12 and 18(d), phase 16's ``benchmark`` and phase 17's trie) run in
-CPU_WORKERS processes that see no card, beside the whole run, on inputs
-made from the same seeds as the card's (their digests must agree). A
-failure in a worker fails the run; every worker is stopped on exit.
+12, 18(d), 19(d) and 20(d), phase 16's ``benchmark`` and phase 17's trie)
+run in CPU_WORKERS processes that see no card, beside the whole run, on
+inputs made from the same seeds as the card's (their digests must
+agree). A failure in a worker fails the run; every worker is stopped on
+exit.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each kernel instance with the model kinds it ran, and with
@@ -1629,6 +1659,9 @@ def cpu_reference_jobs():
                             ("--algorithm", "prefix"))
     refs["row"] = cpu_job(cpu_pair_ref, "poreover", 2, ROW_SEED, 250, 320,
                           ("--beam_search_method", "row"))
+    for m in DENSE_METHODS:
+        refs[m] = cpu_job(cpu_pair_ref, "poreover", 2, DENSE_SEED, 250, 320,
+                          ("--method", m))
     return refs
 
 
@@ -1677,11 +1710,14 @@ def zero_counts():
     from poreover_tpu_torch.ops import beam1d
     from poreover_tpu_torch.ops import box_beam as bb
     from poreover_tpu_torch.ops import ctc
+    from poreover_tpu_torch.ops import gamma as gm
     from poreover_tpu_torch.ops import pair_beam_batch as pbb
+    from poreover_tpu_torch.ops import pair_prefix as pps
     from poreover_tpu_torch.ops import pair_row_beam as prb
     from poreover_tpu_torch.ops import viterbi as tv
 
     prb.launch_count = 0
+    gm.launch_count = pps.launch_count = 0
     pbb.launch_count = pbb.single_launch_count = 0
     pbb.exact_launch_count = 0
     bb.box_launch_count = 0
@@ -4379,6 +4415,463 @@ def first_look_row():
                                          cpu_ref)}))
 
 
+# ---- phase 20: the dense boxes of pair-decode --method split|align
+DENSE_SEED = 32  # phase 20(d): two small pairs (both with anchors) vs the CPU
+DENSE_SPLIT_BOXES = 3  # pair 0's whole split boxes held per kind
+DENSE_ROWS = 200  # rows of the widest align box held, at its width
+DENSE_GAMMA_SPLIT = 4  # pair 0's split boxes the gamma kernel is held on
+# align boxes of about this width the gamma kernel is held on too (two)
+DENSE_GAMMA_ALIGN_W = 1000
+DENSE_LEVELS = 30  # first levels of the align boxes' search held and timed
+# rows of the widest align box and of the wide split box the gamma and
+# level kernels are held on, at their width
+DENSE_PREFIX_ROWS = 400
+# pair 0's first split box at this --window (12000 x 11813) is too wide
+# for a CTA's shared memory: the gamma DP's wide instance in global scratch
+DENSE_WIDE_WINDOW = 12000
+DENSE_METHODS = ("split", "align")
+
+
+def dense_boxes_of(d, r1, r2, kind, method, window=None):
+    """The port's stages for one pair under ``--method method`` (and
+    ``--window window``) up to the 2D searches: the pair's dense by-row
+    workloads [(y1, y2, None)] (the boxes' lines printed to stderr are
+    dropped)."""
+    from poreover_tpu_torch.cli import build_parser
+    from poreover_tpu_torch.decoding.pair import pair_decode_helper
+
+    args = build_parser().parse_args(
+        ["pair-decode", r1, r2, "--dir", d, "--basecaller",
+         BASECALLER[kind], "--reverse_complement", "--method", method,
+         "--device", DEVICE]
+        + ([] if window is None else ["--window", str(window)]))
+    got = []
+    with contextlib.redirect_stderr(io.StringIO()):
+        pair_decode_helper(args, _workload_sink=lambda *a: got.append(a))
+    if not got:
+        fail(f"--method {method}: pair {r1} {r2} has no box to search")
+    return got[0][0]
+
+
+def dense_cases(kind):
+    """Phase 20(c)'s inputs of the kind, from phase 3's seed (phase 10's
+    pairs for bonito and flip-flop), as by-row workloads (y1, y2, None):
+    pair 0's split boxes, the align boxes of the 8 pairs and, for CTC,
+    pair 0's first split box at ``--window DENSE_WIDE_WINDOW``."""
+    from poreover_tpu_torch.sim import write_pairs
+
+    with tempfile.TemporaryDirectory() as d:
+        pairs_txt, _ = write_pairs(d, 8, seed=7, lo=5200, hi=8200,
+                                   kind=kind)
+        files = pair_files(pairs_txt)
+        split = dense_boxes_of(d, *files[0], kind, "split")
+        align = [b for r1, r2 in files
+                 for b in dense_boxes_of(d, r1, r2, kind, "align")]
+        wide = dense_boxes_of(d, *files[0], kind, "split",
+                              DENSE_WIDE_WINDOW)[0] \
+            if kind == "poreover" else None
+    return split, align, wide
+
+
+def full_envelopes(wls):
+    """The prefix search's dense workloads: (y1, y2, [[0, V]] * U)."""
+    return [(y1, y2, np.tile(np.array([0, len(y2)], np.int64),
+                             (len(y1), 1))) for y1, y2, *_ in wls]
+
+
+def dense_job(kind):
+    """Phase 20(c), in a card worker: the kind's dense boxes made once
+    (``dense_cases``), the by-row kernel held on them
+    (``dense_row_checks``) and, for CTC, the gamma DP and the level
+    kernel (``dense_prefix_checks``). Returns what was held."""
+    split, align, wide = dense_cases(kind)
+    out = dense_row_checks(kind, split, align)
+    if kind == "poreover":
+        out["prefix"] = dense_prefix_checks(split, align, wide)
+    return out
+
+
+def dense_row_checks(kind, split, align):
+    """The by-row kernel against its plain version on dense boxes
+    (``compare_rows``): pair 0's first DENSE_SPLIT_BOXES split boxes
+    whole (storage in shared memory), and the widest align box of the 8
+    pairs cut to its first DENSE_ROWS rows at its width (storage in
+    global scratch)."""
+    from poreover_tpu_torch.ops import pair_row_beam as prb
+    from poreover_tpu_torch.ops.beam2d import RM_WB
+
+    model = KIND_MODEL[kind]
+    wide = max(align, key=lambda b: len(b[1]))
+    out = {"max_abs_err": 0.0}
+    for name, wls, n_rows, path in (
+            (f"{DENSE_SPLIT_BOXES} whole split boxes",
+             split[:DENSE_SPLIT_BOXES], None, "shared"),
+            (f"the widest align box ({len(wide[0])} x {len(wide[1])}), "
+             f"first {DENSE_ROWS} rows", [wide], [DENSE_ROWS], "global")):
+        prep = prb.prepare_rows(wls, device=DEVICE, model=model,
+                                n_rows=n_rows)
+        if prb.storage_path(prep) != path:
+            fail(f"phase 20 {kind}: {name} take the {prb.storage_path(prep)}"
+                 f" path, not {path}")
+        _, _, err = compare_rows(f"phase 20(c) {kind} dense, {name}, widest "
+                                 f"window {int(prep['meta'][:, RM_WB].max())}",
+                                 prep)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out[path] = name
+    return out
+
+
+def dense_prefix_checks(split, align, wide):
+    """The gamma kernel's wide instance and the level kernel against
+    their plain versions on dense CTC boxes: the gamma DP's G and
+    gamma(0,0) bit for bit, every level's outputs of the search's first
+    DENSE_LEVELS levels (all of the split boxes'). The boxes: pair 0's
+    first DENSE_GAMMA_SPLIT split boxes and the two align boxes nearest
+    DENSE_GAMMA_ALIGN_W columns wide (rows in shared memory under the
+    default 48 KB); the widest align box (the widest band of the align
+    run's searches) cut to its first DENSE_PREFIX_ROWS rows at its width
+    (shared memory past 48 KB); the first split box at ``--window
+    DENSE_WIDE_WINDOW`` cut the same way (global scratch). Returns what
+    was held."""
+    import torch
+    from poreover_tpu_torch.ops import gamma as gm
+
+    def cut(b):
+        return b[0][:DENSE_PREFIX_ROWS], b[1], None
+
+    widest = max(align, key=lambda b: len(b[1]))
+    near = sorted(align, key=lambda b: abs(len(b[1]) - DENSE_GAMMA_ALIGN_W))
+    cases = (("split", split[:DENSE_GAMMA_SPLIT], None, "shared"),
+             ("align", near[:2], DENSE_LEVELS, "shared"),
+             (f"widest align, first {DENSE_PREFIX_ROWS} rows", [cut(widest)],
+              DENSE_LEVELS, "opt-in shared"),
+             (f"--window {DENSE_WIDE_WINDOW} split, first "
+              f"{DENSE_PREFIX_ROWS} rows", [cut(wide)], DENSE_LEVELS,
+              "global"))
+    lib = gm.load_kernel()
+    out = {}
+    for name, boxes, n_levels, where in cases:
+        wls = full_envelopes(boxes)
+        prep = gm.prepare_gamma(wls, device=DEVICE)
+        W = prep["W_max"]
+        smem = 4 * lib.pair_gamma_wide_floats(W)
+        got = gm.wide_storage(W)
+        if got == "shared" and smem > 48 * 1024:
+            got = "opt-in shared"
+        if gm.instance_for(W) != "wide" or got != where:
+            fail(f"phase 20(c) gamma, {name} boxes (W {W}): the "
+                 f"{gm.instance_for(W)} instance, rows in {got}, not the "
+                 f"wide one in {where}")
+        same_gamma(f"phase 20(c) gamma wide, {name} boxes, rows in {where}",
+                   prep, gm.gamma_cuda(prep), gm.gamma_plain(prep)[1:])
+        tk, tpl = [], []
+        k_res, _, n_k = clocked_search(wls, n_levels, trace=tk)
+        p_res, _, n_p = clocked_search(wls, n_levels, route="plain",
+                                       trace=tpl)
+        if k_res != p_res or n_k != n_p or not all(
+                np.array_equal(a.view(np.int32), b.view(np.int32))
+                for a, b in zip(tk, tpl)):
+            fail(f"phase 20(c) levels, {name} boxes: the level kernel "
+                 "differs from its plain version")
+        torch.cuda.synchronize()
+        shapes = [f"{len(y1)}x{len(y2)}" for y1, y2, _ in wls]
+        log(f"  phase 20(c) dense {name} boxes {shapes}: gamma wide "
+            f"instance (W {W}, {smem} B of rows a CTA, in {where} memory) "
+            f"bit-equal to the plain version; {n_k} levels of the level "
+            "kernel bit-equal")
+        out[name] = dict(W=W, rows_in=where, levels=n_k)
+    return out
+
+
+@contextlib.contextmanager
+def recorded(mod, name, launch, into):
+    """Inside the block each call of ``mod.name`` appends its first
+    argument (the prepared launch) and two CUDA events to ``into``: those
+    recorded just before and after its call of ``launch`` of the module's
+    kernel library, on the stream the kernel goes to. The span is the
+    kernel's time in the run itself, without the wrapper's checks,
+    allocations and uploads (the host enqueues the kernel within
+    microseconds of the first event)."""
+    import torch
+
+    inner, lib = getattr(mod, name), mod.load_kernel()
+    inner_launch = getattr(lib, launch)
+    spans = []
+
+    def timed_launch(*a):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        err = inner_launch(*a)
+        e1.record()
+        spans.append((e0, e1))
+        return err
+
+    def rec(*a, **k):
+        n = len(spans)
+        out = inner(*a, **k)
+        ((e0, e1),) = spans[n:]
+        into.append((a[0], e0, e1))
+        return out
+
+    setattr(mod, name, rec)
+    setattr(lib, launch, timed_launch)
+    try:
+        yield into
+    finally:
+        setattr(mod, name, inner)
+        setattr(lib, launch, inner_launch)
+
+
+def dense_run(d, pairs_txt, kind, method, algorithm):
+    """One ``pair-decode --method method --algorithm algorithm`` run of
+    ``pairs_txt`` (``--threads 8``; counts zeroed just before, read just
+    after), its box lines kept from stderr. Gates: 8 records, no skip,
+    the kernels of its path launched. Returns a dict: consensi, wall,
+    stages, launches, boxes, and its by-row and gamma launches (each
+    prep and its ms)."""
+    from poreover_tpu_torch.ops import gamma as gm
+    from poreover_tpu_torch.ops import pair_prefix as pps
+    from poreover_tpu_torch.ops import pair_row_beam as prb
+
+    zero_counts()
+    pps.levels_run.clear()
+    row_preps, gamma_preps = [], []
+    err = io.StringIO()
+    with recorded(prb, "launch_prepared", "pair_row_beam_launch",
+                  row_preps), \
+            recorded(gm, "gamma_cuda", "pair_gamma_launch", gamma_preps), \
+            contextlib.redirect_stderr(err):
+        cons, _, rows, wall, tm = pair_decode_cli(
+            d, pairs_txt, BASECALLER[kind], f"{method}_{algorithm}",
+            ("--method", method, "--algorithm", algorithm))
+    n_box = sum("Basecalling box" in x for x in err.getvalue().splitlines())
+    skipped = [r for r in rows if len(r) > 2 and r[-1] != "0"]
+    if len(cons) != 8 or len(rows) != 8 or skipped:
+        fail(f"phase 20 {kind} --method {method} --algorithm {algorithm}: "
+             f"{len(cons)} consensus records, log rows {rows}")
+    n = dict(row=prb.launch_count, gamma=gm.launch_count,
+             level=pps.launch_count)
+    need = ("row",) if algorithm == "beam" else ("gamma", "level")
+    if any(n[k] < 1 for k in need):
+        fail(f"phase 20 {kind} --method {method} --algorithm {algorithm}: "
+             f"launches {n}")
+    log(f"phase 20 {kind} pair-decode --method {method} --algorithm "
+        f"{algorithm}: 8 pairs, {n_box} boxes, launches {n}, end-to-end "
+        f"{wall:.2f} s ({8 / wall:.2f} pairs/s); stages "
+        + " ".join(f"{k}={v:.3f}s" for k, v in tm.items())
+        + (f"; {sum(pps.levels_run)} levels over {len(pps.levels_run)} "
+           f"searches (most {max(pps.levels_run)})"
+           if algorithm == "prefix" else ""))
+    spans = [[(p, e0.elapsed_time(e1)) for p, e0, e1 in x]
+             for x in (row_preps, gamma_preps)]
+    return dict(cons=cons, wall=wall, stages=tm, launches=n, boxes=n_box,
+                row=spans[0], gamma=spans[1])
+
+
+def dense_phase(gpu, truth, cons_full, checks, cpu_refs):
+    """Phase 20: ``pair-decode --method split|align`` at full size, each
+    box decoded densely. (a) phase 3's 8 CTC pairs with each method under
+    ``--algorithm beam`` and ``prefix``; (b) phase 10's bonito and
+    flip-flop pairs with each method under ``--algorithm beam`` (each run:
+    ``dense_run``'s gates); (c) ``checks``: the kernels held to their
+    plain versions on dense boxes in the card's workers
+    (``dense_job``); (d) two small pairs with
+    each method byte-identical to ``--device cpu`` (``cpu_refs``, run in
+    CPU workers); (e) the by-row kernel's ms per dense-box wave of each
+    run and its storage path, the gamma kernel's wide instance per launch
+    (``recorded``'s events around each launch in the runs), the level
+    kernel's ms per launch on the align boxes' largest search's first
+    DENSE_LEVELS levels, and each CTC consensus's identity to the truth
+    beside phase 3's (``cons_full``; none in the first look), recorded,
+    not gated. Returns {kernel: {key: value}} to add to the kernels
+    line's entries."""
+    import torch
+    from poreover_tpu_torch.ops import gamma as gm
+    from poreover_tpu_torch.ops import pair_row_beam as prb
+    from poreover_tpu_torch.ops.beam2d import RM_R, RM_WB
+    from poreover_tpu_torch.sim import write_pairs
+
+    t20 = time.perf_counter()
+    runs = {}
+    for kind, algorithms in (("poreover", ("beam", "prefix")),
+                             ("bonito", ("beam",)), ("flipflop", ("beam",))):
+        with tempfile.TemporaryDirectory() as d:
+            pairs_txt, truth_k = write_pairs(d, 8, seed=7, lo=5200, hi=8200,
+                                             kind=kind)
+            for method in DENSE_METHODS:
+                for alg in algorithms:
+                    runs[kind, method, alg] = dense_run(d, pairs_txt, kind,
+                                                        method, alg)
+    for kind in ("poreover", "bonito", "flipflop"):
+        checked = checks[kind]
+        log(f"  phase 20(c) by-row kernel, {kind}: bit-equal on "
+            f"{checked['shared']} (shared memory) and {checked['global']} "
+            "(global scratch)")
+    log(f"  phase 20(c) gamma wide instance and level kernel: "
+        f"{checks['poreover']['prefix']}")
+    # (d) two small pairs per method, the card against the CPU
+    with tempfile.TemporaryDirectory() as d:
+        spairs, _ = write_pairs(d, 2, seed=DENSE_SEED, lo=250, hi=320)
+        dig = digest(d, sorted(os.listdir(d)))
+        for method in DENSE_METHODS:
+            with contextlib.redirect_stderr(io.StringIO()):
+                got = pair_decode_cli(d, spairs, "poreover", f"c_{method}",
+                                      ("--method", method))
+            if len(got[0]) != 2:
+                fail(f"phase 20(d) --method {method}: {len(got[0])} records")
+            ref = same_as_cpu_ref(
+                f"phase 20(d) --method {method}", dig,
+                cpu_refs[method], {s: os.path.join(d, f"c_{method}{s}")
+                                   for s in (".1d.fasta", ".2d.fasta",
+                                             ".log")})
+            log(f"phase 20(d) two small pairs, --method {method}: "
+                f".1d/.2d.fasta and .log byte-identical to --device cpu "
+                f"(card {got[3]:.2f} s, cpu {ref[2]:.2f} s)")
+    # (e) the kernels' times on the runs' launches
+    extra = {"row": {}, "gamma": {}, "level": {}}
+    for (kind, method, alg), r in runs.items():
+        if alg != "beam":
+            continue
+        ((prep, ms),) = r["row"]  # one wave: 8 pairs at --threads 8
+        m = prep["meta"]
+        path = prb.storage_path(prep)
+        log(f"  [{gpu}] by-row kernel, {kind} --method {method}: {ms:.1f} "
+            f"ms for the wave's {len(m)} dense boxes in one launch (storage "
+            f"{path}; widest window {int(m[:, RM_WB].max())}, median "
+            f"{int(np.median(m[:, RM_WB]))}; rows per box median "
+            f"{int(np.median(m[:, RM_R]))}, most {int(m[:, RM_R].max())})")
+        extra["row"].setdefault(KIND_MODEL[kind], {}).update({
+            f"dense_{method}_ms": ms, f"dense_{method}_storage": path,
+            f"dense_{method}_boxes": len(m),
+            f"dense_{method}_launches": r["launches"]["row"],
+            f"dense_{method}_e2e_s": r["wall"]})
+    for method in DENSE_METHODS:
+        r = runs["poreover", method, "prefix"]
+        preps = [p for p, _ in r["gamma"]]
+        ms = [t for _, t in r["gamma"]]
+        bounds = [prefix_gamma_bound_ms(p)[0] for p in preps]
+        insts = sorted({gm.instance_for(p["W_max"]) for p in preps})
+        stores = sorted({gm.wide_storage(p["W_max"]) for p in preps})
+        log(f"  [{gpu}] gamma kernel, --method {method} --algorithm prefix: "
+            f"{len(preps)} launches (instances {insts}, wide rows in "
+            f"{stores}), W {min(p['W_max'] for p in preps)}-"
+            f"{max(p['W_max'] for p in preps)}: {sum(ms):.2f} ms in all, "
+            f"most {max(ms):.3f} ms a launch; bytes bound {sum(bounds):.4f} "
+            f"ms in all")
+        extra["gamma"].update({
+            f"dense_{method}_ms": sum(ms), f"dense_{method}_max_ms": max(ms),
+            f"dense_{method}_launches": r["launches"]["gamma"],
+            f"dense_{method}_bound_ms": sum(bounds),
+            f"dense_{method}_instances": insts,
+            f"dense_{method}_e2e_s": r["wall"]})
+        extra["level"].update({
+            f"dense_{method}_launches": r["launches"]["level"],
+            f"dense_{method}_e2e_s": r["wall"]})
+        if method == "align":
+            big = max(preps, key=lambda p: p["W_max"])
+            wls = [(big["y"][m[gm.M_O1]:m[gm.M_O1] + m[gm.M_U]].cpu().numpy(),
+                    big["y"][m[gm.M_O2]:m[gm.M_O2] + m[gm.M_V]].cpu().numpy(),
+                    big["env"][m[gm.M_EOFF]:m[gm.M_EOFF] + m[gm.M_U]]
+                    .cpu().numpy().astype(np.int64)) for m in big["meta"]]
+            _, l_ms, l_n = clocked_search(wls, DENSE_LEVELS)
+            l_bound, l_by = prefix_level_bound_ms(big)
+            log(f"  [{gpu}] level kernel, the align boxes' widest search "
+                f"({len(wls)} boxes, W {big['W_max']}): {l_ms:.4f} ms a "
+                f"launch over its first {l_n} levels (bound {l_bound:.4f} "
+                f"ms, {l_by})")
+            extra["level"].update(dense_align_ms=l_ms,
+                                  dense_align_bound_ms=l_bound)
+    ids = {}
+    for method in DENSE_METHODS:
+        for alg in ("beam", "prefix"):
+            ids[method, alg] = [identity(c, t) for c, t in
+                                zip(runs["poreover", method, alg]["cons"],
+                                    truth)]
+    line = "  identity to the truth, split beam / prefix, align beam / prefix"
+    full = [None] * 8
+    if cons_full is not None:
+        line += " / envelope (phase 3)"
+        full = [identity(c, t) for c, t in zip(cons_full, truth)]
+    log(line + ": " + "  ".join(
+        "/".join(f"{ids[k][i]:.4f}" for k in ids)
+        + ("" if full[i] is None else f"/{full[i]:.4f}") for i in range(8))
+        + " (recorded, not gated)")
+    for kind in ("bonito", "flipflop"):
+        log(f"  {kind} consensus lengths, split / align: " + " ".join(
+            f"{len(a)}/{len(b)}" for a, b in zip(
+                runs[kind, "split", "beam"]["cons"],
+                runs[kind, "align", "beam"]["cons"])))
+    extra["level"]["dense_identity_to_truth"] = {
+        f"{m} {a}": v for (m, a), v in ids.items()}
+    torch.cuda.synchronize()
+    log(f"  phase 20: {time.perf_counter() - t20:.0f} s")
+    return extra
+
+
+def dense_check_jobs(job):
+    """Phase 20(c)'s checks as jobs (``card_job``, or ``InProcess`` in the
+    first look)."""
+    return {k: job(dense_job, k) for k in ("poreover", "bonito",
+                                          "flipflop")}
+
+
+def first_look_split():
+    """``--first-look split``: phase 20 alone (a few minutes): the builds
+    of the by-row, gamma and level kernels, their ``cuda`` tests on dense
+    boxes, then ``dense_phase`` on inputs made from the same seeds (its
+    checks and CPU references in this process; no envelope consensus
+    beside the identities). Prints the kernels line's phase-20 keys, no
+    result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, HERE)
+    from poreover_tpu_torch import build, native
+    from poreover_tpu_torch.ops import gamma as gm
+    from poreover_tpu_torch.ops import pair_prefix as pps
+    from poreover_tpu_torch.ops import pair_row_beam as prb
+    from poreover_tpu_torch.sim import write_pairs
+
+    gpu = gpu_line()
+    log(gpu)
+    log(sys.version.split()[0], torch.__version__, torch.version.cuda)
+    t0 = time.perf_counter()
+    loads = [native.load, prb.load_kernel, gm.load_kernel, pps.load_kernel,
+             lambda: build.build_kernel("viterbi"),
+             lambda: build.build_kernel("latency")]
+    ths = [threading.Thread(target=f) for f in loads]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join()
+    for f in loads:  # raises here if a build failed in its thread
+        f()
+    log(f"build {time.perf_counter() - t0:.1f} s")
+    for kernel in ("pair_row_beam", "pair_gamma", "pair_prefix"):
+        for line in build.ptxas_report(kernel):
+            log(f"ptxas {kernel}: {line}")
+    tests = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
+         "-p", "no:cacheprovider", "-p", "no:warnings", "--tb=short", "-k",
+         "dense or past_shared or align_width or gamma or level",
+         os.path.join(HERE, "tests", "test_torch_row_kernel.py"),
+         os.path.join(HERE, "tests", "test_torch_kernel.py")],
+        capture_output=True, text=True, cwd=HERE)
+    log(tests.stdout.strip().splitlines()[-1])
+    if tests.returncode != 0:
+        fail(f"the dense-box tests: {tests.stdout[-4000:]}"
+             f"{tests.stderr[-2000:]}")
+    checks = {k: j.result() for k, j in dense_check_jobs(InProcess).items()}
+    cpu_refs = {m: InProcess(cpu_pair_ref, "poreover", 2, DENSE_SEED, 250,
+                             320, ("--method", m)) for m in DENSE_METHODS}
+    with tempfile.TemporaryDirectory() as d:
+        _, truth = write_pairs(d, 8, seed=7, lo=5200, hi=8200)
+    log(json.dumps({"phase 20": dense_phase(gpu, truth, None, checks,
+                                            cpu_refs)}))
+
+
 def build_all():
     """Phase 1: the host runtime, the nine kernels, the instrumented
     builds of seven of them, and the latency probe (``csrc/latency.cu``), one compiler
@@ -4474,6 +4967,8 @@ def main():
                                         "cases")
     jobs["acceptor"] = card_job(compare_acceptor_cases)
     jobs["bonito", "cases"] = card_job(kind_phase2_job, "bonito", "cases")
+    dense_jobs = dense_check_jobs(card_job)  # phase 20(c)
+    jobs.update({("dense", k): j for k, j in dense_jobs.items()})
     cpu_refs = cpu_reference_jobs()
 
     stats = {"max_abs_err": 0.0}
@@ -4517,11 +5012,15 @@ def main():
                                                "flipflop")}
     for job in exact_jobs.values():
         job.wait()
+    dense_checks = {k: j.result() for k, j in dense_jobs.items()}
     stop_workers("card")
     log(f"  the card's workers: {len(jobs)} jobs (phase 17's graveyard "
         f"cases among them), {sum(j.seconds for j in jobs.values()):.0f} s "
         f"of job time in {CARD_WORKERS} processes, "
         f"{time.perf_counter() - t2:.0f} s of wall time")
+    log("  the jobs' seconds: " + ", ".join(
+        f"{'/'.join(k) if isinstance(k, tuple) else k} {j.seconds:.1f}"
+        for k, j in sorted(jobs.items(), key=lambda kj: -kj[1].seconds)))
     done("phase 2")
 
     # ---- phase 3: pair-decode at full size, through the CLI
@@ -4939,6 +5438,18 @@ def main():
     del row_waves, ctc_boxes
     done("phase 19")
 
+    # ---- phase 20: the dense boxes of pair-decode --method split|align
+    dense = dense_phase(gpu, truth3, cons_full, dense_checks,
+                        {m: cpu_refs[m] for m in DENSE_METHODS})
+    for e in row_entries:
+        e.update(dense["row"][e["kinds"][0]])
+        e["max_abs_err"] = max(e["max_abs_err"], dense_checks[next(
+            k for k, m in KIND_MODEL.items()
+            if m == e["kinds"][0])]["max_abs_err"])
+    prefix_entries[0].update(dense["gamma"])
+    prefix_entries[1].update(dense["level"])
+    done("phase 20")
+
     kernels = [{
         "name": "pair_beam_batch", "kinds": ["ctc"], "route": "cuda",
         "source": "poreover_tpu_torch/csrc/pair_beam_batch.cu",
@@ -5162,6 +5673,8 @@ if __name__ == "__main__":
         first_look_gamma()
     elif argv == ["--first-look", "row"]:
         first_look_row()
+    elif argv == ["--first-look", "split"]:
+        first_look_split()
     elif argv == ["--first-look", "dp"]:
         first_look_dp()
     elif argv:

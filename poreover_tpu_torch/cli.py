@@ -4,12 +4,13 @@ The five subcommands and the flag surface of ``poreover_tpu/cli.py`` (the
 reference CLI, poreover/__main__.py:19-99), plus ``--device`` on
 ``train``, ``call``, ``pair-decode`` and ``decode``. ``train`` trains a
 network (the CTC loss in the kernels of ``csrc/ctc.cu``), ``call`` runs
-it (and, with ``--decode``, the fused decode), ``pair-decode`` its
-envelope / row_col path for all three model kinds (``--single
-viterbi|beam``, ``--skip_matches``), ``decode`` all three model kinds
-(Viterbi, beam and prefix search) and ``benchmark`` scores FASTA / FASTQ
-against a reference on the host; flags outside the port so far exit with
-an error naming the ROADMAP item that ports them.
+it (and, with ``--decode``, the fused decode), ``pair-decode`` decodes
+pairs of all three model kinds with every flag of the JAX package
+(``--method envelope|split|align``, ``--algorithm beam|prefix``, every
+``--beam_search_method``, ``--single viterbi|beam``, ``--skip_matches``,
+``--exact``, ``--f64``), ``decode`` all three model kinds (Viterbi, beam
+and prefix search) and ``benchmark`` scores FASTA / FASTQ against a
+reference on the host.
 """
 from __future__ import annotations
 
@@ -199,11 +200,6 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _not_ported(what: str, item: str):
-    sys.exit(f"poreover-tpu-torch: {what} is not ported to PyTorch yet "
-             f"(ROADMAP item {item})")
-
-
 def _train(args):
     from .device import resolve_device
 
@@ -239,16 +235,7 @@ def _benchmark(args):
     benchmark(args)
 
 
-# pair-decode flags outside the ported main path: (flag, test, ROADMAP item)
-_PAIR_UNPORTED = [
-    ("--method split|align", lambda a: a.method != "envelope", "A13c"),
-]
-
-
 def _pair_decode(args):
-    for flag, test, item in _PAIR_UNPORTED:
-        if test(args):
-            _not_ported(f"pair-decode {flag}", item)
     if args.f64 and args.device != "cpu":
         # float64 runs the plain versions on the host, as the JAX
         # package's --f64 runs its engines there; asked for, not a fallback

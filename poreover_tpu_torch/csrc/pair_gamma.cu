@@ -45,9 +45,11 @@
 //   whose nodes all have an all -inf side is skipped. The log-add-exp is
 //   common.cuh:lse_flat, lse's bits without its early return.
 // A CTA takes one workload. Bands wider than kMaxWarpW (wider than any the
-// main path has, 13-83 cells) go to the CTA-wide instance (the first
-// design): a CTA per workload, the band across 256 threads, a CTA barrier
-// between the passes and the scan's levels.
+// main path has, 13-83 cells; the dense boxes of pair-decode --method
+// split|align) go to the CTA-wide instance (the first design): a CTA per
+// workload, the band across 256 threads, a CTA barrier between the passes
+// and the scan's levels, its rows in shared memory, or in global scratch
+// for bands over ~11k cells.
 #include "common.cuh"
 
 namespace {
@@ -301,6 +303,15 @@ __device__ void lse_scan(float* x, int n CLK_PARAM) {
   }
 }
 
+// floats of a CTA-wide workload's rows: five rows of W_max and the
+// cumsum's block totals (W/16 + W/256 + ... < W/15 + 4)
+__host__ __device__ inline long long wide_floats(int W_max) {
+  return 5LL * W_max + W_max / 15 + 8;
+}
+
+// The rows live in dynamic shared memory, or, when `scratch` is not null
+// (bands too wide for a CTA's shared memory), in the CTA's wide_floats
+// of global scratch; the same code reads them either way.
 __global__ void __launch_bounds__(kThreads)
     pair_gamma_wide_kernel(const float* __restrict__ y,
                            const int* __restrict__ env,
@@ -308,14 +319,15 @@ __global__ void __launch_bounds__(kThreads)
                            const float* __restrict__ S2,
                            const long long* __restrict__ meta, int A,
                            int W_max, float* __restrict__ G,
-                           float* __restrict__ g00) {
+                           float* __restrict__ g00, float* scratch) {
   extern __shared__ float smem[];
   const long long* m = meta + (long long)blockIdx.x * META_COLS;
   const long long U = m[M_U], o2 = m[M_O2], V = m[M_V];
   const long long eoff = m[M_EOFF], W = m[M_W];
   const int C = A + 1;
   const long long p = W + 2;  // the JAX row pads
-  float* gn = smem;           // the row below (u+1)
+  // the row below (u+1)
+  float* gn = scratch ? scratch + blockIdx.x * wide_floats(W_max) : smem;
   float* gup = gn + W_max;    // gamma(u+1, v)
   float* cc = gup + W_max;    // C = gamma(u+1, v+1) + inner
   float* rb = cc + W_max;     // C + cG2, flipped, then scanned
@@ -969,12 +981,15 @@ extern "C" int phase_clocks_read(unsigned long long* out, int n, int reset) {
 
 // Launches the DP of B packed workloads (ops/gamma.py: prepare_gamma) on
 // `stream`; returns a cudaError_t. `instance` (ops/gamma.py: instance_for):
-// 1 the warp instance (bands of up to kMaxWarpW cells), 2 the CTA-wide one.
+// 1 the warp instance (bands of up to kMaxWarpW cells), 2 the CTA-wide one,
+// whose rows go to `scratch` (B * pair_gamma_wide_floats(W_max) floats of
+// global memory) when it is not null, else to shared memory.
 extern "C" int pair_gamma_launch(const float* y, const int* env,
                                  const float* S1, const float* S2,
                                  const long long* meta, int B, int A,
                                  int W_max, float* G, float* g00,
-                                 int instance, cudaStream_t stream) {
+                                 int instance, float* scratch,
+                                 cudaStream_t stream) {
   if (B <= 0) return 0;
   if (A < 1 || A > kMaxA || W_max < 1 || instance < 1 || instance > 2 ||
       (instance == 1 && W_max > kMaxWarpW))
@@ -989,8 +1004,7 @@ extern "C" int pair_gamma_launch(const float* y, const int* env,
                             stream);
     return launch_warp<4>(y, env, S1, S2, meta, B, A, W_max, G, g00, stream);
   }
-  // five rows and the cumsum's block totals (W/16 + W/256 + ... < W/15 + 4)
-  const size_t smem = sizeof(float) * (5 * (size_t)W_max + W_max / 15 + 8);
+  const size_t smem = scratch ? 0 : sizeof(float) * wide_floats(W_max);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         pair_gamma_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -998,6 +1012,24 @@ extern "C" int pair_gamma_launch(const float* y, const int* env,
     if (err != cudaSuccess) return (int)err;
   }
   pair_gamma_wide_kernel<<<B, kThreads, smem, stream>>>(
-      y, env, S1, S2, meta, A, W_max, G, g00);
+      y, env, S1, S2, meta, A, W_max, G, g00, scratch);
   return (int)cudaGetLastError();
+}
+
+// Floats of a CTA-wide workload's rows at bands of W_max cells (its scratch
+// in global memory, or its dynamic shared memory).
+extern "C" long long pair_gamma_wide_floats(int W_max) {
+  return wide_floats(W_max);
+}
+
+// The most dynamic shared memory a CTA may take on the current device
+// (bytes), or -1.
+extern "C" int pair_gamma_smem_optin() {
+  int dev = 0, max_smem = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&max_smem,
+                             cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return -1;
+  return max_smem;
 }

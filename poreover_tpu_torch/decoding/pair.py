@@ -27,6 +27,16 @@ pair_decode.py:305-529):
      (ops/pair_row_beam.py), ``grid`` pair by pair on the host
      (decoding/replica2d.py), as the JAX package runs it.
 
+The reference's deprecated dense-box modes (reference pair_decode.py:
+337-354, 510-522) are here too: ``--method split`` cuts the pair into
+diagonal boxes of ``--window`` rows with no 1D stage, ``--method align``
+takes the boxes between the anchors of ``--skip_matches`` and keeps the
+anchors; each box is decoded densely (no envelope) by the by-row beam
+search, or by the pair prefix search under ``--algorithm prefix``, by the
+rules of the JAX package's ``_consensus_box_fn``. The dense boxes of a
+wave's pairs go to one launch of the by-row kernel, or to batched
+searches of ``PREFIX_BOX_WAVE`` boxes.
+
 Unlike the JAX package, which decodes bonito and flip-flop pairs (and
 every pair under ``--beam_search_method row``) one by one through its XLA
 engines, the port batches every kind: a pairs file keeps one queue of
@@ -71,6 +81,9 @@ from . import envelope as envelope_mod
 log = logging.getLogger("poreover_tpu_torch")
 
 LOG_COLUMNS = ["read1", "read2", "length1", "length2", "sequence_identity", "skipped"]
+
+# reference pair_decode.py:190: refuse prefix-search boxes above 1 GB
+MEM_LIMIT = 1_000_000_000
 
 
 def get_sequence_mapping(path, kind: str):
@@ -241,6 +254,33 @@ def pair_decode_helper(args, _workload_sink=None):
     y1 = model1.log_prob
     y2 = model2.log_prob
 
+    # ---- deprecated --method split: diagonal boxes, no 1D stage ----
+    # (reference pair_decode.py:337-354)
+    if args.method == "split":
+        box_ranges = []
+        u_step = args.window
+        for u in range(u_step, U, u_step):
+            box_ranges.append(
+                (u - u_step, u, int(V / U * (u - u_step)), int(V / U * u))
+            )
+        if box_ranges:
+            box_ranges.append((box_ranges[-1][1], U, box_ranges[-1][3], V))
+        else:
+            # U <= window: one box over the whole lattice
+            box_ranges.append((0, U, 0, V))
+
+        def _finish_split(basecalls):
+            return (
+                fasta_format(
+                    f"consensus;{args.method};{path1.stem};{path2.stem}",
+                    "".join(s for _, s in basecalls),
+                ),
+                summary,
+            )
+
+        return _dense_decode(args, kind, y1, y2, box_ranges, _finish_split,
+                             summary, _workload_sink)
+
     if not args.diagonal_envelope:
         # ---- stage 1: 1D basecalls ----
         _t0 = time.perf_counter()
@@ -300,9 +340,9 @@ def pair_decode_helper(args, _workload_sink=None):
 
         alignment_to_sequence = _alignment_to_sequence(alignment)
 
-    # ---- anchor boxes for --skip_matches ----
+    # ---- anchor boxes for --skip_matches / --method align ----
     # (reference pair_decode.py:412-452: 4-coordinate boxes over both axes)
-    if args.skip_matches:
+    if args.skip_matches or args.method == "align":
         anchor_ranges, anchor_type = get_anchors(
             alignment, matches=args.skip_threshold, indels=100
         )
@@ -328,6 +368,22 @@ def pair_decode_helper(args, _workload_sink=None):
                     },
                     pfile,
                 )
+
+        # ---- deprecated --method align: decode anchor boxes densely ----
+        if args.method == "align":
+            def _finish_align(basecalls):
+                joined = "".join(
+                    s for _, s in sorted(basecalls + basecall_anchors))
+                return (
+                    fasta_format(in_path[0], basecall1)
+                    + fasta_format(in_path[1], basecall2),
+                    fasta_format(
+                        f"consensus;{path1.stem};{path2.stem}", joined),
+                    summary,
+                )
+
+            return _dense_decode(args, kind, y1, y2, basecall_boxes,
+                                 _finish_align, summary, _workload_sink)
 
     # ---- stage 3: envelope ----
     _t0 = time.perf_counter()
@@ -419,6 +475,105 @@ def pair_decode_helper(args, _workload_sink=None):
     return _format_result(_consensus(args)([workload], args, kind)[0])
 
 
+def _dense_box(args, kind, y1, y2, b, b_tot, u1, u2, v1, v2):
+    """Box ``b`` (of boxes 0..``b_tot``) of ``--method split|align``, (u1,
+    u2, v1, v2) over the pair's lattice, by the rules of the JAX package's
+    ``_consensus_box_fn`` (reference parallel_decoder._beam_search_2d /
+    _prefix_search_2d, pair_decode.py:149-164, 188-209), up to its 2D
+    search: prints the box's line to stderr; returns its string when the
+    rules decide it (a box of at most one cell ``""``; one with no row,
+    or no column, the 1D prefix search of the other read's slice; under
+    ``--algorithm prefix`` ``""`` for a box over MEM_LIMIT, logged as an
+    error, or for one the JAX search raises on, ``pair_prefix.
+    workload_error``, logged as a warning), else the dense (y1, y2,
+    envelope) workload of its 2D search. ``--algorithm beam`` takes the
+    by-row search of the whole box, whatever ``--beam_search_method`` and
+    ``--exact`` say; what that search raises on the box (``beam2d.
+    workload_error``) is raised here, the pair's failure, as in the JAX
+    package."""
+    size = (u2 - u1 + 1) * (v2 - v1 + 1)
+    print(
+        f"\t {b}/{b_tot} Basecalling box {u1}-{u2}x{v1}-{v2} "
+        f"(size: {size} elements)...",
+        file=sys.stderr,
+    )
+    if size <= 1:
+        return ""
+    if (u2 - u1) < 1:
+        return _prefix_1d(args, y2[v1:v2])
+    if (v2 - v1) < 1:
+        return _prefix_1d(args, y1[u1:u2])
+    y1b, y2b = y1[u1:u2], y2[v1:v2]
+    if args.algorithm == "beam":
+        from ..ops.beam2d import workload_error
+
+        err = workload_error(y1b, y2b, None)
+        if err is not None:
+            raise err
+        return (y1b, y2b, None)
+    assert MODEL_STRING[kind] == "ctc"
+    if size * 8 > MEM_LIMIT:
+        log.error(
+            "Box too large to basecall %d-%d:%d-%d (size: %d elements)",
+            u1, u2, v1, v2, size,
+        )
+        return ""
+    from ..ops.pair_prefix import workload_error
+
+    env = np.tile(np.array([0, len(y2b)], dtype=np.int64), (len(y1b), 1))
+    if workload_error(y1b, y2b, env) is not None:
+        log.warning(
+            "Error while basecalling box %d-%d:%d-%d", u1, u2, v1, v2
+        )
+        return ""
+    return (y1b, y2b, env)
+
+
+def _prefix_1d(args, y) -> str:
+    """The 1D prefix search of a box's one read (``ops/prefix.py``, on
+    ``--device``; float64 under ``--f64``)."""
+    import torch
+
+    from ..ops.prefix import prefix_search_log
+
+    return prefix_search_log(
+        np.asarray(y), device=args.device,
+        dtype=torch.float64 if args.f64 else torch.float32)[0]
+
+
+def _dense_decode(args, kind, y1, y2, boxes, finish, summary,
+                  _workload_sink=None):
+    """``--method split|align``: the pair's dense ``boxes`` (u1, u2, v1,
+    v2) by ``_dense_box``, box by box; the workloads of their 2D searches
+    go to the sink (or, without one, to a wave of this pair alone, as
+    ``_dense_consensus`` decodes them). ``finish`` takes the boxes' (u1,
+    string) in order; returns its result, or None when the workloads were
+    sunk."""
+    items = [_dense_box(args, kind, y1, y2, i, len(boxes) - 1, *b)
+             for i, b in enumerate(boxes)]
+    wls = [it for it in items if not isinstance(it, str)]
+
+    def _finish(seqs):
+        it = iter(seqs)
+        return finish([(b[0], s if isinstance(s, str) else next(it))
+                       for b, s in zip(boxes, items)])
+
+    if not wls:
+        return _finish([])
+    if _workload_sink is not None:
+        _workload_sink(wls, _finish, summary, kind)
+        return None
+    return _finish(_dense_consensus(args)([wls], args, kind)[0])
+
+
+def _dense_consensus(args):
+    """The stage-4 decoder of ``--method split|align``'s dense boxes: the
+    by-row search (one launch for a wave's boxes) or, under ``--algorithm
+    prefix``, the pair prefix search (batches of ``PREFIX_BOX_WAVE``)."""
+    return (_prefix_box_consensus if args.algorithm == "prefix"
+            else _row_box_consensus)
+
+
 def _dtype(args):
     """The float type of the plain versions: float64 under ``--f64`` (the
     JAX package's x64 host run), else float32."""
@@ -449,6 +604,14 @@ def _check_workloads(args, workloads):
         err = workload_error(*wl)
         if err is not None:
             raise err
+
+
+def _wave_decoder(args):
+    """The stage-4 decoder of a wave's sunk workloads for ``args``: dense
+    boxes (``--method split|align``), anchored boxes or whole pairs."""
+    if args.method != "envelope":
+        return _dense_consensus(args)
+    return _box_consensus(args) if args.skip_matches else _consensus(args)
 
 
 def _consensus(args):
@@ -514,19 +677,29 @@ def _row_consensus(workloads, args, kind: str = "poreover", wave=None):
     if pending is not None:
         out.extend(fetch_prepared(*pending))
     timers.seconds["consensus_2d"] += time.perf_counter() - _t0
-    timers.add_work(
-        "consensus_2d",
-        float(sum(np.sum(env[:, 1] - env[:, 0]) for _, _, env in workloads)),
-    )
+    timers.add_work("consensus_2d", _row_cells(workloads))
     return out
 
 
+def _row_cells(workloads) -> float:
+    """The lattice cells the by-row search visits in (y1, y2, envelope)
+    workloads (a dense box's rows 1..U-1 whole)."""
+    from ..ops.beam2d import row_bounds
+
+    cells = 0
+    for y1, y2, env in workloads:
+        _, rs, re = row_bounds(len(y1), len(y2), env)
+        cells += int(np.sum(re - rs))
+    return float(cells)
+
+
 def _row_box_consensus(box_lists, args, kind: str = "poreover"):
-    """``--beam_search_method row --skip_matches``: the anchor boxes of a
-    wave's pairs (at most ``--threads`` pairs) in one launch. Returns one
-    list of box sequences per input pair, in order."""
+    """``--beam_search_method row --skip_matches``, and the dense boxes of
+    ``--method split|align``: the boxes of a wave's pairs (at most
+    ``--threads`` pairs) in one launch. Returns one list of box sequences
+    per input pair, in order."""
     wls = [wl for boxes in box_lists for wl in boxes]
-    log.info("anchored %s by-row consensus: %d boxes across %d pairs", kind,
+    log.info("%s by-row consensus of boxes: %d boxes across %d pairs", kind,
              len(wls), len(box_lists))
     seqs = iter(_row_consensus(wls, args, kind, wave=len(wls)))
     return [[next(seqs) for _ in boxes] for boxes in box_lists]
@@ -565,11 +738,12 @@ def _prefix_consensus(workloads, args, kind: str = "poreover"):
 
 
 def _prefix_box_consensus(box_lists, args, kind: str = "poreover"):
-    """``--algorithm prefix --skip_matches``: the anchor boxes of a wave's
+    """``--algorithm prefix --skip_matches``, and the dense boxes of
+    ``--method split|align --algorithm prefix``: the boxes of a wave's
     pairs, sorted by length, in batched searches of ``PREFIX_BOX_WAVE``
     boxes. Returns one list of box sequences per input pair, in order."""
     wls = [wl for boxes in box_lists for wl in boxes]
-    log.info("anchored %s prefix consensus: %d boxes across %d pairs", kind,
+    log.info("%s prefix consensus of boxes: %d boxes across %d pairs", kind,
              len(wls), len(box_lists))
     order = sorted(range(len(wls)),
                    key=lambda i: len(wls[i][0]) + len(wls[i][1]))
@@ -736,9 +910,8 @@ def pair_decode(args) -> None:
             queue = pending.pop(kind, [])
             if not queue:
                 return
-            consensus = (_box_consensus(args) if args.skip_matches
-                         else _consensus(args))
-            seqs = consensus([wl for _, wl, _, _ in queue], args, kind)
+            seqs = _wave_decoder(args)([wl for _, wl, _, _ in queue], args,
+                                       kind)
             for (idx, _, finish, _), seq in zip(queue, seqs):
                 results[idx] = finish(seq)
             emit_ready()

@@ -32,7 +32,9 @@ A batch of workloads (pairs or anchor boxes) is packed into flat tensors
 DP in one launch of the kernel (per workload a warp on the rows' chain
 and two warps computing ahead of it what does not depend on the row
 below; bands wider than MAX_WARP_W cells across a CTA) and raises if it
-does not build or launch; there is no fallback. For tensors on the CPU
+does not build or launch; there is no fallback (the wide instance keeps
+its rows in shared memory, or, for bands too wide for it, in global
+scratch: ``wide_storage``). For tensors on the CPU
 ``gamma_plain`` runs the same rows in lockstep over the batch, a few
 tensor ops per row. Both give what the
 prefix search reads, ``G[u, w] = gamma(u+1, env[u,0]+w+1)`` of the
@@ -109,7 +111,15 @@ def load_kernel(phase_clocks: bool = False):
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.pair_gamma_launch.restype = i
     lib.pair_gamma_launch.argtypes = [vp] * 5 + [i, i, i] + [vp] * 2 + [
-        i, vp]
+        i, vp, vp]
+    lib.pair_gamma_wide_floats.restype = ctypes.c_longlong
+    lib.pair_gamma_wide_floats.argtypes = [i]
+    lib.pair_gamma_smem_optin.restype = i
+    lib.pair_gamma_smem_optin.argtypes = []
+    lib.smem_optin = lib.pair_gamma_smem_optin()
+    if lib.smem_optin < 0:
+        raise RuntimeError("pair_gamma: the card's shared memory per CTA "
+                           "could not be read")
     if phase_clocks:
         lib.phase_clocks_read.restype = i
         lib.phase_clocks_read.argtypes = [
@@ -323,6 +333,16 @@ def _flatten_g(Gp, meta, prep):
     return out
 
 
+def wide_storage(W_max: int, lib=None) -> str:
+    """Where the CTA-wide instance keeps a launch's rows: ``shared`` when
+    a workload's (``pair_gamma_wide_floats`` of the kernel library ``lib``)
+    fit a CTA's shared memory on the card (``smem_optin``, read when the
+    library loads), else ``global`` scratch."""
+    lib = lib or load_kernel()
+    return ("shared" if 4 * lib.pair_gamma_wide_floats(W_max)
+            <= lib.smem_optin else "global")
+
+
 def instance_for(W_max: int) -> str:
     """The kernel instance a launch whose widest band is ``W_max`` cells
     takes: a warp's registers hold bands of up to MAX_WARP_W cells."""
@@ -334,7 +354,8 @@ def gamma_cuda(prep, instance: str | None = None):
     workloads (float32, on one CUDA device). Returns (G, gamma00) as
     ``gamma_plain`` does, without synchronising. The instance is
     ``instance_for`` the widest band; ``instance`` ("warp" or "wide")
-    forces it, for the card's checks."""
+    forces it, for the card's checks. The wide instance's rows go where
+    ``wide_storage`` puts them."""
     global launch_count
     dev = prep["device"]
     if dev.type != "cuda":
@@ -348,6 +369,10 @@ def gamma_cuda(prep, instance: str | None = None):
                          f"of {prep['W_max']} cells")
     lib = load_kernel()
     B = len(prep["meta"])
+    scratch = None
+    if instance == "wide" and wide_storage(prep["W_max"], lib) == "global":
+        scratch = torch.empty(B * lib.pair_gamma_wide_floats(prep["W_max"]),
+                              dtype=torch.float32, device=dev)
     G = torch.empty(max(prep["n_g"], 1), dtype=torch.float32, device=dev)
     g00 = torch.empty(B, dtype=torch.float32, device=dev)
     tensors = [prep["y"], prep["env"], prep["S1"], prep["S2"],
@@ -360,7 +385,8 @@ def gamma_cuda(prep, instance: str | None = None):
     with torch.cuda.device(dev):
         err = lib.pair_gamma_launch(
             *(t.data_ptr() for t in tensors), B, prep["A"], prep["W_max"],
-            G.data_ptr(), g00.data_ptr(), INSTANCES[instance], stream)
+            G.data_ptr(), g00.data_ptr(), INSTANCES[instance],
+            None if scratch is None else scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"pair_gamma kernel launch failed: CUDA error "
                            f"{err}")

@@ -12,6 +12,7 @@ alphabet in order); the cells differ only where the CPU's exp / log1p
 round differently, by at most 4 ulps on these cases.
 """
 import contextlib
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -224,6 +225,21 @@ def test_instance_choice(monkeypatch):
     monkeypatch.setattr(tg, "load_kernel", lambda *a: pytest.fail("load"))
     with pytest.raises(ValueError, match="no 'warp' instance"):
         tg.gamma_cuda(prep, instance="warp")
+
+
+def test_wide_instance_storage():
+    """The CTA-wide instance keeps a workload's rows in shared memory while
+    they fit the card's (227 KB on an H100: bands of up to 11468 cells),
+    else in global scratch; the rows' size and the limit are the kernel
+    library's."""
+    card = SimpleNamespace(smem_optin=232448,
+                           pair_gamma_wide_floats=lambda W: 5 * W + W // 15
+                           + 8)
+    assert tg.wide_storage(129, card) == "shared"
+    assert tg.wide_storage(6664, card) == "shared"
+    assert tg.wide_storage(11468, card) == "shared"
+    assert tg.wide_storage(11469, card) == "global"
+    assert tg.wide_storage(12000, card) == "global"
 
 
 def test_batch_equals_one_at_a_time():

@@ -23,7 +23,7 @@ from poreover_tpu_torch.ops import gamma as gm
 from poreover_tpu_torch.ops import pair_prefix as pps
 from poreover_tpu_torch.ops import pair_beam_batch as pbb
 from poreover_tpu_torch.sim import (
-    exact_style_cases, gamma_band_cases, stuttered,
+    exact_style_cases, gamma_band_cases, stuttered, template_pairs,
 )
 
 # the plain version runs many small ops: one intra-op thread is as fast
@@ -848,6 +848,89 @@ def test_gamma_kernel_passes_nan_on_on_card(cuda_device, instance):
         assert torch.equal(torch.isnan(a), nan), name
         msg = _bits_differ(name, a[~nan], b[~nan])
         assert not msg, msg
+
+
+def _dense(wls):
+    """(y1, y2, the full envelope [U, 2]) of each (y1, y2, _): the dense
+    boxes of ``pair-decode --method split|align --algorithm prefix``."""
+    return [(y1, y2, np.tile(np.array([0, len(y2)], np.int64),
+                             (len(y1), 1))) for y1, y2, *_ in wls]
+
+
+def _gamma_bits_equal(prep):
+    k = gm.gamma_cuda(prep)
+    p = gm.gamma_plain(prep)[1:]
+    torch.cuda.synchronize()
+    msg = "; ".join(m for m in (_bits_differ(n, a, b) for n, a, b in zip(
+        ("G", "gamma00"), k, p)) if m)
+    assert not msg, msg
+
+
+def _trace(rng, T):
+    x = rng.normal(size=(T, 5)) * 2
+    return (x - np.log(np.exp(x).sum(1, keepdims=True))).astype(np.float32)
+
+
+def _levels_bits_equal(wls, device, max_levels=None):
+    """The search's every level's outputs bit-equal to the plain
+    version's, and the labels equal."""
+    tk, tpl = [], []
+    k = pps.pair_prefix_search_batch(wls, device=device, trace=tk,
+                                     max_levels=max_levels)
+    p = pps.pair_prefix_search_batch(wls, device=device, trace=tpl,
+                                     route="plain", max_levels=max_levels)
+    assert k == p and len(tk) == len(tpl)
+    for a, b in zip(tk, tpl):
+        assert np.array_equal(a.view(np.int32), b.view(np.int32))
+
+
+@pytest.mark.cuda
+def test_gamma_wide_instance_on_dense_boxes(cuda_device):
+    """Dense envelopes of 130-520 columns take the CTA-wide instance, its
+    rows in shared memory under the default 48 KB: bit-equal to the
+    plain version."""
+    prep = gm.prepare_gamma(_dense(template_pairs("ctc", 17, 4, 18, 70)),
+                            device=cuda_device)
+    assert gm.instance_for(prep["W_max"]) == "wide"
+    assert gm.wide_storage(prep["W_max"]) == "shared"
+    _gamma_bits_equal(prep)
+
+
+@pytest.mark.cuda
+def test_wide_instance_at_align_width(cuda_device):
+    """Dense boxes of 300 rows by ~6000 columns, the width of the widest
+    ``--method align`` box: the wide instance's rows take ~120 KB of
+    shared memory (past the default 48 KB, and the gap cumsum's third
+    level of block totals), bit-equal to the plain version; the level
+    kernel's first 40 levels over them bit-equal too."""
+    rng = np.random.default_rng(29)
+    wls = _dense([(_trace(rng, 300), _trace(rng, V)) for V in (5990, 6100)])
+    prep = gm.prepare_gamma(wls, device=cuda_device)
+    assert gm.wide_storage(prep["W_max"]) == "shared"
+    assert 4 * gm.load_kernel().pair_gamma_wide_floats(prep["W_max"]) \
+        > 48 * 1024
+    _gamma_bits_equal(prep)
+    _levels_bits_equal(wls, cuda_device, max_levels=40)
+
+
+@pytest.mark.cuda
+def test_gamma_wide_instance_past_shared_memory(cuda_device):
+    """A dense box of 12 rows by 12000 columns is too wide for a CTA's
+    shared memory: the wide instance keeps its rows in global scratch,
+    bit-equal to the plain version."""
+    rng = np.random.default_rng(19)
+    prep = gm.prepare_gamma(_dense([(_trace(rng, 12), _trace(rng, 12000))]),
+                            device=cuda_device)
+    assert gm.wide_storage(prep["W_max"]) == "global"
+    _gamma_bits_equal(prep)
+
+
+@pytest.mark.cuda
+def test_level_kernel_on_dense_boxes(cuda_device):
+    """The search of dense boxes of ~150-500 columns: every level's outputs
+    bit-equal to the plain version's, and the labels equal."""
+    _levels_bits_equal(_dense(template_pairs("ctc", 21, 3, 18, 60)),
+                       cuda_device)
 
 
 @pytest.mark.cuda

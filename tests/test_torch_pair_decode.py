@@ -91,15 +91,6 @@ def test_two_read_form(runs):
     assert t.startswith(">consensus;s1_1;s1_2")
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--method", "split"], "A13"),
-])
-def test_unported_flags_exit(tmp_path, capsys, flags, item):
-    with pytest.raises(SystemExit, match=item):
-        torch_main(["pair-decode", "x.npy", "y.npy", "--device", "cpu",
-                    "--out", str(tmp_path / "o")] + flags)
-
-
 @pytest.mark.parametrize("flag", ["--exact", "--f64"])
 def test_exact_and_f64_write_the_jax_packages_files(runs, tmp_path, flag):
     """``--exact`` and ``--f64`` exited naming ROADMAP A11 before; now each

@@ -162,6 +162,24 @@ def test_global_storage_equals_shared(cuda_device, model):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("model", MODELS)
+@pytest.mark.parametrize("lo,hi,path", [(18, 26, "shared"),
+                                        (40, 60, "global")])
+def test_kernel_on_dense_boxes(cuda_device, model, lo, hi, path):
+    """Whole lattices (no envelope: the dense boxes of ``pair-decode
+    --method split|align``) of ~150-200 and ~300-500 columns: bit-equal
+    to the plain version in the storage path the wave takes, and with its
+    storage forced into global scratch."""
+    wls = row_pairs(model, 13, 3, lo, hi)
+    prep = prb.prepare_rows(wls, device=cuda_device, model=model)
+    assert prb.storage_path(prep) == path
+    args = (*prep["dev"], prep["meta"], 5, 4, prep["model_id"])
+    want = tb.row_scan(*args)
+    for storage in (None, "global"):
+        same_outputs(prb._launch(*args, storage=storage), want)
+
+
+@pytest.mark.cuda
 def test_main_path_counts_launches(cuda_device):
     before = prb.launch_count
     wls = row_pairs("ctc", 14, 2, 10, 20, half_width=8)
